@@ -1,8 +1,9 @@
 """Smoke test of the torch port on one CUDA GPU: builds the hand-written
 kernels from `multi_adapter_particles_torch/csrc`, holds each against its
-plain torch twin at the main path's shapes, then runs the port's CLI main
-path (4,194,304 particles, central well, 1024x1024 split frame loop) and
-checks that it went through both kernels and produced a sane frame.
+plain torch twin at the main paths' shapes, then runs the port's CLI main
+paths (4,194,304 particles, central well; 1,048,576 particles, all-pairs
+self-gravity; both 1024x1024 split frame loops) and checks that each went
+through its kernels and produced a sane frame.
 
     python3 chip_smoke.py
 
@@ -14,6 +15,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    chunk of the 4M state (Q=256) and for 262,144 particles (Q=64)
 5. main path: `multi_adapter_particles_torch.app.main`, launch counters
 6. the final state's frame through the kernel vs through the plain twin
+7. all-pairs rectangle kernel vs plain: 4,096 targets spread over the
+   1,048,576-particle state against all its sources (float32 twin and a
+   float64 evaluation); kernel time at the full 1M
+8. all-pairs half-pair kernel vs plain at 131,072 and vs the rectangle
+   kernel at 1,048,576; kernel times at 1M
+9. half-pair fallback at an untileable N (100,096) is bitwise the rectangle
+   kernel; both kernels run twice at 1M give equal results
+10. all-pairs main path: `app.main -force all_pairs` at 1,048,576, 8 frames
+    of the half-pair schedule, then 6 with -rectpair; launch counters
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -30,6 +40,12 @@ import time
 N_MAIN = 4_194_304
 STEPS = 40
 WIDTH = HEIGHT = 1024
+N_AP = 1_048_576          # the all-pairs path (BASELINE.json's 1M)
+AP_SAMPLE = 4_096         # rectangle targets held against the plain twin
+N_HALF_CHECK = 131_072    # 256 tiles of 512: half-pair kernel vs plain
+N_UNTILEABLE = 100_096    # padded 100,000: not a multiple of 512
+AP_STEPS_HALF = 8
+AP_STEPS_RECT = 6
 
 
 def log(msg: str) -> None:
@@ -100,31 +116,44 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from multi_adapter_particles_torch.ops import _build
-    from multi_adapter_particles_torch.ops import central_well, composite
+    from multi_adapter_particles_torch.ops import allpairs, central_well, composite
 
     log("phase 2: build")
+    sources = (("central_well", central_well, ()),
+               ("composite", composite, composite._NVCC_FLAGS),
+               ("allpairs", allpairs, ()))
+
+    def ptxas_report(name, extra, tmp):
+        """register / spill lines of one source (compile only, no library)"""
+        cmd = [_build.nvcc_path(), "-gencode",
+               "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               *extra, "-Xptxas", "-v", "-cubin",
+               "-o", os.path.join(tmp, f"{name}.cubin"),
+               str(_build.CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            fail(f"ptxas report for {name}: {proc.stderr}")
+        return [line.strip() for line in (proc.stdout + proc.stderr)
+                .splitlines() if "registers" in line or "spill" in line]
+
     t0 = time.perf_counter()
-    central_well._library()
-    composite._library()
-    log(f"  built/loaded both kernels in {time.perf_counter() - t0:.2f} s "
-        f"({_build.BUILD_DIR})")
-    # register / spill report of each kernel (compile only, no library)
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, extra in (("central_well", ()),
-                            ("composite", composite._NVCC_FLAGS)):
-            cmd = [_build.nvcc_path(), "-gencode",
-                   "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                   *extra, "-Xptxas", "-v", "-cubin",
-                   "-o", os.path.join(tmp, f"{name}.cubin"),
-                   str(_build.CSRC_DIR / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=300)
-            if proc.returncode != 0:
-                fail(f"ptxas report for {name}: {proc.stderr}")
-            for line in (proc.stdout + proc.stderr).splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+    # one nvcc per source and per report, all started together
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(2 * len(sources)) as pool:
+        libs = [pool.submit(mod._library) for _, mod, _ in sources]
+        reports = [(name, pool.submit(ptxas_report, name, extra, tmp))
+                   for name, _, extra in sources]
+        for fut in libs:
+            fut.result()
+        log(f"  built/loaded the {len(sources)} kernel sources in "
+            f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR})")
+        for name, fut in reports:
+            for line in fut.result():
+                log(f"  ptxas {name}: {line}")
 
 
 def phase_central_well(dev):
@@ -229,17 +258,12 @@ def phase_composite(dev):
             "ms_262k": times["262K"][0], "plain_ms_262k": times["262K"][1]}
 
 
-def phase_main_path(dev):
-    import statistics
-
+def _run_app(argv, steps):
+    """app.main with -metrics; returns (metrics dict, what on_exit saw)."""
     import torch
 
     from multi_adapter_particles_torch import app
-    from multi_adapter_particles_torch.ops.central_well import central_well_step
-    from multi_adapter_particles_torch.ops.composite import composite_rows
 
-    log(f"phase 5: main path — app.main -numparticles {N_MAIN} -steps {STEPS}"
-        f" at {WIDTH}x{HEIGHT}")
     seen = {}
 
     def on_exit(particles):
@@ -249,35 +273,22 @@ def phase_main_path(dev):
         seen["truncated"] = int(out.truncated)
         seen["frames"] = particles.frame_count
         seen["device"] = particles.compute.device
+        seen["config"] = particles.compute.config
+        seen["rate"] = particles.metrics.rate("interactions")
         seen["renderer"] = particles.render.renderer
         seen["camera"] = particles.render.camera
 
     with tempfile.TemporaryDirectory() as tmp:
         metrics_path = os.path.join(tmp, "metrics.json")
-        central_well_step.launches = 0
-        composite_rows.launches = 0
-        t0 = time.perf_counter()
-        rc = app.main(["-numparticles", str(N_MAIN), "-steps", str(STEPS),
-                       "-novsync", "-nogui", "-width", str(WIDTH),
-                       "-height", str(HEIGHT), "-metrics", metrics_path],
-                      on_exit=on_exit)
-        wall = time.perf_counter() - t0
-        launches = {"central_well": central_well_step.launches,
-                    "composite": composite_rows.launches}
+        rc = app.main(argv + ["-metrics", metrics_path], on_exit=on_exit)
         if rc != 0:
-            fail(f"app.main returned {rc}")
+            fail(f"app.main {argv} returned {rc}")
         with open(metrics_path) as f:
             metrics = json.load(f)
-    log(f"  app.main: rc 0, {seen['frames']} frames in {wall:.2f} s wall "
-        f"(first-frame costs included), launches {launches}")
+    if seen["frames"] != steps:
+        fail(f"{seen['frames']} frames, expected {steps}")
     if seen["device"].type != "cuda":
         fail(f"compute ran on {seen['device']}, not the GPU")
-    if launches["central_well"] < STEPS:
-        fail(f"central-well kernel launched {launches['central_well']} times"
-             f" in {STEPS} frames")
-    if launches["composite"] < 4 * STEPS:
-        fail(f"composite kernel launched {launches['composite']} times in "
-             f"{STEPS} frames of 4 chunks")
     if not torch.isfinite(seen["position"]).all():
         fail("non-finite positions after the main path")
     frame = seen["frame"]
@@ -287,6 +298,34 @@ def phase_main_path(dev):
         fail("the last frame is all zero")
     if seen["truncated"] != 0:
         fail(f"the last frame truncated {seen['truncated']} tile entries")
+    return metrics, seen
+
+
+def phase_main_path(dev):
+    import statistics
+
+    from multi_adapter_particles_torch.ops.central_well import central_well_step
+    from multi_adapter_particles_torch.ops.composite import composite_rows
+
+    log(f"phase 5: main path — app.main -numparticles {N_MAIN} -steps {STEPS}"
+        f" at {WIDTH}x{HEIGHT}")
+    central_well_step.launches = 0
+    composite_rows.launches = 0
+    t0 = time.perf_counter()
+    metrics, seen = _run_app(
+        ["-numparticles", str(N_MAIN), "-steps", str(STEPS), "-novsync",
+         "-nogui", "-width", str(WIDTH), "-height", str(HEIGHT)], STEPS)
+    wall = time.perf_counter() - t0
+    launches = {"central_well": central_well_step.launches,
+                "composite": composite_rows.launches}
+    log(f"  app.main: rc 0, {seen['frames']} frames in {wall:.2f} s wall "
+        f"(first-frame costs included), launches {launches}")
+    if launches["central_well"] < STEPS:
+        fail(f"central-well kernel launched {launches['central_well']} times"
+             f" in {STEPS} frames")
+    if launches["composite"] < 4 * STEPS:
+        fail(f"composite kernel launched {launches['composite']} times in "
+             f"{STEPS} frames of 4 chunks")
     dev_frames = metrics["gauges"].get("device_frame_ms", [])[-30:]
     if len(dev_frames) < 10:
         fail(f"only {len(dev_frames)} CUDA-event frame samples")
@@ -296,6 +335,7 @@ def phase_main_path(dev):
         f"{frame_ms:.3f}; simulate ms {stages['simulate']:.3f}, render ms "
         f"{stages['render']:.3f} (20-sample EMA); host frameTime ms "
         f"{metrics['frame_ms']:.3f}")
+    frame = seen["frame"]
     log(f"  last frame: max {float(frame.max()):.4f}, mean "
         f"{float(frame.mean()):.5f}, truncated 0")
     return launches, seen, {"frame_ms": frame_ms,
@@ -318,6 +358,216 @@ def phase_full_frame(seen):
     return check_close("frame", with_kernel, with_plain, 0.0, 1e-5)
 
 
+def check_rel(name: str, got, want, rel: float) -> float:
+    """Fail unless max |got - want| <= rel * max |want[:3]| over all four
+    channels (ax, ay, az, |a|); returns the max abs error."""
+    import torch
+
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite kernel output")
+    scale = float(want[:3].abs().max())
+    err = float((got.to(want.dtype) - want).abs().max())
+    if not err <= rel * scale:
+        fail(f"{name}: max abs err {err:.3e} > {rel} x max|a| {scale:.3e}")
+    log(f"  {name}: max abs err {err:.3e} = {err / scale:.2e} of max|a| "
+        f"{scale:.3e} (limit {rel})")
+    return err
+
+
+def _ap_state(dev, n):
+    import torch
+
+    from multi_adapter_particles_torch.models import init as pinit
+
+    return pinit.initialize_particles_device(
+        n, torch.Generator(device=dev).manual_seed(0), device=dev).position
+
+
+def _ap_phys(n):
+    from multi_adapter_particles_torch import constants as C
+
+    # the engine's auto interaction scale, 1/N
+    return dict(mass=C.PARTICLE_MASS, softening_squared=C.SOFTENING_SQUARED,
+                interaction_scale=1.0 / n)
+
+
+def phase_allpairs_rect(dev):
+    import torch
+
+    from multi_adapter_particles_torch.ops.allpairs import (
+        all_pairs_accel,
+        all_pairs_accel_plain,
+    )
+
+    log(f"phase 7: all-pairs rectangle kernel vs plain, {AP_SAMPLE:,} "
+        f"targets x {N_AP:,} sources")
+    pos = _ap_state(dev, N_AP)
+    phys = _ap_phys(N_AP)
+    idx = torch.linspace(0, N_AP - 1, AP_SAMPLE, device=dev).long()
+    tgt = pos[:, idx].contiguous()
+    k = all_pairs_accel(tgt, sources=pos, **phys)
+    p32 = all_pairs_accel_plain(tgt, sources=pos, **phys)
+    p64 = all_pairs_accel_plain(tgt.double(), sources=pos.double(), **phys)
+    torch.cuda.synchronize()
+    # Both are float32 sums of 1M terms in different orders (the twin:
+    # torch's tree sums over 16k-source blocks; the kernel: 4 chains a
+    # 256-source tile, Kahan over tiles), each ~1e-6 of max|a| from the
+    # float64 sum: 1e-5 leaves 10x room. The kernel's RMS error against
+    # float64 must be no worse than 2x the float32 twin's.
+    err = check_rel("rect vs plain f32", k, p32, 1e-5)
+    check_rel("rect vs plain f64", k, p64, 1e-5)
+    rms_k = float(((k[:3].double() - p64[:3]) ** 2).mean().sqrt())
+    rms_p = float(((p32[:3].double() - p64[:3]) ** 2).mean().sqrt())
+    log(f"  RMS error vs float64: kernel {rms_k:.3e}, f32 twin {rms_p:.3e}")
+    if not rms_k <= 2.0 * rms_p:
+        fail(f"rect kernel RMS error {rms_k:.3e} > 2x the twin's {rms_p:.3e}")
+    ms = time_ms(lambda: all_pairs_accel(tgt, sources=pos, **phys), reps=5)
+    plain_ms = time_ms(lambda: all_pairs_accel_plain(tgt, sources=pos,
+                                                     **phys), reps=2,
+                       warmup=1)
+    full = all_pairs_accel(pos, **phys)  # the 1M result, kept for phase 8
+    ms_1m = time_ms(lambda: all_pairs_accel(pos, **phys), reps=2, warmup=0)
+    log(f"  sampled: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; full "
+        f"{N_AP:,}: kernel {ms_1m:.3f} ms = {N_AP * N_AP / (ms_1m * 1e-3):.4e} "
+        f"pairs/s")
+    if not torch.equal(full[:, idx], k):
+        fail("the sampled targets' rows differ from the full 1M result")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "ms_1m": ms_1m}, full
+
+
+def phase_allpairs_half(dev, rect_1m):
+    import torch
+
+    from multi_adapter_particles_torch.ops.allpairs import (
+        all_pairs_accel_halfpair,
+        all_pairs_accel_halfpair_plain,
+    )
+
+    log(f"phase 8: all-pairs half-pair kernel vs plain @ {N_HALF_CHECK:,}, "
+        f"vs the rectangle kernel @ {N_AP:,}")
+    pos = _ap_state(dev, N_HALF_CHECK)
+    phys = _ap_phys(N_HALF_CHECK)
+    k = all_pairs_accel_halfpair(pos, **phys)
+    p = all_pairs_accel_halfpair_plain(pos, **phys)
+    torch.cuda.synchronize()
+    # the same tile pairs summed in another order, as in phase 7
+    err = check_rel("half vs plain", k, p, 1e-5)
+    ms = time_ms(lambda: all_pairs_accel_halfpair(pos, **phys), reps=5)
+    plain_ms = time_ms(lambda: all_pairs_accel_halfpair_plain(pos, **phys),
+                       reps=2, warmup=1)
+    del pos, k, p
+    pos = _ap_state(dev, N_AP)
+    phys = _ap_phys(N_AP)
+    half = all_pairs_accel_halfpair(pos, **phys)
+    torch.cuda.synchronize()
+    # two schedules of the same sum (the JAX test: 5e-6 at 2048)
+    check_rel("half vs rect @1M", half, rect_1m, 2e-5)
+    ms_1m = time_ms(lambda: all_pairs_accel_halfpair(pos, **phys), reps=2,
+                    warmup=0)
+    log(f"  {N_HALF_CHECK:,}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+        f"{N_AP:,}: kernel {ms_1m:.3f} ms = "
+        f"{N_AP * N_AP / (ms_1m * 1e-3):.4e} effective pairs/s")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "ms_1m": ms_1m}, half
+
+
+def phase_allpairs_exact(dev, rect_1m, half_1m):
+    import torch
+
+    from multi_adapter_particles_torch.ops.allpairs import (
+        all_pairs_accel,
+        all_pairs_accel_halfpair,
+    )
+
+    log(f"phase 9: half-pair fallback @ {N_UNTILEABLE:,}, run-to-run "
+        f"determinism @ {N_AP:,}")
+    pos = _ap_state(dev, 100_000)
+    if pos.shape[1] != N_UNTILEABLE:
+        fail(f"padded count {pos.shape[1]} != {N_UNTILEABLE}")
+    phys = _ap_phys(100_000)
+    if not torch.equal(all_pairs_accel_halfpair(pos, **phys),
+                       all_pairs_accel(pos, **phys)):
+        fail("the half-pair wrapper at an untileable N is not the "
+             "rectangle kernel bit for bit")
+    log("  fallback: bitwise the rectangle kernel")
+    del pos
+    pos = _ap_state(dev, N_AP)
+    phys = _ap_phys(N_AP)
+    for name, fn, first in (("rect", all_pairs_accel, rect_1m),
+                            ("half", all_pairs_accel_halfpair, half_1m)):
+        again = fn(pos, **phys)
+        torch.cuda.synchronize()
+        if not torch.equal(again, first):
+            fail(f"{name} kernel: two runs at 1M differ")
+        log(f"  {name}: two runs at {N_AP:,} bitwise equal")
+
+
+def phase_allpairs_main_path():
+    import statistics
+
+    from multi_adapter_particles_torch.ops.allpairs import (
+        all_pairs_accel,
+        all_pairs_accel_halfpair,
+    )
+    from multi_adapter_particles_torch.ops.composite import composite_rows
+
+    base = ["-force", "all_pairs", "-numparticles", str(N_AP), "-novsync",
+            "-nogui", "-width", str(WIDTH), "-height", str(HEIGHT)]
+    results = {}
+    launches = {}
+    for label, extra, steps, counter in (
+            ("half", [], AP_STEPS_HALF, all_pairs_accel_halfpair),
+            ("rect", ["-rectpair"], AP_STEPS_RECT, all_pairs_accel)):
+        log(f"phase 10: all-pairs main path ({label}) — app.main "
+            f"{' '.join(base + extra)} -steps {steps}")
+        all_pairs_accel.launches = 0
+        all_pairs_accel_halfpair.launches = 0
+        composite_rows.launches = 0
+        t0 = time.perf_counter()
+        metrics, seen = _run_app(base + extra + ["-steps", str(steps)], steps)
+        wall = time.perf_counter() - t0
+        got = {"all_pairs_rect": all_pairs_accel.launches,
+               "all_pairs_half": all_pairs_accel_halfpair.launches,
+               "composite": composite_rows.launches}
+        log(f"  rc 0, {steps} frames in {wall:.2f} s wall, launches {got}")
+        if seen["config"].all_pairs_half != (label == "half"):
+            fail(f"{label}: the run's config has all_pairs_half="
+                 f"{seen['config'].all_pairs_half}")
+        if counter.launches < steps:
+            fail(f"{label}: the all-pairs kernel launched "
+                 f"{counter.launches} times in {steps} frames")
+        if got["composite"] < steps:
+            fail(f"{label}: the composite kernel launched "
+                 f"{got['composite']} times in {steps} frames")
+        launches[label] = got
+        # frame intervals past the timer's warm-up frames
+        dev_frames = metrics["gauges"].get("device_frame_ms", [])
+        if len(dev_frames) < steps - 3:
+            fail(f"only {len(dev_frames)} CUDA-event frame samples")
+        frame_ms = statistics.median(dev_frames)
+        stages = metrics["stages_ms"]
+        pairs = metrics["counters"]["interactions"] / steps
+        results[label] = {
+            "frame_ms": frame_ms, "simulate_ms": stages["simulate"],
+            "render_ms": stages["render"],
+            "pairs_per_s": pairs / (frame_ms * 1e-3),
+            "interactions_per_s_wall": seen["rate"],
+        }
+        log(f"  ms/step (CUDA events, median of {len(dev_frames)} frames): "
+            f"{frame_ms:.2f}; simulate ms {stages['simulate']:.2f}, render "
+            f"ms {stages['render']:.3f} (EMA); {pairs:.6e} pairs/step -> "
+            f"{results[label]['pairs_per_s']:.4e} pairs/s of device frame "
+            f"time; interactions/s (wall, setup included) "
+            f"{seen['rate']:.4e}")
+        log(f"  last frame: max {float(seen['frame'].max()):.4f}, mean "
+            f"{float(seen['frame'].mean()):.5f}, truncated 0")
+        del seen
+    return launches, results
+
+
 def main() -> int:
     phase_device()
     import torch
@@ -330,6 +580,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches, seen, frame = phase_main_path(dev)
     frame_err = phase_full_frame(seen)
+    del seen
+    torch.cuda.empty_cache()
+    rect, rect_1m = phase_allpairs_rect(dev)
+    half, half_1m = phase_allpairs_half(dev, rect_1m)
+    phase_allpairs_exact(dev, rect_1m, half_1m)
+    del rect_1m, half_1m
+    torch.cuda.empty_cache()
+    ap_launches, ap_path = phase_allpairs_main_path()
     kernels = [
         {"name": "central_well", "route": "cuda",
          "source": "multi_adapter_particles_torch/csrc/central_well.cu",
@@ -343,9 +601,25 @@ def main() -> int:
          "launches": launches["composite"],
          "max_abs_err": max(comp["max_abs_err"], frame_err),
          "ms": comp["ms"], "plain_ms": comp["plain_ms"]},
+        {"name": "all_pairs_rect", "route": "cuda",
+         "source": "multi_adapter_particles_torch/csrc/allpairs.cu",
+         "replaces": "multi_adapter_particles_tpu/ops/allpairs.py:47",
+         "launches": ap_launches["rect"]["all_pairs_rect"],
+         "max_abs_err": rect["max_abs_err"], "ms": rect["ms"],
+         "plain_ms": rect["plain_ms"]},
+        {"name": "all_pairs_half", "route": "cuda",
+         "source": "multi_adapter_particles_torch/csrc/allpairs.cu",
+         "replaces": "multi_adapter_particles_tpu/ops/allpairs.py:269",
+         "launches": ap_launches["half"]["all_pairs_half"],
+         "max_abs_err": half["max_abs_err"], "ms": half["ms"],
+         "plain_ms": half["plain_ms"]},
     ]
     log(f"main path: {json.dumps(frame)}; composite @262K Q=64: kernel "
         f"{comp['ms_262k']:.4f} ms, plain {comp['plain_ms_262k']:.4f} ms")
+    log(f"all-pairs @{N_AP:,}: rect kernel {rect['ms_1m']:.3f} ms, half "
+        f"kernel {half['ms_1m']:.3f} ms; main path {json.dumps(ap_path)}; "
+        f"composite launches on it {ap_launches['half']['composite']} + "
+        f"{ap_launches['rect']['composite']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

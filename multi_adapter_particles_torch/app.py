@@ -2,15 +2,17 @@
 
 `python -m multi_adapter_particles_torch` runs the split frame loop of the
 JAX package's app (`multi_adapter_particles_tpu/app.py`) on torch devices:
-the central-well simulation plus the exact splat render, by default at the
-reference's 4,194,304 particles in a 1024x1024 window on one GPU.
+the simulation (the central well, or `-force all_pairs` self-gravity) plus
+the exact splat render, by default at the reference's 4,194,304 particles
+in a 1024x1024 window on one GPU.
 
 Flags follow the reference (`Particles.cpp:251-267`): numparticles, nogui,
 noext, size, intensity, novsync, fullscreen, numCopy, numDraw, numSim; `?`
-prints help (`ArgParser.h:105-127`). Extensions: steps, seed, force
-(central_well only so far), adapter indices, frame size, frame dumping,
-metrics JSON, hard-sync stage profiling. The JAX package's other flags
-belong to slices not ported yet: they exit with status 2 and say so.
+prints help (`ArgParser.h:105-127`). Extensions: preset, steps, seed,
+force (central_well or all_pairs so far), interactionscale, rectpair /
+halfpair, adapter indices, frame size, frame dumping, metrics JSON,
+hard-sync stage profiling. The JAX package's other flags, force models and
+presets belong to slices not ported yet: they exit with status 2 and say so.
 """
 
 from __future__ import annotations
@@ -28,9 +30,6 @@ _LATER_FLAGS = {
     "fused": "item 7",
     "meshdevices": "item 14",
     "shardrender": "item 14",
-    "interactionscale": "items 8-10",
-    "rectpair": "item 8",
-    "halfpair": "item 8",
     "pmgrid": "items 9-10",
     "pmbox": "items 9-10",
     "p3mcutoff": "item 10",
@@ -47,7 +46,6 @@ _LATER_FLAGS = {
     "resume": "item 13",
     "dashboard": "item 13",
     "serve": "item 13",
-    "preset": "item 6",
     "timerwindow": "item 5",
     "interactive": "item 5",
     "trace": "item 5",
@@ -55,10 +53,10 @@ _LATER_FLAGS = {
 }
 # flags among those that take a value
 _LATER_VALUED = {
-    "meshdevices", "interactionscale", "pmgrid", "pmbox", "p3mcutoff",
+    "meshdevices", "pmgrid", "pmbox", "p3mcutoff",
     "p3mcapacity", "p3mnear", "p3mbudget", "probecache", "diagnostics",
     "diagmode", "checkpoint", "checkpointevery", "resume", "dashboard",
-    "serve", "preset", "timerwindow", "trace", "compilecache",
+    "serve", "timerwindow", "trace", "compilecache",
 }
 
 
@@ -96,11 +94,35 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
     p.add_int("numcopy", "# particles transferred per frame", unlink_and_set("num_copy"))
     p.add_int("numdraw", "# particles drawn per frame", unlink_and_set("num_draw"))
 
+    not_ported = extra.setdefault("not_ported", [])
+
+    def preset(name):
+        from multi_adapter_particles_torch.presets import apply_preset
+
+        err = apply_preset(name, app, extra)
+        if err:
+            not_ported.append(err)
+
+    p.add_str("preset", "named benchmark config (see presets.py; later "
+              "flags override it)", preset)
     p.add_int("steps", "number of frames to run (0 = forever)",
               lambda v: extra.__setitem__("steps", v))
     p.add_int("seed", "init RNG seed", lambda v: extra.__setitem__("seed", v))
-    p.add_str("force", "force model: central_well (the others are not "
-              "ported yet)", lambda v: extra.__setitem__("force", v))
+    p.add_str("force", "force model: central_well | all_pairs (pm_grid and "
+              "p3m are not ported yet)",
+              lambda v: extra.__setitem__("force", v))
+    p.add_float("interactionscale",
+                "per-pair force multiplier (default: auto — 1/N for the "
+                "self-gravity models, keeping the total mass at the "
+                "central-well value; 1.0 for central_well)",
+                lambda v: extra.__setitem__("interaction_scale", v))
+    p.add_flag("rectpair",
+               "all_pairs: the directed rectangle kernel instead of the "
+               "(default) Newton-3rd half-pair schedule",
+               lambda: extra.__setitem__("all_pairs_half", False))
+    p.add_flag("halfpair",
+               "all_pairs: the Newton-3rd half-pair schedule (the default)",
+               lambda: extra.__setitem__("all_pairs_half", True))
     p.add_int("computeadapter", "compute adapter index",
               lambda v: extra.__setitem__("compute_adapter", v))
     p.add_int("renderadapter", "render adapter index",
@@ -122,7 +144,6 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
     p.add_flag("listadapters", "print the adapter list and exit",
                lambda: extra.__setitem__("list_adapters", True))
 
-    not_ported = extra.setdefault("not_ported", [])
     for name, item in _LATER_FLAGS.items():
         msg = f"-{name}: not yet ported (ROADMAP queue 1 {item})"
         if name in _LATER_VALUED:
@@ -155,10 +176,13 @@ def main(argv: Optional[List[str]] = None,
     unmatched = parser.parse(argv)
     if unmatched:
         print(f"warning: unmatched args {unmatched}", file=sys.stderr)
+    from multi_adapter_particles_torch.models.integrator import NOT_PORTED_FORCE
+
     force = extra.get("force", "central_well")
-    if force != "central_well":
+    if force in NOT_PORTED_FORCE:
         extra["not_ported"].append(
-            f"-force {force}: not yet ported (ROADMAP queue 1 items 8-11)"
+            f"-force {force}: not yet ported (ROADMAP "
+            f"{NOT_PORTED_FORCE[force]})"
         )
     if extra["not_ported"]:
         for msg in extra["not_ported"]:
@@ -174,7 +198,13 @@ def main(argv: Optional[List[str]] = None,
             print(f"[{a.index}] {a.platform:4s} {a.description}")
         return 0
 
-    sim_cfg = SimConfig(num_particles=app_cfg.num_particles, force_model=force)
+    sim_cfg = SimConfig(
+        num_particles=app_cfg.num_particles,
+        force_model=force,
+        # None = auto: 1.0 for central_well, 1/N for all_pairs
+        interaction_scale=extra.get("interaction_scale"),
+        all_pairs_half=extra.get("all_pairs_half", SimConfig.all_pairs_half),
+    )
     render_cfg = RenderConfig(
         width=extra.get("width", RenderConfig.width),
         height=extra.get("height", RenderConfig.height),

@@ -3,8 +3,8 @@
 The port's own copy of the JAX package's `config.py` (that package cannot
 be imported without jax): the same fields, defaults and `resolved_counts`.
 Every force model is accepted here so configs round-trip between the two
-packages; the port's engine runs `central_well` only and raises
-`NotImplementedError` for the others (ROADMAP queue 1 items 8-11).
+packages; the port's engine runs `central_well` and `all_pairs` and raises
+`NotImplementedError` for `pm_grid` and `p3m` (ROADMAP queue 1 items 9-11).
 
 The reference has compile-time defines (`defines.h`), a CLI (`ArgParser`,
 `Particles.cpp:248-270`) and runtime GUI toggles with prev-value change
@@ -37,10 +37,12 @@ class SimConfig:
     damping: float = C.DAMPING
     mass: float = C.PARTICLE_MASS
     softening_squared: float = C.SOFTENING_SQUARED
-    # 'central_well' = the shipped CSMain (nBodyGravityCS.hlsl:85-109), the
-    # only model this package runs so far. The other names are the JAX
-    # package's self-gravity models (all_pairs, pm_grid, p3m); the fields
-    # below configure them and keep the JAX package's meaning and defaults.
+    # 'central_well' = the shipped CSMain (nBodyGravityCS.hlsl:85-109);
+    # 'all_pairs' = the exact O(N^2) self-gravity (bodyBodyInteraction,
+    # nBodyGravityCS.hlsl:44-57), half-pair schedule unless all_pairs_half
+    # is False. pm_grid and p3m are the JAX package's other self-gravity
+    # models, not ported yet; the fields below configure them and keep the
+    # JAX package's meaning and defaults.
     force_model: str = "central_well"
     # Per-interaction multiplier; None = auto: 1.0 for central_well, 1/N for
     # the self-gravity models (keeps the total mass at the well's value).

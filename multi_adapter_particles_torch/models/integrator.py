@@ -1,4 +1,4 @@
-"""Central-well integrator over SoA ParticleState (plain torch).
+"""Integrators over SoA ParticleState (plain torch around the kernels).
 
 The reference's `Compute::Simulate` dispatch (`Compute.cpp:1009-1055`) is a
 step `state -> state`. The JAX package donates the input buffer to the
@@ -6,21 +6,32 @@ output; here the caller may pass `out`, the other half of a preallocated
 pair (see `runtime/compute_engine.py`), and the step writes the new state
 there instead of into the state it reads.
 
-This is the plain path — the one the compute engine runs on the CPU and
-the twin of the fused CUDA kernel in `ops/central_well.py` — with the JAX
-package's op order (`models/integrator.py:39-48,109-139`), so a CPU run
-tracks the JAX package's to float32 rounding.
+Force models:
+
+- `central_well_accel`: the shipped CSMain math (`nBodyGravityCS.hlsl:92-101`).
+  With the Euler tail below it is the plain path of the central well — the
+  one the compute engine runs on the CPU and the twin of the fused CUDA
+  kernel in `ops/central_well.py`.
+- `all_pairs_accel`: the O(N^2) `bodyBodyInteraction` sum
+  (`nBodyGravityCS.hlsl:44-57`), the twin of the JAX package's XLA blocked
+  sum with its padding mask. The engine runs the kernels of
+  `ops/allpairs.py` instead (on the CPU, their plain twins), as the JAX
+  engine runs its Pallas kernels; `make_accel_fn_for` makes the same choice.
+
+The op order is the JAX package's (`models/integrator.py:39-139`), so a CPU
+run tracks the JAX package's to float32 rounding.
 
 The `num_sim` knob (`Particles.cpp:265`, `Compute.cpp:1041`: dispatch
 ceil(numSim/64) groups, the rest of the buffer keeps its old values) is a
 lane mask: particles past num_sim rounded up to 64 keep their old state
 bit for bit, and are copied into the fresh buffer.
 
-Only `central_well` is ported; the self-gravity models raise.
+`pm_grid` and `p3m` are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -28,12 +39,12 @@ import torch
 from multi_adapter_particles_torch import constants as C
 from multi_adapter_particles_torch.config import SimConfig
 from multi_adapter_particles_torch.models.state import ParticleState
+from multi_adapter_particles_torch.ops import allpairs
 
 Tensor = torch.Tensor
 
 # ROADMAP queue 1 items that port the other force models.
 NOT_PORTED_FORCE = {
-    "all_pairs": "queue 1 item 8",
     "pm_grid": "queue 1 item 9",
     "p3m": "queue 1 items 10-11",
 }
@@ -41,7 +52,7 @@ NOT_PORTED_FORCE = {
 
 def require_ported_force(config: SimConfig) -> None:
     """Raise for a force model this package does not run yet."""
-    if config.force_model != "central_well":
+    if config.force_model in NOT_PORTED_FORCE:
         raise NotImplementedError(
             f"force model {config.force_model!r} is not ported to "
             f"multi_adapter_particles_torch yet (ROADMAP "
@@ -58,6 +69,44 @@ def central_well_accel(position: Tensor, mass: float,
     inv_dist = -torch.rsqrt(dist_sqr)
     s = (inv_dist * inv_dist * inv_dist) * mass
     return r * s
+
+
+def all_pairs_accel(
+    position: Tensor,
+    mass: float,
+    softening_squared: float,
+    interaction_scale: float = 1.0,
+    mask: Optional[Tensor] = None,
+    j_tile: int = 1024,
+    sources: Optional[Tensor] = None,
+) -> Tensor:
+    """accel_i = sum_j (p_j - p_i) * mass*scale / (|p_j - p_i|^2 + eps^2)^{3/2}.
+
+    The blocked sum over j-tiles; `mask` (float 0/1 per j) excludes padding
+    from the sum; `sources` ([4, Nj], default = position) selects the j-side
+    bodies (the split form of the multi-device ring). Self pairs contribute
+    exactly zero. position [4, Np] -> accel [3, Np]."""
+    p = position[:3]
+    src = p if sources is None else sources[:3]
+    n = src.shape[1]
+    if n % j_tile != 0:
+        j_tile = n  # one tile for odd sizes, as the JAX package does
+    if mask is None:
+        mask = torch.ones((n,), dtype=p.dtype, device=p.device)
+    scale = (torch.tensor(mass, dtype=torch.float32)
+             * torch.tensor(interaction_scale, dtype=torch.float32))
+    acc = torch.zeros_like(p)
+    for j0 in range(0, n, j_tile):
+        pj = src[:, j0:j0 + j_tile]
+        dx = pj[0][None, :] - p[0][:, None]
+        dy = pj[1][None, :] - p[1][:, None]
+        dz = pj[2][None, :] - p[2][:, None]
+        d2 = dx * dx + dy * dy + dz * dz + softening_squared
+        inv = torch.rsqrt(d2)
+        s = (inv * inv * inv) * mask[None, j0:j0 + j_tile]
+        acc = acc + torch.stack([(dx * s).sum(1), (dy * s).sum(1),
+                                 (dz * s).sum(1)])
+    return acc * scale
 
 
 def euler_update(position: Tensor, velocity: Tensor, accel: Tensor,
@@ -92,16 +141,41 @@ def _apply_num_sim_mask(new_pos: Tensor, new_vel: Tensor, old: ParticleState,
     )
 
 
-def make_step(config: SimConfig) -> Callable[..., ParticleState]:
-    """The plain `step(state, num_sim=None, out=None) -> ParticleState`.
-    With `out` the result is written into that state's tensors (which must
-    not be `state`'s)."""
+def make_accel_fn_for(config: SimConfig) -> Callable[[Tensor], Tensor]:
+    """The run's own accel function (position [4, Np] -> accel [3, Np]):
+    exactly the force the compute engine applies each step. For all_pairs
+    that is the kernel `config.all_pairs_half` selects (the half-pair or the
+    rectangle schedule of `ops/allpairs.py`) on a CUDA tensor, and that
+    kernel's plain twin on a CPU tensor, as the JAX package's mirrors its
+    engine's Pallas choice (`models/integrator.py:183-200`)."""
     require_ported_force(config)
+    if config.force_model == "central_well":
+        return functools.partial(
+            central_well_accel, mass=config.mass,
+            softening_squared=config.softening_squared,
+        )
+    return allpairs.make_accel_fn(
+        mass=config.mass,
+        softening_squared=config.softening_squared,
+        interaction_scale=config.interaction_scale,
+        half=config.all_pairs_half,
+    )
+
+
+def make_step(
+    config: SimConfig,
+    accel_fn: Optional[Callable[[Tensor], Tensor]] = None,
+) -> Callable[..., ParticleState]:
+    """The `step(state, num_sim=None, out=None) -> ParticleState` of a
+    config's force model (`accel_fn` overrides it: position [4, Np] ->
+    accel [3, Np]). With `out` the result is written into that state's
+    tensors (which must not be `state`'s)."""
+    if accel_fn is None:
+        accel_fn = make_accel_fn_for(config)
 
     def step(state: ParticleState, num_sim: Optional[int] = None,
              out: Optional[ParticleState] = None) -> ParticleState:
-        accel = central_well_accel(state.position, config.mass,
-                                   config.softening_squared)
+        accel = accel_fn(state.position)
         new_pos, new_vel = euler_update(state.position, state.velocity,
                                         accel, config.dt, config.damping)
         new = _apply_num_sim_mask(new_pos, new_vel, state, num_sim)

@@ -10,8 +10,12 @@ Here:
   step reads `state` and writes the other one, never in place — the render
   engine may hold a zero-copy alias of `state` (async mode) and draws it
   stale-by-one;
-- the "PSO" is the fused CUDA kernel (`ops/central_well.py`) iff the device
-  is CUDA, else the plain torch step (`models/integrator.py`);
+- the "PSO" is, for the central well, the fused CUDA kernel
+  (`ops/central_well.py`) iff the device is CUDA, else the plain torch step
+  (`models/integrator.py`); for all_pairs, the step of
+  `integrator.make_step`: the accel kernel `all_pairs_half` selects
+  (`ops/allpairs.py`; its plain twin for a CPU state), then the Euler tail
+  with the num_sim freeze, written into the spare state;
 - the shared fence is stream order: `positions` handed to the render engine
   is the fence value (`Compute::GetFenceValue`, `Compute.cpp:446`);
 - `wait_for_gpu` is a hard device sync;
@@ -58,7 +62,7 @@ class ComputeEngine:
         self.metrics = metrics or MetricsRegistry()
         self.use_kernel = self.device.type == "cuda"
         # raises for a force model not ported yet
-        self._plain_step = integrator.make_step(sim_config)
+        self._step = integrator.make_step(sim_config)
         self.step_count = 0  # the shared fence value analog
 
         if prev is not None:
@@ -83,7 +87,7 @@ class ComputeEngine:
         state (also kept on self)."""
         cfg = self.config
         out = self._spare
-        if self.use_kernel:
+        if cfg.force_model == "central_well" and self.use_kernel:
             central_well_step(
                 self.state.position, self.state.velocity,
                 dt=cfg.dt, damping=cfg.damping, mass=cfg.mass,
@@ -94,13 +98,15 @@ class ComputeEngine:
                 out=(out.position, out.velocity),
             )
         else:
-            self._plain_step(self.state, num_sim, out=out)
+            self._step(self.state, num_sim, out=out)
         self._spare, self.state = self.state, out
         self.step_count += 1
-        self.metrics.count(
-            "interactions",
-            float(num_sim if num_sim is not None else cfg.num_particles),
-        )
+        # pairs for all_pairs (n_sim targets x every padded source, the same
+        # count for both schedules), particles for the central well
+        n_sim = float(num_sim if num_sim is not None else cfg.num_particles)
+        if cfg.force_model == "all_pairs":
+            n_sim *= self.state.padded_count
+        self.metrics.count("interactions", n_sim)
         return self.state
 
     @property

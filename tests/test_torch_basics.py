@@ -86,6 +86,8 @@ def test_port_never_imports_jax():
         "import multi_adapter_particles_torch.runtime.orchestrator\n"
         "import multi_adapter_particles_torch.ops.central_well\n"
         "import multi_adapter_particles_torch.ops.composite\n"
+        "import multi_adapter_particles_torch.ops.allpairs\n"
+        "import multi_adapter_particles_torch.presets\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('multi_adapter_particles_tpu')]\n"
         "assert not bad, bad\n"

@@ -142,7 +142,7 @@ class TestCentralWellTwin:
                                    rtol=2e-5, atol=2e-5)
 
     def test_force_models_not_ported_raise(self):
-        for model in ("all_pairs", "pm_grid", "p3m"):
+        for model in ("pm_grid", "p3m"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 integrator.make_step(SimConfig(num_particles=256,
                                                force_model=model))
