@@ -2,14 +2,16 @@
 kernels from `multi_adapter_particles_torch/csrc`, holds each against its
 plain torch twin at the main paths' shapes, then runs the port's CLI main
 paths (4,194,304 particles, central well; 1,048,576 particles, all-pairs
-self-gravity; both 1024x1024 split frame loops) and checks that each went
+self-gravity; 4,194,304 particles, pm_grid; 1,048,576 particles, tree-P3M
+self-gravity; 1024x1024 split frame loops) and checks that each went
 through its kernels and produced a sane frame.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 1. device check + the card's name and power limit (nvidia-smi)
-2. kernel build (nvcc, seconds printed; ptxas register report)
+2. kernel build (nvcc, seconds printed; ptxas register and spill report,
+   one line per kernel)
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
 4. composite kernel vs plain on the rows the renderer builds for one 1M
    chunk of the 4M state (Q=256) and for 262,144 particles (Q=64)
@@ -24,15 +26,40 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    kernel; both kernels run twice at 1M give equal results
 10. all-pairs main path: `app.main -force all_pairs` at 1,048,576, 8 frames
     of the half-pair schedule, then 6 with -rectpair; launch counters
+11. tree sweeps vs their twins at 262,144 (device init, auto grid G=128,
+    B=256, probed budget, dropped == 0): directed and Newton-3rd kernels
+    on the same lists, <= 1e-5 of max|a_near|; kernel (on lists prepared
+    once), wrapper and twin times, each kernel's issue bound at the sampled
+    SM clock
+12. sub-block expansion at 262,144: blocks of 1024 swept at 512 against
+    blocks of 256, <= 1e-5 of max|a_near|
+13. tree sweeps at 1,048,576 (G=192, B=512): each kernel vs its twin, the
+    Newton-3rd vs the directed kernel, each run twice bitwise; kernel,
+    wrapper, list-build and far-field (deposit, FFT solve, interpolation) times;
+    each kernel's issue bound at the sampled SM clock
+14. physics at 1,048,576: the full tree-P3M accel on 4,096 targets against
+    the exact all-pairs sum (rectangle kernel), RMS < 1% of max|a|
+15. long-range solve memory at G=192 and G=256 (max_memory_allocated per
+    grid cell, cold and warm) against the count `feasible_grid` uses
+16. pm_grid main path: `app.main -force pm_grid` at 4,194,304, G=128, 5
+    steps, no draw: finite state, ms/step
+17. tree-P3M main path: `app.main -force p3m -p3mnear tree` at 1,048,576
+    and 1024x1024, 8 frames of the Newton-3rd sweep then 6 with
+    -treedirected; launch counters, the run's config, the probe seconds
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The kernels line (before the last) has one entry per kernel with its
+launches on its main path, the error against its twin, kernel / twin times
+and the least time the card could take (`bound_ms`: bytes over 3.35 TB/s,
+or FP32-pipe instructions counted from the source over 132 SMs x 128 lanes
+at the SM clock sampled while the kernel ran); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import tempfile
 import time
@@ -46,6 +73,24 @@ N_HALF_CHECK = 131_072    # 256 tiles of 512: half-pair kernel vs plain
 N_UNTILEABLE = 100_096    # padded 100,000: not a multiple of 512
 AP_STEPS_HALF = 8
 AP_STEPS_RECT = 6
+N_TREE_CHECK = 262_144    # tree kernels vs twins (G=128, B=256)
+N_TREE = 1_048_576        # the tree-P3M path (G=192, B=512)
+TREE_SAMPLE = 4_096       # targets held against the exact sum
+TREE_STEPS_N3 = 8
+TREE_STEPS_DIRECTED = 6
+PM_STEPS = 5
+PM_GRID = 128
+BOX, CUTOFF = 2048.0, 6.75   # SimConfig's pm_box and p3m_cutoff_cells
+
+# The card's limits for `bound_ms` (NVIDIA's H100 SXM data sheet):
+# HBM bytes/s; FP32 lanes.
+HBM_BYTES_PER_S = 3.35e12
+SMS, FP32_LANES = 132, 128
+# FP32-pipe instructions per pair or pixel-slot, counted from the sources
+# (each source's header comment gives the tally)
+INSTR = {"all_pairs_rect": 11, "all_pairs_half_round": 14,
+         "all_pairs_half_diag": 11, "tree_sweep": 27, "tree_sweep_n3": 33,
+         "composite": 28}
 
 
 def log(msg: str) -> None:
@@ -115,16 +160,36 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name (and its first template argument, an int or a bool)
+    from its Itanium-mangled symbol:
+    `_ZN12_GLOBAL__N_120sweep_n3_pair_kernelILi4E...` ->
+    `sweep_n3_pair_kernel<4>`."""
+    s = mangled[2:].lstrip("N") if mangled.startswith("_Z") else mangled
+    name = s
+    while (m := re.match(r"\d+", s)):
+        n, start = int(m.group()), m.end()
+        name, s = s[start:start + n], s[start + n:]
+    t = re.match(r"IL[a-z]+(-?\d+)E", s)
+    return name + (f"<{t.group(1)}>" if t else "")
+
+
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from multi_adapter_particles_torch.ops import _build
-    from multi_adapter_particles_torch.ops import allpairs, central_well, composite
+    from multi_adapter_particles_torch.ops import (
+        allpairs,
+        central_well,
+        composite,
+        treeforce,
+    )
 
     log("phase 2: build")
     sources = (("central_well", central_well, ()),
                ("composite", composite, composite._NVCC_FLAGS),
-               ("allpairs", allpairs, ()))
+               ("allpairs", allpairs, ()),
+               ("treeforce", treeforce, ()))
 
     def ptxas_report(name, extra, tmp):
         """register / spill lines of one source (compile only, no library)"""
@@ -137,8 +202,19 @@ def phase_build():
                               timeout=300)
         if proc.returncode != 0:
             fail(f"ptxas report for {name}: {proc.stderr}")
-        return [line.strip() for line in (proc.stdout + proc.stderr)
-                .splitlines() if "registers" in line or "spill" in line]
+        # one line per kernel: its name, then its spill and register lines
+        out, kernel, parts = [], "?", []
+        for line in (proc.stdout + proc.stderr).splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                kernel = _kernel_name(entry.group(1))
+            elif "spill" in line:
+                parts = [line.strip()]
+            elif "registers" in line:
+                out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}; "
+                           + "; ".join(parts))
+                parts = []
+        return out
 
     t0 = time.perf_counter()
     # one nvcc per source and per report, all started together
@@ -191,9 +267,11 @@ def phase_central_well(dev):
     ms = time_ms(lambda: central_well_step(p, v, out=out, **phys), reps=100)
     plain_ms = time_ms(lambda: central_well_step_plain(p, v, **phys), reps=20)
     gbs = N_MAIN * 56 / (ms * 1e-3) / 1e9
+    bound = bytes_bound_ms(p.shape[1] * 56)   # 7 floats read, 7 written
     log(f"  kernel {ms:.4f} ms ({gbs:.0f} GB/s of 56 B/particle), plain "
-        f"{plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        f"{plain_ms:.4f} ms; bound {bound:.4f} ms (bytes)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes"}
 
 
 def _composite_inputs(dev, n, chunk):
@@ -246,20 +324,36 @@ def phase_composite(dev):
             p = composite_rows_plain(sp, bases, TILE_H, TILE_W, blend, hi)
             torch.cuda.synchronize()
             err = max(err, check_close(f"{label} {blend}", k, p, 1e-5, 1e-6))
-        ms = time_ms(lambda: composite_rows(sp, bases, TILE_H, TILE_W,
-                                            "over", hi), reps=20)
+        def kernel():
+            return composite_rows(sp, bases, TILE_H, TILE_W, "over", hi)
+
+        ms = time_ms(kernel, reps=20)
         plain_ms = time_ms(lambda: composite_rows_plain(
             sp, bases, TILE_H, TILE_W, "over", hi), reps=3, warmup=1)
-        log(f"  {label} over: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        times[label] = (ms, plain_ms)
+        # the work these rows need: each live slot (q < row_hi) of each
+        # row blends into TILE_H * TILE_W pixels; every byte once
+        slots = float(hi.clamp(0, q).sum())
+        px = TILE_H * TILE_W
+        mhz = busy_clock_mhz(kernel, reps=max(20, int(300 / ms)))
+        ops = issue_bound_ms(slots * px * INSTR["composite"], mhz)
+        nbytes = (sp.numel() + bases.numel() + hi.numel()
+                  + 4 * px * sp.shape[2]) * 4
+        bound = max(ops, bytes_bound_ms(nbytes))
+        by = "operations" if ops >= bytes_bound_ms(nbytes) else "bytes"
+        log(f"  {label} over: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"{slots:.4e} live slots x {px} px; bound {bound:.4f} ms "
+            f"({by}, {mhz:.0f} MHz) -> {bound / ms:.1%} of it")
+        times[label] = (ms, plain_ms, bound, by)
         del sp, bases, hi
-    ms, plain_ms = times["1M chunk of 4M"]
+    ms, plain_ms, bound, by = times["1M chunk of 4M"]
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by,
             "ms_262k": times["262K"][0], "plain_ms_262k": times["262K"][1]}
 
 
-def _run_app(argv, steps):
-    """app.main with -metrics; returns (metrics dict, what on_exit saw)."""
+def _run_app(argv, steps, draw=True):
+    """app.main with -metrics; returns (metrics dict, what on_exit saw).
+    With `draw` the last frame must be finite, nonzero and untruncated."""
     import torch
 
     from multi_adapter_particles_torch import app
@@ -267,10 +361,11 @@ def _run_app(argv, steps):
     seen = {}
 
     def on_exit(particles):
-        out = particles.render.last_output
         seen["position"] = particles.compute.state.position.clone()
-        seen["frame"] = out.frame.clone()
-        seen["truncated"] = int(out.truncated)
+        if draw:
+            out = particles.render.last_output
+            seen["frame"] = out.frame.clone()
+            seen["truncated"] = int(out.truncated)
         seen["frames"] = particles.frame_count
         seen["device"] = particles.compute.device
         seen["config"] = particles.compute.config
@@ -291,6 +386,8 @@ def _run_app(argv, steps):
         fail(f"compute ran on {seen['device']}, not the GPU")
     if not torch.isfinite(seen["position"]).all():
         fail("non-finite positions after the main path")
+    if not draw:
+        return metrics, seen
     frame = seen["frame"]
     if not torch.isfinite(frame).all():
         fail("non-finite values in the last frame")
@@ -427,14 +524,20 @@ def phase_allpairs_rect(dev):
     plain_ms = time_ms(lambda: all_pairs_accel_plain(tgt, sources=pos,
                                                      **phys), reps=2,
                        warmup=1)
+    mhz = busy_clock_mhz(lambda: all_pairs_accel(tgt, sources=pos, **phys),
+                         reps=10)
+    bound = issue_bound_ms(AP_SAMPLE * N_AP * INSTR["all_pairs_rect"], mhz)
     full = all_pairs_accel(pos, **phys)  # the 1M result, kept for phase 8
     ms_1m = time_ms(lambda: all_pairs_accel(pos, **phys), reps=2, warmup=0)
-    log(f"  sampled: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; full "
-        f"{N_AP:,}: kernel {ms_1m:.3f} ms = {N_AP * N_AP / (ms_1m * 1e-3):.4e} "
-        f"pairs/s")
+    bound_1m = issue_bound_ms(N_AP * N_AP * INSTR["all_pairs_rect"], mhz)
+    log(f"  sampled: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound:.3f} ms ({mhz:.0f} MHz); full {N_AP:,}: kernel "
+        f"{ms_1m:.3f} ms = {N_AP * N_AP / (ms_1m * 1e-3):.4e} pairs/s, "
+        f"bound {bound_1m:.3f} ms -> {bound_1m / ms_1m:.1%} of it")
     if not torch.equal(full[:, idx], k):
         fail("the sampled targets' rows differ from the full 1M result")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations",
             "ms_1m": ms_1m}, full
 
 
@@ -458,6 +561,16 @@ def phase_allpairs_half(dev, rect_1m):
     ms = time_ms(lambda: all_pairs_accel_halfpair(pos, **phys), reps=5)
     plain_ms = time_ms(lambda: all_pairs_accel_halfpair_plain(pos, **phys),
                        reps=2, warmup=1)
+    mhz = busy_clock_mhz(lambda: all_pairs_accel_halfpair(pos, **phys),
+                         reps=20)
+
+    def half_bound_ms(n):
+        nt, t2 = n // 512, 512 * 512
+        return issue_bound_ms(
+            nt * t2 * INSTR["all_pairs_half_diag"]
+            + nt * (nt - 1) // 2 * t2 * INSTR["all_pairs_half_round"], mhz)
+
+    bound = half_bound_ms(N_HALF_CHECK)
     del pos, k, p
     pos = _ap_state(dev, N_AP)
     phys = _ap_phys(N_AP)
@@ -470,7 +583,10 @@ def phase_allpairs_half(dev, rect_1m):
     log(f"  {N_HALF_CHECK:,}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
         f"{N_AP:,}: kernel {ms_1m:.3f} ms = "
         f"{N_AP * N_AP / (ms_1m * 1e-3):.4e} effective pairs/s")
+    log(f"  {N_HALF_CHECK:,} bound {bound:.3f} ms, {N_AP:,} bound "
+        f"{half_bound_ms(N_AP):.3f} ms ({mhz:.0f} MHz)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations",
             "ms_1m": ms_1m}, half
 
 
@@ -568,6 +684,364 @@ def phase_allpairs_main_path():
     return launches, results
 
 
+def sm_clock_mhz() -> float:
+    """The SM clock now (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        return float(out.stdout.split()[0])
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi clocks.sm: {out.stdout!r} {out.stderr!r}")
+
+
+def busy_clock_mhz(fn, reps: int) -> float:
+    """The SM clock read while `reps` queued calls of `fn` run."""
+    import torch
+
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        fn()
+    mhz = sm_clock_mhz()
+    torch.cuda.synchronize()
+    return mhz
+
+
+def issue_bound_ms(instructions: float, mhz: float) -> float:
+    """Least time for `instructions` FP32-pipe lane-instructions: 132 SMs x
+    128 lanes, one a clock (at 1,980 MHz that is the 67 TFLOP/s FP32 peak
+    with each instruction an FMA's two flops)."""
+    return instructions / (SMS * FP32_LANES * mhz * 1e6) * 1e3
+
+
+def bytes_bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _tree_scene(dev, n):
+    """The port's device init (seed 0) at n, the grid `auto_grid` picks
+    for it on this card, and the probed pair budget, as the CLI's startup
+    probe sizes them."""
+    from multi_adapter_particles_torch.ops import p3m, treeforce
+
+    pos = _ap_state(dev, n)
+    host = pos.cpu().numpy()
+    grid = treeforce.auto_grid(host, BOX, CUTOFF,
+                               treeforce.solve_budget(dev))
+    r_c, gn = p3m.near_grid_for(grid, BOX, CUTOFF)
+    coarse, _, block = treeforce.host_tree_counts(host, BOX, r_c, gn)
+    budget = int(coarse * treeforce.PAIR_HEADROOM) + 1
+    log(f"  {n:,}: auto grid G={grid}, near grid {gn}, block {block}, "
+        f"{coarse:,} directed block pairs (host probe), budget {budget:,}")
+    return pos, host, grid, r_c, gn, budget
+
+
+def _sweeps(lists, r_c):
+    """(wrapper, bare kernel, twin) calls of the sweep `lists` asks for.
+    The wrapper checks the list (one host sync) and, halved, builds the
+    fold index each call; the bare call launches the kernels on int32
+    lists built here once, so its time is the kernels' alone."""
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.ops import p3m, treeforce
+
+    eps2, sigma = C.SOFTENING_SQUARED, r_c * p3m._SIGMA_PER_CUTOFF
+    L = lists
+    if L.halved:
+        args = (L.spos, L.sweep_i, L.sweep_j)
+        kw = dict(nb=L.nb, block=L.block, eps2=eps2, sigma=sigma)
+        prep = treeforce._n3_prepare(*args, L.nb, L.block)
+        return (lambda: treeforce.near_sweep_n3(*args, **kw),
+                lambda: treeforce._launch_sweep_n3(L.spos, *prep, eps2,
+                                                   sigma),
+                lambda: treeforce.near_sweep_n3_plain(*args, **kw))
+    args = (L.spos, L.bounds, L.sweep_j)
+    kw = dict(block=L.sweep_block, eps2=eps2, sigma=sigma)
+    b32, j32 = L.bounds.to(torch.int32), L.sweep_j.to(torch.int32)
+    return (lambda: treeforce.near_sweep(*args, **kw),
+            lambda: treeforce._launch_sweep(L.spos, L.sweep_nb,
+                                            L.sweep_block, b32, j32, eps2,
+                                            sigma),
+            lambda: treeforce.near_sweep_plain(*args, **kw))
+
+
+TREE_KERNELS = (("tree_sweep", False), ("tree_sweep_n3", True))
+
+
+def phase_tree_check(dev):
+    import torch
+
+    from multi_adapter_particles_torch.ops import treeforce
+
+    log(f"phase 11: tree sweeps vs twins @ {N_TREE_CHECK:,}")
+    pos, host, grid, r_c, gn, budget = _tree_scene(dev, N_TREE_CHECK)
+    for name, half in TREE_KERNELS:
+        L = treeforce.tree_lists(pos, BOX, r_c, gn, pair_budget=budget,
+                                 half_force=half)
+        if L.dropped:
+            fail(f"{name}: {L.dropped} block pairs dropped at the probed "
+                 "budget")
+        wrapper, kernel, twin = _sweeps(L, r_c)
+        k, p = wrapper(), twin()
+        torch.cuda.synchronize()
+        # the same pair terms summed in another order (the kernel: list,
+        # then lane order in float32 chains; the twin: torch's sums)
+        check_rel(f"{name} vs plain", k, p, 1e-5)
+        ms = time_ms(kernel, reps=10)
+        wrapper_ms = time_ms(wrapper, reps=10)
+        plain_ms = time_ms(twin, reps=1, warmup=0)
+        mhz = busy_clock_mhz(kernel, reps=20)
+        pairs = L.pairs * L.sweep_block ** 2
+        bound = issue_bound_ms(pairs * INSTR[name], mhz)
+        log(f"  {name}: {L.pairs:,} listed block pairs of {L.sweep_block} "
+            f"= {pairs:.4e} pair interactions, dropped 0; kernel {ms:.3f} "
+            f"ms (wrapper {wrapper_ms:.3f} ms), plain {plain_ms:.1f} ms; "
+            f"bound {bound:.3f} ms at {mhz:.0f} MHz -> {bound / ms:.1%} of "
+            "it")
+    return pos, host, r_c, gn, budget
+
+
+def phase_tree_expansion(pos, host, r_c, gn, budget):
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.ops import treeforce
+
+    log(f"phase 12: sub-block expansion @ {N_TREE_CHECK:,}: blocks of 1024 "
+        "swept at 512 vs blocks of 256")
+    coarse, sub, _ = treeforce.host_tree_counts(host, BOX, r_c, gn,
+                                                block=1024)
+    wide = treeforce.tree_lists(pos, BOX, r_c, gn, block=1024,
+                                pair_budget=int(coarse * 1.25) + 1,
+                                sub_pair_budget=int(sub * 1.25) + 2)
+    if (wide.sweep_block, wide.halved) != (512, False):
+        fail(f"block 1024 swept at {wide.sweep_block}, halved "
+             f"{wide.halved}")
+    if wide.pairs != sub or wide.dropped:
+        fail(f"expansion kept {wide.pairs} sub-pairs (host probe {sub}), "
+             f"dropped {wide.dropped}")
+    kw = dict(g_const=1.0, eps2=C.SOFTENING_SQUARED, r_c=r_c, near_grid=gn)
+    a_wide, d_wide = treeforce.near_field_tree(
+        pos, BOX, block=1024, pair_budget=int(coarse * 1.25) + 1,
+        sub_pair_budget=int(sub * 1.25) + 2, **kw)
+    a_ref, d_ref = treeforce.near_field_tree(pos, BOX, block=256,
+                                             pair_budget=budget, **kw)
+    torch.cuda.synchronize()
+    if d_wide or d_ref:
+        fail(f"dropped pairs: {d_wide} (1024), {d_ref} (256)")
+    log(f"  block 1024: {coarse:,} block pairs -> {sub:,} sub-pairs of 512")
+    return check_rel("expanded (1024 -> 512) vs blocks of 256", a_wide,
+                     a_ref, 1e-5)
+
+
+def phase_tree_1m(dev):
+    import torch
+
+    from multi_adapter_particles_torch.ops import p3m, pm, treeforce
+
+    log(f"phase 13: tree sweeps @ {N_TREE:,}")
+    pos, host, grid, r_c, gn, budget = _tree_scene(dev, N_TREE)
+    out, accel = {}, {}
+    for name, half in TREE_KERNELS:
+        build_ms = time_ms(lambda: treeforce.tree_lists(
+            pos, BOX, r_c, gn, pair_budget=budget, half_force=half), reps=3)
+        L = treeforce.tree_lists(pos, BOX, r_c, gn, pair_budget=budget,
+                                 half_force=half)
+        if L.dropped:
+            fail(f"{name}: {L.dropped} block pairs dropped")
+        wrapper, kernel, twin = _sweeps(L, r_c)
+        k, again, p = wrapper(), kernel(), twin()
+        torch.cuda.synchronize()
+        if not torch.equal(k, again):
+            fail(f"{name}: two runs at {N_TREE:,} differ")
+        err = check_rel(f"{name} vs plain", k, p, 1e-5)
+        del again, p
+        ms = time_ms(kernel, reps=5)
+        wrapper_ms = time_ms(wrapper, reps=5)
+        plain_ms = time_ms(twin, reps=1, warmup=0)
+        mhz = busy_clock_mhz(kernel, reps=8)
+        pairs = L.pairs * L.sweep_block ** 2
+        bound = issue_bound_ms(pairs * INSTR[name], mhz)
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": "operations",
+                     "wrapper_ms": wrapper_ms, "list_ms": build_ms,
+                     "pairs": pairs, "mhz": mhz}
+        log(f"  {name}: {L.pairs:,} listed block pairs of {L.sweep_block}"
+            f" = {pairs:.4e} pair interactions; runs bitwise equal; kernel "
+            f"{ms:.3f} ms (wrapper, list checks and fold index included: "
+            f"{wrapper_ms:.3f} ms), plain {plain_ms:.1f} ms; list build "
+            f"{build_ms:.3f} ms; bound {bound:.3f} ms ({INSTR[name]} FP32 "
+            f"instructions a pair at {mhz:.0f} MHz) -> {bound / ms:.1%} of "
+            "it")
+        accel[name] = treeforce.unsort(L, k, 1.0)
+        del L, k
+    check_rel("tree_sweep_n3 vs tree_sweep @1M", accel["tree_sweep_n3"],
+              accel["tree_sweep"], 1e-5)
+    del accel
+    rho = pm.deposit_cic(pos, grid, BOX)
+    grids = p3m._accel_long(rho, grid, BOX, 1.0, r_c)
+    far = {"deposit": time_ms(lambda: pm.deposit_cic(pos, grid, BOX), 5),
+           "solve": time_ms(lambda: p3m._accel_long(rho, grid, BOX, 1.0,
+                                                    r_c), 5),
+           "interp": time_ms(lambda: pm._interp(grids, pos, grid, BOX), 5)}
+    log(f"  far field G={grid}: deposit {far['deposit']:.3f} ms, FFT solve "
+        f"{far['solve']:.3f} ms, interpolation {far['interp']:.3f} ms")
+    out["far_ms"] = far
+    out["scene"] = (pos, grid, budget)
+    return out
+
+
+def phase_tree_physics(scene):
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.ops import p3m
+    from multi_adapter_particles_torch.ops.allpairs import all_pairs_accel
+
+    pos, grid, budget = scene
+    log(f"phase 14: tree-P3M vs the exact sum, {TREE_SAMPLE:,} targets of "
+        f"{N_TREE:,}")
+    a = p3m.p3m_accel(pos, grid=grid, box=BOX,
+                      g_const=C.PARTICLE_MASS / N_TREE,
+                      softening_squared=C.SOFTENING_SQUARED,
+                      cutoff_cells=CUTOFF, near_mode="tree",
+                      pair_budget=budget, half_force=True)
+    idx = torch.linspace(0, N_TREE - 1, TREE_SAMPLE,
+                         device=pos.device).long()
+    exact = all_pairs_accel(pos[:, idx].contiguous(), sources=pos,
+                            **_ap_phys(N_TREE))[:3]
+    torch.cuda.synchronize()
+    rms = float(((a[:, idx] - exact) ** 2).mean().sqrt())
+    scale = float(exact.abs().max())
+    log(f"  RMS error {rms:.4e} = {rms / scale:.4%} of max|a| {scale:.4e} "
+        "(limit 1%)")
+    if not rms < 0.01 * scale:
+        fail(f"tree-P3M RMS error {rms / scale:.4%} of max|a|")
+    return rms / scale
+
+
+def phase_solve_memory(dev):
+    import torch
+
+    from multi_adapter_particles_torch.ops import p3m, treeforce
+
+    log("phase 15: long-range solve memory")
+    per_cell = {}
+    for g in (192, 256):
+        rho = torch.rand((g, g, g), device=dev)
+        p3m._long_grad_kernels_rfft.cache_clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        got = []
+        for _ in ("cold", "warm"):   # cold tabulates the kernels
+            torch.cuda.reset_peak_memory_stats(dev)
+            grids = p3m._accel_long(rho, g, BOX, 1.0, CUTOFF * BOX / g)
+            torch.cuda.synchronize()
+            got.append((torch.cuda.max_memory_allocated(dev) - base
+                        + rho.numel() * 4) / g ** 3)
+            del grids
+        per_cell[g] = got
+        log(f"  G={g}: peak {got[0]:.2f} B/cell cold, {got[1]:.2f} warm "
+            f"(rho included); count {treeforce.SOLVE_BYTES_PER_CELL}")
+        if max(got) > treeforce.SOLVE_BYTES_PER_CELL:
+            fail(f"G={g}: the solve held {max(got):.2f} B/cell, over the "
+                 f"{treeforce.SOLVE_BYTES_PER_CELL} feasible_grid counts")
+        del rho
+        p3m._long_grad_kernels_rfft.cache_clear()
+        torch.cuda.empty_cache()
+    return per_cell
+
+
+def phase_pm_main_path():
+    import statistics
+
+    n = N_MAIN
+    log(f"phase 16: pm_grid main path — app.main -force pm_grid "
+        f"-numparticles {n} -pmgrid {PM_GRID} -nodraw -steps {PM_STEPS}")
+    t0 = time.perf_counter()
+    metrics, seen = _run_app(
+        ["-force", "pm_grid", "-numparticles", str(n), "-pmgrid",
+         str(PM_GRID), "-nodraw", "-novsync", "-nogui",
+         "-steps", str(PM_STEPS)], PM_STEPS, draw=False)
+    wall = time.perf_counter() - t0
+    if seen["config"].force_model != "pm_grid":
+        fail(f"ran {seen['config'].force_model}")
+    frames = metrics["gauges"].get("device_frame_ms", [])
+    step_ms = (statistics.median(frames) if frames
+               else metrics["stages_ms"]["simulate"])
+    log(f"  rc 0, {PM_STEPS} steps in {wall:.2f} s wall; ms/step {step_ms:.3f}"
+        f" (CUDA events, median of {len(frames)}); simulate ms "
+        f"{metrics['stages_ms']['simulate']:.3f} (EMA)")
+    return {"step_ms": step_ms, "simulate_ms":
+            metrics["stages_ms"]["simulate"]}
+
+
+def phase_tree_main_path():
+    import statistics
+
+    from multi_adapter_particles_torch.ops.composite import composite_rows
+    from multi_adapter_particles_torch.ops.treeforce import (
+        near_sweep,
+        near_sweep_n3,
+    )
+
+    base = ["-force", "p3m", "-p3mnear", "tree", "-numparticles",
+            str(N_TREE), "-novsync", "-nogui", "-width", str(WIDTH),
+            "-height", str(HEIGHT)]
+    results, launches = {}, {}
+    for label, extra, steps, counter in (
+            ("n3", [], TREE_STEPS_N3, near_sweep_n3),
+            ("directed", ["-treedirected"], TREE_STEPS_DIRECTED,
+             near_sweep)):
+        log(f"phase 17: tree-P3M main path ({label}) — app.main "
+            f"{' '.join(base + extra)} -steps {steps}")
+        near_sweep.launches = 0
+        near_sweep_n3.launches = 0
+        composite_rows.launches = 0
+        t0 = time.perf_counter()
+        metrics, seen = _run_app(base + extra + ["-steps", str(steps)],
+                                 steps)
+        wall = time.perf_counter() - t0
+        got = {"tree_sweep": near_sweep.launches,
+               "tree_sweep_n3": near_sweep_n3.launches,
+               "composite": composite_rows.launches}
+        cfg = seen["config"]
+        log(f"  rc 0, {steps} frames in {wall:.2f} s wall, launches {got}; "
+            f"G={cfg.pm_grid_size}, pair budget {cfg.p3m_pair_budget}, "
+            f"tree_half_force {cfg.tree_half_force}")
+        if cfg.tree_half_force != (label == "n3"):
+            fail(f"{label}: the run's config has tree_half_force="
+                 f"{cfg.tree_half_force}")
+        if counter.launches < steps:
+            fail(f"{label}: the sweep kernel launched {counter.launches} "
+                 f"times in {steps} frames")
+        if got["composite"] < steps:
+            fail(f"{label}: the composite kernel launched "
+                 f"{got['composite']} times in {steps} frames")
+        dev_frames = metrics["gauges"].get("device_frame_ms", [])
+        if len(dev_frames) < steps - 3:
+            fail(f"only {len(dev_frames)} CUDA-event frame samples")
+        stages = metrics["stages_ms"]
+        results[label] = {
+            "frame_ms": statistics.median(dev_frames),
+            "simulate_ms": stages["simulate"],
+            "render_ms": stages["render"],
+            "probe_s": metrics["gauges"]["probe_s"],
+            "grid": cfg.pm_grid_size,
+        }
+        launches[label] = got
+        log(f"  ms/frame (CUDA events, median of {len(dev_frames)}): "
+            f"{results[label]['frame_ms']:.2f}; simulate ms "
+            f"{stages['simulate']:.2f}, render ms {stages['render']:.3f} "
+            f"(EMA); startup probe {results[label]['probe_s']:.2f} s")
+        log(f"  last frame: max {float(seen['frame'].max()):.4f}, mean "
+            f"{float(seen['frame'].mean()):.5f}, truncated 0")
+        del seen
+    return launches, results
+
+
 def main() -> int:
     phase_device()
     import torch
@@ -588,31 +1062,42 @@ def main() -> int:
     del rect_1m, half_1m
     torch.cuda.empty_cache()
     ap_launches, ap_path = phase_allpairs_main_path()
+    torch.cuda.empty_cache()
+    scene = phase_tree_check(dev)
+    phase_tree_expansion(*scene)
+    del scene
+    torch.cuda.empty_cache()
+    tree = phase_tree_1m(dev)
+    rms = phase_tree_physics(tree.pop("scene"))
+    torch.cuda.empty_cache()
+    solve = phase_solve_memory(dev)
+    pm_path = phase_pm_main_path()
+    torch.cuda.empty_cache()
+    tree_launches, tree_path = phase_tree_main_path()
+
+    def entry(name, source, replaces, launches, stats):
+        return {"name": name, "route": "cuda",
+                "source": f"multi_adapter_particles_torch/csrc/{source}",
+                "replaces": f"multi_adapter_particles_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": stats["max_abs_err"],
+                "ms": stats["ms"], "plain_ms": stats["plain_ms"],
+                "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
+                "library_ms": None}
+
     kernels = [
-        {"name": "central_well", "route": "cuda",
-         "source": "multi_adapter_particles_torch/csrc/central_well.cu",
-         "replaces": "multi_adapter_particles_tpu/ops/central_well.py:32",
-         "launches": launches["central_well"],
-         "max_abs_err": cw["max_abs_err"], "ms": cw["ms"],
-         "plain_ms": cw["plain_ms"]},
-        {"name": "composite", "route": "cuda",
-         "source": "multi_adapter_particles_torch/csrc/composite.cu",
-         "replaces": "multi_adapter_particles_tpu/ops/composite.py:34",
-         "launches": launches["composite"],
-         "max_abs_err": max(comp["max_abs_err"], frame_err),
-         "ms": comp["ms"], "plain_ms": comp["plain_ms"]},
-        {"name": "all_pairs_rect", "route": "cuda",
-         "source": "multi_adapter_particles_torch/csrc/allpairs.cu",
-         "replaces": "multi_adapter_particles_tpu/ops/allpairs.py:47",
-         "launches": ap_launches["rect"]["all_pairs_rect"],
-         "max_abs_err": rect["max_abs_err"], "ms": rect["ms"],
-         "plain_ms": rect["plain_ms"]},
-        {"name": "all_pairs_half", "route": "cuda",
-         "source": "multi_adapter_particles_torch/csrc/allpairs.cu",
-         "replaces": "multi_adapter_particles_tpu/ops/allpairs.py:269",
-         "launches": ap_launches["half"]["all_pairs_half"],
-         "max_abs_err": half["max_abs_err"], "ms": half["ms"],
-         "plain_ms": half["plain_ms"]},
+        entry("central_well", "central_well.cu", "central_well.py:32",
+              launches["central_well"], cw),
+        entry("composite", "composite.cu", "composite.py:34",
+              launches["composite"],
+              {**comp, "max_abs_err": max(comp["max_abs_err"], frame_err)}),
+        entry("all_pairs_rect", "allpairs.cu", "allpairs.py:47",
+              ap_launches["rect"]["all_pairs_rect"], rect),
+        entry("all_pairs_half", "allpairs.cu", "allpairs.py:269",
+              ap_launches["half"]["all_pairs_half"], half),
+        entry("tree_sweep", "treeforce.cu", "treeforce.py:210",
+              tree_launches["directed"]["tree_sweep"], tree["tree_sweep"]),
+        entry("tree_sweep_n3", "treeforce.cu", "treeforce.py:422",
+              tree_launches["n3"]["tree_sweep_n3"], tree["tree_sweep_n3"]),
     ]
     log(f"main path: {json.dumps(frame)}; composite @262K Q=64: kernel "
         f"{comp['ms_262k']:.4f} ms, plain {comp['plain_ms_262k']:.4f} ms")
@@ -620,6 +1105,10 @@ def main() -> int:
         f"kernel {half['ms_1m']:.3f} ms; main path {json.dumps(ap_path)}; "
         f"composite launches on it {ap_launches['half']['composite']} + "
         f"{ap_launches['rect']['composite']}")
+    log(f"tree-P3M @{N_TREE:,}: far field {json.dumps(tree['far_ms'])}; "
+        f"RMS vs exact {rms:.4e} of max|a|; solve B/cell {json.dumps(solve)};"
+        f" pm_grid @{N_MAIN:,} G={PM_GRID} {json.dumps(pm_path)}; main path "
+        f"{json.dumps(tree_path)}; launches {json.dumps(tree_launches)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

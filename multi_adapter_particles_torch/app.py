@@ -2,17 +2,23 @@
 
 `python -m multi_adapter_particles_torch` runs the split frame loop of the
 JAX package's app (`multi_adapter_particles_tpu/app.py`) on torch devices:
-the simulation (the central well, or `-force all_pairs` self-gravity) plus
-the exact splat render, by default at the reference's 4,194,304 particles
-in a 1024x1024 window on one GPU.
+the simulation (the central well, or `-force all_pairs | pm_grid | p3m`
+self-gravity) plus the exact splat render, by default at the reference's
+4,194,304 particles in a 1024x1024 window on one GPU. Without a GPU it
+exits 2 unless `-computeadapter`/`-renderadapter` name an adapter (the CPU
+is listed by `-listadapters`).
 
 Flags follow the reference (`Particles.cpp:251-267`): numparticles, nogui,
 noext, size, intensity, novsync, fullscreen, numCopy, numDraw, numSim; `?`
 prints help (`ArgParser.h:105-127`). Extensions: preset, steps, seed,
-force (central_well or all_pairs so far), interactionscale, rectpair /
-halfpair, adapter indices, frame size, frame dumping, metrics JSON,
-hard-sync stage profiling. The JAX package's other flags, force models and
-presets belong to slices not ported yet: they exit with status 2 and say so.
+force, interactionscale, rectpair / halfpair, the pm_grid / p3m knobs
+(pmgrid, pmbox, p3mcutoff, p3mcapacity, p3mnear, p3mbudget,
+treedirected), adapter indices, frame size, frame dumping, metrics JSON,
+hard-sync stage profiling. For `-force p3m` the JAX CLI's startup probe
+runs on the port's own device init: it resolves `-p3mnear auto`, picks the
+grid when `-pmgrid` is absent and sizes the tree's pair budgets. The JAX
+package's other flags, the slot near field and the presets that need them
+belong to slices not ported yet: they exit with status 2 and say so.
 """
 
 from __future__ import annotations
@@ -30,14 +36,7 @@ _LATER_FLAGS = {
     "fused": "item 7",
     "meshdevices": "item 14",
     "shardrender": "item 14",
-    "pmgrid": "items 9-10",
-    "pmbox": "items 9-10",
-    "p3mcutoff": "item 10",
-    "p3mcapacity": "item 10",
-    "p3mnear": "items 10-11",
-    "p3mbudget": "item 11",
-    "treedirected": "item 11",
-    "probecache": "item 11",
+    "probecache": "item 13",
     "diagnostics": "item 12",
     "diagmode": "item 12",
     "debug": "item 13",
@@ -53,8 +52,7 @@ _LATER_FLAGS = {
 }
 # flags among those that take a value
 _LATER_VALUED = {
-    "meshdevices", "pmgrid", "pmbox", "p3mcutoff",
-    "p3mcapacity", "p3mnear", "p3mbudget", "probecache", "diagnostics",
+    "meshdevices", "probecache", "diagnostics",
     "diagmode", "checkpoint", "checkpointevery", "resume", "dashboard",
     "serve", "timerwindow", "trace", "compilecache",
 }
@@ -108,9 +106,8 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
     p.add_int("steps", "number of frames to run (0 = forever)",
               lambda v: extra.__setitem__("steps", v))
     p.add_int("seed", "init RNG seed", lambda v: extra.__setitem__("seed", v))
-    p.add_str("force", "force model: central_well | all_pairs (pm_grid and "
-              "p3m are not ported yet)",
-              lambda v: extra.__setitem__("force", v))
+    p.add_str("force", "force model: central_well | all_pairs | pm_grid | "
+              "p3m", lambda v: extra.__setitem__("force", v))
     p.add_float("interactionscale",
                 "per-pair force multiplier (default: auto — 1/N for the "
                 "self-gravity models, keeping the total mass at the "
@@ -123,6 +120,30 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
     p.add_flag("halfpair",
                "all_pairs: the Newton-3rd half-pair schedule (the default)",
                lambda: extra.__setitem__("all_pairs_half", True))
+    p.add_int("pmgrid", "pm_grid/p3m mesh resolution per axis (omit with "
+              "-p3mnear tree: a scene-probed cost model picks it)",
+              lambda v: extra.__setitem__("pm_grid_size", v))
+    p.add_float("pmbox", "pm_grid/p3m box extent (world units)",
+                lambda v: extra.__setitem__("pm_box", v))
+    p.add_float("p3mcutoff", "p3m short-range cutoff in mesh cells",
+                lambda v: extra.__setitem__("p3m_cutoff_cells", v))
+    p.add_int("p3mcapacity", "p3m near-cell particle capacity (the slot "
+              "near field's; it sizes the auto probe)",
+              lambda v: extra.__setitem__("p3m_capacity", v))
+    p.add_str("p3mnear",
+              "p3m near-field engine: auto | tree (auto probes the initial "
+              "state and picks tree when the slot capacity would overflow; "
+              "the slot near field is not yet ported, ROADMAP queue 1 item "
+              "10)",
+              lambda v: extra.__setitem__("p3m_near_mode", v))
+    p.add_int("p3mbudget",
+              "tree near-field block-pair budget (default: sized from the "
+              "initial state)",
+              lambda v: extra.__setitem__("p3m_pair_budget", v))
+    p.add_flag("treedirected",
+               "p3m tree: the directed (both-ways) near sweep instead of the "
+               "(default) Newton-3rd halved sweep",
+               lambda: extra.__setitem__("tree_half_force", False))
     p.add_int("computeadapter", "compute adapter index",
               lambda v: extra.__setitem__("compute_adapter", v))
     p.add_int("renderadapter", "render adapter index",
@@ -146,6 +167,8 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
 
     for name, item in _LATER_FLAGS.items():
         msg = f"-{name}: not yet ported (ROADMAP queue 1 {item})"
+        if name == "probecache":
+            msg += "; the port probes the scene on every launch"
         if name in _LATER_VALUED:
             p.add_str(name, msg, lambda v, m=msg: not_ported.append(m))
         else:
@@ -165,6 +188,88 @@ def write_frame(frame, path: str) -> None:
     write_png(path, arr)
 
 
+def probe_p3m(app_cfg: AppConfig, extra: dict, device) -> Optional[str]:
+    """The JAX CLI's startup probe (`multi_adapter_particles_tpu/app.py:
+    213-331`) on the port's own device init (the engine's scene: same N,
+    seed and device): `-p3mnear auto` -> the slot capacity's overflow ->
+    tree; the grid from `auto_grid` when `-pmgrid` is absent; the pair and
+    sub-pair budgets from one `host_tree_counts`. Fills `extra`; returns an
+    error message when the scene needs the slot near field."""
+    import time
+
+    near_mode = extra.get("p3m_near_mode", "auto")
+    pair_budget = extra.get("p3m_pair_budget")
+    sub_pair_budget = extra.get("p3m_sub_pair_budget")
+    if near_mode == "slots":
+        return ("-p3mnear slots: the slot near field is not yet ported "
+                "(ROADMAP queue 1 item 10)")
+    if not (near_mode == "auto" or (near_mode == "tree" and (
+            "pm_grid_size" not in extra or pair_budget is None
+            or sub_pair_budget is None))):
+        return None
+    import torch
+
+    from multi_adapter_particles_torch.models import init as pinit
+    from multi_adapter_particles_torch.ops import p3m, treeforce
+
+    t0 = time.perf_counter()
+    grid = extra.get("pm_grid_size", SimConfig.pm_grid_size)
+    box = extra.get("pm_box", SimConfig.pm_box)
+    cutoff = extra.get("p3m_cutoff_cells", SimConfig.p3m_cutoff_cells)
+    _pos0 = []
+
+    def pos0():
+        if not _pos0:
+            gen = torch.Generator(device=device).manual_seed(
+                extra.get("seed", 0))
+            _pos0.append(pinit.initialize_particles_device(
+                app_cfg.num_particles, generator=gen, device=device
+            ).position.cpu().numpy())  # padding parked at 1e9: out of box
+        return _pos0[0]
+
+    if near_mode == "auto":
+        cap = extra.get("p3m_capacity", SimConfig.p3m_capacity)
+        ov = p3m.host_overflow_count(pos0(), grid, box, cutoff, cap)
+        near_mode = "tree" if ov else "slots"
+        print(f"p3m: near-field auto probe -> {near_mode}"
+              + (f" ({ov} particles would overflow the slot capacity)" if ov
+                 else " (slot capacity covers the scene)"), flush=True)
+        if near_mode == "slots":
+            return ("-p3mnear auto picked the slot near field, which is not "
+                    "yet ported (ROADMAP queue 1 item 10); -p3mnear tree "
+                    "runs the tree near field")
+    extra["p3m_near_mode"] = near_mode
+    counts: dict = {}
+    if "pm_grid_size" not in extra:
+        grid = treeforce.auto_grid(
+            pos0, box, cutoff, treeforce.solve_budget(device),
+            counts_cache=counts, num_particles=app_cfg.num_particles)
+        extra["pm_grid_size"] = grid
+        print(f"p3m: tree grid auto-selected G={grid} (scene-probed cost "
+              "model; override with -pmgrid)", flush=True)
+    if pair_budget is None or sub_pair_budget is None:
+        r_c, gn = p3m.near_grid_for(grid, box, cutoff)
+        ck = treeforce.counts_cache_key(gn, r_c)
+        if ck not in counts:
+            counts[ck] = treeforce.host_tree_counts(pos0(), box, r_c, gn)
+        coarse, sub, _block = counts[ck]
+        if pair_budget is None:
+            extra["p3m_pair_budget"] = int(
+                coarse * treeforce.PAIR_HEADROOM) + 1
+            print(f"p3m: tree pair budget sized to "
+                  f"{extra['p3m_pair_budget']} (from the initial state)",
+                  flush=True)
+        if sub_pair_budget is None and sub is not None:
+            extra["p3m_sub_pair_budget"] = int(
+                sub * treeforce.PAIR_HEADROOM) + 2
+            print(f"p3m: sweep sub-pair list capped at "
+                  f"{extra['p3m_sub_pair_budget']} (wide-block scene)",
+                  flush=True)
+    extra["probe_s"] = time.perf_counter() - t0
+    print(f"p3m: startup probe {extra['probe_s']:.2f} s", flush=True)
+    return None
+
+
 def main(argv: Optional[List[str]] = None,
          on_exit: Optional[Callable] = None) -> int:
     """Run the CLI; returns the exit status. `on_exit(particles)`, when
@@ -176,34 +281,56 @@ def main(argv: Optional[List[str]] = None,
     unmatched = parser.parse(argv)
     if unmatched:
         print(f"warning: unmatched args {unmatched}", file=sys.stderr)
-    from multi_adapter_particles_torch.models.integrator import NOT_PORTED_FORCE
-
-    force = extra.get("force", "central_well")
-    if force in NOT_PORTED_FORCE:
-        extra["not_ported"].append(
-            f"-force {force}: not yet ported (ROADMAP "
-            f"{NOT_PORTED_FORCE[force]})"
-        )
     if extra["not_ported"]:
         for msg in extra["not_ported"]:
             print(f"error: {msg}", file=sys.stderr)
         return 2
 
     # Heavy imports after flag parsing so `-?` is instant.
-    from multi_adapter_particles_torch.runtime.devices import enumerate_adapters
+    from multi_adapter_particles_torch.runtime.devices import (
+        NoAcceleratorError,
+        assign_adapters,
+        enumerate_adapters,
+    )
     from multi_adapter_particles_torch.runtime.orchestrator import ParticlesApp
 
+    adapters = enumerate_adapters()
     if extra.get("list_adapters"):
-        for a in enumerate_adapters():
+        for a in adapters:
             print(f"[{a.index}] {a.platform:4s} {a.description}")
         return 0
+    try:
+        compute_ad, _ = assign_adapters(adapters, extra.get("compute_adapter"),
+                                        extra.get("render_adapter"))
+    except NoAcceleratorError as e:
+        print(f"error: {e}; name an adapter with -computeadapter / "
+              "-renderadapter (-listadapters prints them, the CPU among "
+              "them)", file=sys.stderr)
+        return 2
+
+    force = extra.get("force", "central_well")
+    if force == "p3m":
+        err = probe_p3m(app_cfg, extra, compute_ad.device)
+        if err:
+            print(f"error: {err}", file=sys.stderr)
+            return 2
 
     sim_cfg = SimConfig(
         num_particles=app_cfg.num_particles,
         force_model=force,
-        # None = auto: 1.0 for central_well, 1/N for all_pairs
+        # None = auto: 1.0 for central_well, 1/N for the self-gravity models
         interaction_scale=extra.get("interaction_scale"),
+        pm_grid_size=extra.get("pm_grid_size", SimConfig.pm_grid_size),
+        pm_box=extra.get("pm_box", SimConfig.pm_box),
+        p3m_cutoff_cells=extra.get("p3m_cutoff_cells",
+                                   SimConfig.p3m_cutoff_cells),
+        p3m_capacity=extra.get("p3m_capacity", SimConfig.p3m_capacity),
+        p3m_near_mode=extra.get("p3m_near_mode", SimConfig.p3m_near_mode),
+        p3m_pair_budget=extra.get("p3m_pair_budget"),
+        p3m_sub_pair_budget=extra.get("p3m_sub_pair_budget"),
         all_pairs_half=extra.get("all_pairs_half", SimConfig.all_pairs_half),
+        tree_half_force=extra.get("tree_half_force",
+                                  SimConfig.tree_half_force),
     )
     render_cfg = RenderConfig(
         width=extra.get("width", RenderConfig.width),
@@ -225,6 +352,8 @@ def main(argv: Optional[List[str]] = None,
         # with CUDA events (non-stalling) whenever one is asked for
         async_timers="metrics" in extra,
     )
+    if "probe_s" in extra:
+        particles.metrics.gauge("probe_s", extra["probe_s"])
 
     def overlay(p: ParticlesApp):
         if app_cfg.gui and p.frame_count % 30 == 0:

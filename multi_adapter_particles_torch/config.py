@@ -3,8 +3,9 @@
 The port's own copy of the JAX package's `config.py` (that package cannot
 be imported without jax): the same fields, defaults and `resolved_counts`.
 Every force model is accepted here so configs round-trip between the two
-packages; the port's engine runs `central_well` and `all_pairs` and raises
-`NotImplementedError` for `pm_grid` and `p3m` (ROADMAP queue 1 items 9-11).
+packages; the port's engine runs all four, p3m with its tree near field
+only (`p3m_near_mode="slots"` raises in the engine: ROADMAP queue 1 item
+10).
 
 The reference has compile-time defines (`defines.h`), a CLI (`ArgParser`,
 `Particles.cpp:248-270`) and runtime GUI toggles with prev-value change
@@ -40,9 +41,11 @@ class SimConfig:
     # 'central_well' = the shipped CSMain (nBodyGravityCS.hlsl:85-109);
     # 'all_pairs' = the exact O(N^2) self-gravity (bodyBodyInteraction,
     # nBodyGravityCS.hlsl:44-57), half-pair schedule unless all_pairs_half
-    # is False. pm_grid and p3m are the JAX package's other self-gravity
-    # models, not ported yet; the fields below configure them and keep the
-    # JAX package's meaning and defaults.
+    # is False. pm_grid = FFT particle-mesh (ops/pm.py); p3m = PM far field
+    # + exact pairwise near field (ops/p3m.py, ops/treeforce.py). The
+    # fields below keep the JAX package's meaning and defaults;
+    # tree_half_force picks the Newton-3rd halved tree sweep (-treedirected
+    # turns it off).
     force_model: str = "central_well"
     # Per-interaction multiplier; None = auto: 1.0 for central_well, 1/N for
     # the self-gravity models (keeps the total mass at the well's value).
@@ -77,6 +80,12 @@ class SimConfig:
             raise ValueError(
                 f"unknown p3m_near_mode {self.p3m_near_mode!r}"
             )
+        if self.force_model == "p3m":
+            from multi_adapter_particles_torch.ops.p3m import (
+                validate_cutoff_cells,
+            )
+
+            validate_cutoff_cells(self.p3m_cutoff_cells)
 
 
 @dataclasses.dataclass(frozen=True)

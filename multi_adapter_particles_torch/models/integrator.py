@@ -17,6 +17,12 @@ Force models:
   sum with its padding mask. The engine runs the kernels of
   `ops/allpairs.py` instead (on the CPU, their plain twins), as the JAX
   engine runs its Pallas kernels; `make_accel_fn_for` makes the same choice.
+- `pm_grid` (`ops/pm.py`) and `p3m` (`ops/p3m.py`, the tree near field of
+  `ops/treeforce.py`, whose sweep kernels run on a CUDA state and their
+  plain twins on a CPU state) with g_const = mass * interaction_scale, as
+  the JAX package's `make_accel_fn_for` passes it. Only the p3m tree near
+  field is ported: `p3m_near_mode` "slots", and "auto" (which means slots
+  until the CLI's startup probe resolves it), raise.
 
 The op order is the JAX package's (`models/integrator.py:39-139`), so a CPU
 run tracks the JAX package's to float32 rounding.
@@ -25,8 +31,6 @@ The `num_sim` knob (`Particles.cpp:265`, `Compute.cpp:1041`: dispatch
 ceil(numSim/64) groups, the rest of the buffer keeps its old values) is a
 lane mask: particles past num_sim rounded up to 64 keep their old state
 bit for bit, and are copied into the fresh buffer.
-
-`pm_grid` and `p3m` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -39,26 +43,9 @@ import torch
 from multi_adapter_particles_torch import constants as C
 from multi_adapter_particles_torch.config import SimConfig
 from multi_adapter_particles_torch.models.state import ParticleState
-from multi_adapter_particles_torch.ops import allpairs
+from multi_adapter_particles_torch.ops import allpairs, p3m, pm
 
 Tensor = torch.Tensor
-
-# ROADMAP queue 1 items that port the other force models.
-NOT_PORTED_FORCE = {
-    "pm_grid": "queue 1 item 9",
-    "p3m": "queue 1 items 10-11",
-}
-
-
-def require_ported_force(config: SimConfig) -> None:
-    """Raise for a force model this package does not run yet."""
-    if config.force_model in NOT_PORTED_FORCE:
-        raise NotImplementedError(
-            f"force model {config.force_model!r} is not ported to "
-            f"multi_adapter_particles_torch yet (ROADMAP "
-            f"{NOT_PORTED_FORCE[config.force_model]})"
-        )
-
 
 def central_well_accel(position: Tensor, mass: float,
                        softening_squared: float) -> Tensor:
@@ -148,11 +135,30 @@ def make_accel_fn_for(config: SimConfig) -> Callable[[Tensor], Tensor]:
     rectangle schedule of `ops/allpairs.py`) on a CUDA tensor, and that
     kernel's plain twin on a CPU tensor, as the JAX package's mirrors its
     engine's Pallas choice (`models/integrator.py:183-200`)."""
-    require_ported_force(config)
     if config.force_model == "central_well":
         return functools.partial(
             central_well_accel, mass=config.mass,
             softening_squared=config.softening_squared,
+        )
+    if config.force_model == "pm_grid":
+        return pm.make_accel_fn(
+            mass=config.mass * config.interaction_scale,
+            softening_squared=config.softening_squared,
+            grid=config.pm_grid_size,
+            box=config.pm_box,
+        )
+    if config.force_model == "p3m":
+        return p3m.make_accel_fn(
+            mass=config.mass * config.interaction_scale,
+            softening_squared=config.softening_squared,
+            grid=config.pm_grid_size,
+            box=config.pm_box,
+            cutoff_cells=config.p3m_cutoff_cells,
+            capacity=config.p3m_capacity,
+            near_mode=config.p3m_near_mode,
+            pair_budget=config.p3m_pair_budget,
+            sub_pair_budget=config.p3m_sub_pair_budget,
+            half_force=config.tree_half_force,
         )
     return allpairs.make_accel_fn(
         mass=config.mass,

@@ -79,10 +79,6 @@ PRESETS = {
 NOT_PORTED = {
     "1m-mesh8": "item 14",
     "4m-fused": "item 7",
-    "4m-pm": "item 9",
-    "16m-pm": "item 9",
-    "4m-tree": "items 10-11",
-    "64k-p3m": "item 10",
 }
 
 

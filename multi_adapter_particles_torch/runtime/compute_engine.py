@@ -15,7 +15,10 @@ Here:
   (`models/integrator.py`); for all_pairs, the step of
   `integrator.make_step`: the accel kernel `all_pairs_half` selects
   (`ops/allpairs.py`; its plain twin for a CPU state), then the Euler tail
-  with the num_sim freeze, written into the spare state;
+  with the num_sim freeze, written into the spare state; for pm_grid and
+  p3m, the same `make_step` around the mesh solve (`ops/pm.py`,
+  `ops/p3m.py`) and, for p3m, the tree near field's sweep kernel
+  (`ops/treeforce.py`; the twins on a CPU state);
 - the shared fence is stream order: `positions` handed to the render engine
   is the fence value (`Compute::GetFenceValue`, `Compute.cpp:446`);
 - `wait_for_gpu` is a hard device sync;
@@ -61,7 +64,7 @@ class ComputeEngine:
         self.device = torch.device(device)
         self.metrics = metrics or MetricsRegistry()
         self.use_kernel = self.device.type == "cuda"
-        # raises for a force model not ported yet
+        # raises for a part not ported yet (the p3m slot near field)
         self._step = integrator.make_step(sim_config)
         self.step_count = 0  # the shared fence value analog
 
@@ -102,7 +105,7 @@ class ComputeEngine:
         self._spare, self.state = self.state, out
         self.step_count += 1
         # pairs for all_pairs (n_sim targets x every padded source, the same
-        # count for both schedules), particles for the central well
+        # count for both schedules), particles for the other models
         n_sim = float(num_sim if num_sim is not None else cfg.num_particles)
         if cfg.force_model == "all_pairs":
             n_sim *= self.state.padded_count

@@ -13,7 +13,10 @@ copy path without a second card). Role assignment, as in the JAX package:
 - default with one GPU: both roles share it -> async-compute mode (zero
   copies);
 - any explicit pair of distinct devices -> split mode with a positions copy
-  each frame (the cross-adapter shared heap + copy queue analog).
+  each frame (the cross-adapter shared heap + copy queue analog);
+- no GPU: the CPU takes a role only when an index names it (a role left
+  unnamed shares the named adapter); with no index at all
+  `assign_adapters` raises rather than run on the CPU unasked.
 """
 
 from __future__ import annotations
@@ -63,6 +66,18 @@ def enumerate_adapters() -> List[AdapterInfo]:
     return adapters
 
 
+def cpu_adapter_index(adapters: Optional[Sequence[AdapterInfo]] = None
+                      ) -> int:
+    """The index of the CPU adapter (in `enumerate_adapters()` by
+    default), for callers that run on the CPU by choice."""
+    adapters = enumerate_adapters() if adapters is None else adapters
+    return next(a.index for a in adapters if a.platform == "cpu")
+
+
+class NoAcceleratorError(RuntimeError):
+    """No GPU was found and no adapter index names one to use instead."""
+
+
 def assign_adapters(
     adapters: Sequence[AdapterInfo],
     compute_index: Optional[int] = None,
@@ -70,8 +85,17 @@ def assign_adapters(
 ) -> Tuple[AdapterInfo, AdapterInfo]:
     """Pick (compute, render) adapters (`Particles.cpp:212-243`): with 2+
     GPUs compute takes the first and render the second; with one, both
-    share it. The CPU never wins a default role next to a GPU."""
-    pool = [a for a in adapters if a.is_accelerator] or list(adapters)
+    share it. The CPU never wins a default role: without a GPU, a role
+    left unnamed shares the named adapter, and with neither named this
+    raises `NoAcceleratorError`."""
+    pool = [a for a in adapters if a.is_accelerator]
+    if not pool:
+        if compute_index is None and render_index is None:
+            raise NoAcceleratorError(
+                "no GPU adapter found, and no adapter index names one to "
+                "run on instead")
+        pool = [adapters[compute_index if compute_index is not None
+                         else render_index]]
     same_platform = [a for a in pool if a.platform == pool[0].platform]
     default_compute = same_platform[0]
     default_render = (

@@ -56,6 +56,7 @@ from multi_adapter_particles_torch.ops.allpairs import (
     make_accel_fn,
 )
 from multi_adapter_particles_torch.runtime.compute_engine import ComputeEngine
+from multi_adapter_particles_torch.runtime.devices import cpu_adapter_index
 from multi_adapter_particles_torch.runtime.orchestrator import ParticlesApp
 
 # The suite runs one xdist worker per core; torch's own thread pool on top
@@ -295,9 +296,11 @@ def test_split_frame_loop_matches_jax():
     japp = JApp(JAppConfig(**app_kw()),
                 JSimConfig(num_particles=n, force_model="all_pairs"),
                 JRenderConfig(width=64, height=64), async_timers=False)
+    cpu = cpu_adapter_index()
     tapp = ParticlesApp(AppConfig(**app_kw()),
                         SimConfig(num_particles=n, force_model="all_pairs"),
-                        RenderConfig(width=64, height=64))
+                        RenderConfig(width=64, height=64),
+                        compute_adapter=cpu, render_adapter=cpu)
     tapp.compute.restore(ParticleState.from_numpy(
         np.array(japp.compute.state.position),
         np.array(japp.compute.state.velocity)))
@@ -327,7 +330,8 @@ class TestCli:
         rc = app.main(
             ["-force", "all_pairs", "-rectpair", "-interactionscale",
              "0.001", "-numparticles", "512", "-steps", "2", "-novsync",
-             "-nogui", "-width", "32", "-height", "32"],
+             "-nogui", "-width", "32", "-height", "32",
+             "-computeadapter", str(cpu_adapter_index())],
             on_exit=lambda p: seen.update(cfg=p.compute.config,
                                           frames=p.frame_count),
         )
@@ -342,7 +346,8 @@ class TestCli:
 
         seen = {}
         rc = app.main(["-preset", "10k-allpairs", "-numparticles", "512",
-                       "-steps", "2", "-halfpair"],
+                       "-steps", "2", "-halfpair",
+                       "-computeadapter", str(cpu_adapter_index())],
                       on_exit=lambda p: seen.update(cfg=p.compute.config,
                                                     frames=p.frame_count,
                                                     draw=p.draw_enabled))
@@ -353,13 +358,14 @@ class TestCli:
         assert seen["draw"] is False
 
     @pytest.mark.parametrize("argv", [
-        ["-preset", "4m-fused"], ["-preset", "64k-p3m"],
-        ["-force", "pm_grid"],
+        ["-preset", "4m-fused"], ["-preset", "1m-mesh8"],
+        ["-force", "p3m", "-p3mnear", "slots"],
     ])
     def test_later_slices_exit_2(self, argv, capsys):
         from multi_adapter_particles_torch import app
 
-        assert app.main(argv + ["-steps", "1"]) == 2
+        assert app.main(argv + ["-steps", "1", "-computeadapter",
+                                str(cpu_adapter_index())]) == 2
         assert "not yet ported" in capsys.readouterr().err
 
     def test_unknown_preset_exits_2(self, capsys):

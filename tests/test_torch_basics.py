@@ -87,6 +87,9 @@ def test_port_never_imports_jax():
         "import multi_adapter_particles_torch.ops.central_well\n"
         "import multi_adapter_particles_torch.ops.composite\n"
         "import multi_adapter_particles_torch.ops.allpairs\n"
+        "import multi_adapter_particles_torch.ops.treeforce\n"
+        "import multi_adapter_particles_torch.ops.p3m\n"
+        "import multi_adapter_particles_torch.ops.pm\n"
         "import multi_adapter_particles_torch.presets\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('multi_adapter_particles_tpu')]\n"
@@ -177,15 +180,33 @@ class TestDeviceInit:
             assert d < 0.061, (axis, d)
 
 
+def _cpu_only():
+    from multi_adapter_particles_torch.runtime import devices
+
+    return [devices.AdapterInfo(0, torch.device("cpu"), "cpu", "cpu (id 0)")]
+
+
 class TestRuntimePieces:
     def test_adapters_and_banner(self):
+        """The CPU is listed last and never takes a role unasked: with no
+        GPU and no index, assignment raises (the CLI exits 2)."""
         from multi_adapter_particles_torch.runtime import devices
 
         ads = devices.enumerate_adapters()
         assert ads[-1].platform == "cpu"
         assert all(a.index == i for i, a in enumerate(ads))
-        c, r = devices.assign_adapters(ads)
-        assert c.device == r.device
+        assert devices.cpu_adapter_index(ads) == ads[-1].index
+        with pytest.raises(devices.NoAcceleratorError):
+            devices.assign_adapters(_cpu_only())
+
+    @pytest.mark.parametrize("indices", [(0, 0), (0, None), (None, 0)])
+    def test_explicit_cpu_pair(self, indices):
+        """Naming the CPU for either role runs both there, in the
+        single-adapter async-compute mode."""
+        from multi_adapter_particles_torch.runtime import devices
+
+        c, r = devices.assign_adapters(_cpu_only(), *indices)
+        assert c.device == r.device == torch.device("cpu")
         assert "Async Compute" in devices.mode_banner(c, r)
 
     def test_pacing_bound_on_cpu(self):
@@ -222,9 +243,14 @@ class TestCli:
         metrics = tmp_path / "m.json"
         frame = tmp_path / "f.npy"
         seen = {}
+        from multi_adapter_particles_torch.runtime.devices import (
+            cpu_adapter_index,
+        )
+
         rc = app.main(
             ["-numparticles", "1024", "-steps", "3", "-novsync", "-nogui",
              "-width", "64", "-height", "32", "-size", "40",
+             "-computeadapter", str(cpu_adapter_index()),
              "-metrics", str(metrics), "-dumpframe", str(frame)],
             on_exit=lambda p: seen.update(frames=p.frame_count),
         )
@@ -233,8 +259,17 @@ class TestCli:
         assert d["counters"]["frames"] == 3
         assert np.load(frame).shape == (32, 64, 3)
 
+    def test_no_gpu_and_no_adapter_exits_2(self, capsys, monkeypatch):
+        from multi_adapter_particles_torch import app
+        from multi_adapter_particles_torch.runtime import devices
+
+        monkeypatch.setattr(devices, "enumerate_adapters", _cpu_only)
+        assert app.main(["-numparticles", "256", "-steps", "1"]) == 2
+        err = capsys.readouterr().err
+        assert "-computeadapter" in err and "-listadapters" in err
+
     @pytest.mark.parametrize("argv", [
-        ["-fused"], ["-meshdevices", "4"], ["-force", "p3m"],
+        ["-fused"], ["-meshdevices", "4"], ["-probecache", "off"],
         ["-diagnostics", "10"], ["-checkpoint", "x.npz"],
     ])
     def test_later_flags_exit_nonzero(self, argv, capsys):

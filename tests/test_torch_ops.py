@@ -142,10 +142,18 @@ class TestCentralWellTwin:
                                    rtol=2e-5, atol=2e-5)
 
     def test_force_models_not_ported_raise(self):
-        for model in ("pm_grid", "p3m"):
+        """pm_grid and p3m's tree near field are ported; p3m's slot near
+        field (which "auto" means without the CLI's startup probe) is
+        not."""
+        for mode in ("auto", "slots"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 integrator.make_step(SimConfig(num_particles=256,
-                                               force_model=model))
+                                               force_model="p3m",
+                                               p3m_near_mode=mode))
+        for kw in (dict(force_model="pm_grid"),
+                   dict(force_model="p3m", p3m_near_mode="tree")):
+            assert callable(integrator.make_step(
+                SimConfig(num_particles=256, **kw)))
 
 
 class TestCompositeTwin:

@@ -24,6 +24,7 @@ from multi_adapter_particles_torch.config import (
     SimConfig,
 )
 from multi_adapter_particles_torch.models.state import ParticleState
+from multi_adapter_particles_torch.runtime.devices import cpu_adapter_index
 from multi_adapter_particles_torch.runtime.orchestrator import ParticlesApp
 
 # The suite runs one xdist worker per core; torch's own thread pool on top
@@ -32,6 +33,9 @@ torch.set_num_threads(1)
 
 N = 2048
 FRAMES = 8
+# both roles on the CPU adapter, named: the port runs nowhere unasked
+CPU = dict(compute_adapter=cpu_adapter_index(),
+           render_adapter=cpu_adapter_index())
 
 
 def _app_kw(**counts):
@@ -44,7 +48,7 @@ def _pair(**counts):
                 JRenderConfig(width=64, height=64), async_timers=False)
     tapp = ParticlesApp(AppConfig(**_app_kw(**counts)),
                         SimConfig(num_particles=N),
-                        RenderConfig(width=64, height=64))
+                        RenderConfig(width=64, height=64), **CPU)
     pos0 = np.array(japp.compute.state.position)
     vel0 = np.array(japp.compute.state.velocity)
     tapp.compute.restore(ParticleState.from_numpy(pos0, vel0))
@@ -112,9 +116,9 @@ def test_live_reassignment_keeps_trajectory():
     """A compute-adapter change (drain + CopyState) continues the same
     trajectory as an undisturbed run."""
     a = ParticlesApp(AppConfig(**_app_kw()), SimConfig(num_particles=N),
-                     RenderConfig(width=64, height=64))
+                     RenderConfig(width=64, height=64), **CPU)
     b = ParticlesApp(AppConfig(**_app_kw()), SimConfig(num_particles=N),
-                     RenderConfig(width=64, height=64))
+                     RenderConfig(width=64, height=64), **CPU)
     for i in range(4):
         a.draw()
         b.draw()
