@@ -4,7 +4,10 @@ plain torch twin at the main paths' shapes, then runs the port's CLI main
 paths (4,194,304 particles, central well; 1,048,576 particles, all-pairs
 self-gravity; 4,194,304 particles, pm_grid; 1,048,576 particles, tree-P3M
 self-gravity; 1024x1024 split frame loops) and checks that each went
-through its kernels and produced a sane frame.
+through its kernels and produced a sane frame; then the conservation
+diagnostics (`-diagnostics K`) on those scenes, whose P3M gauge runs the
+tree sweep's three potential variants, with finite gauges and no dropped
+pairs.
 
     python3 chip_smoke.py
 
@@ -46,6 +49,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 17. tree-P3M main path: `app.main -force p3m -p3mnear tree` at 1,048,576
     and 1024x1024, 8 frames of the Newton-3rd sweep then 6 with
     -treedirected; launch counters, the run's config, the probe seconds
+18. the sweep's potential variants vs their twins at 262,144 (G=128,
+    B=256, probed budget): u within 1e-5 of max|u_near| over the live
+    lanes, the fused force rows bitwise the force-only kernel's,
+    potential-only bitwise the fused potential row, the halved total
+    within rel 1e-5 of the directed one; times and bounds
+19. the gauge sweeps at their paths' shapes: the 4M pm_grid gauge (G=256,
+    blocks of 2048 expanded to 512, halved potential-only) and the 1M
+    tree-P3M gauge (G=192, B=512: fused, and potential-only), each kernel
+    vs its twin and run twice bitwise; the host budget probe, list build,
+    kernel and twin times and bounds; the 4M halved total vs the directed
+    one; `DiagnosticsProbe.maybe_publish` at 4M, first and warm, gauges
+    bitwise equal on the second call
+20. mesh vs exact potential gauge at 262,144 (device init, G=64): rel
+    1e-3, the JAX package's pin; both gauges' times
+21. diagnostics main paths: `app.main -diagnostics` on the 4M pm_grid
+    scene (G=128, no draw, 5 steps, every 2), the 1M tree-P3M scene
+    (1024x1024, 8 steps, every 4), the 4M central well (20 frames, every
+    10) and the 262,144 all-pairs scene (exact gauge, no draw, 2 steps,
+    every 2); finite gauges, `diag_dropped_pairs == 0`, the variants'
+    launch counters; and the potential-only directed sweep's path, the
+    library call `mesh_potential_only(half_pairs=False)` on the 1M scene
 
 The kernels line (before the last) has one entry per kernel with its
 launches on its main path, the error against its twin, kernel / twin times
@@ -73,13 +97,24 @@ N_HALF_CHECK = 131_072    # 256 tiles of 512: half-pair kernel vs plain
 N_UNTILEABLE = 100_096    # padded 100,000: not a multiple of 512
 AP_STEPS_HALF = 8
 AP_STEPS_RECT = 6
-N_TREE_CHECK = 262_144    # tree kernels vs twins (G=128, B=256)
+N_TREE_CHECK = 262_144    # tree kernels vs twins (G=128, B=256); exact gauge
 N_TREE = 1_048_576        # the tree-P3M path (G=192, B=512)
 TREE_SAMPLE = 4_096       # targets held against the exact sum
 TREE_STEPS_N3 = 8
 TREE_STEPS_DIRECTED = 6
 PM_STEPS = 5
 PM_GRID = 128
+DIAG_RUNS = (   # (label, argv, steps, every) of phase 21
+    ("pm_grid", ["-force", "pm_grid", "-pmgrid", str(PM_GRID),
+                 "-numparticles", str(N_MAIN), "-nodraw"], 5, 2),
+    ("p3m", ["-force", "p3m", "-p3mnear", "tree", "-numparticles",
+             str(N_TREE), "-width", str(WIDTH), "-height", str(HEIGHT)],
+     8, 4),
+    ("central_well", ["-numparticles", str(N_MAIN), "-width", str(WIDTH),
+                      "-height", str(HEIGHT)], 20, 10),
+    ("all_pairs", ["-force", "all_pairs", "-numparticles",
+                   str(N_TREE_CHECK), "-nodraw"], 2, 2),
+)
 BOX, CUTOFF = 2048.0, 6.75   # SimConfig's pm_box and p3m_cutoff_cells
 
 # The card's limits for `bound_ms` (NVIDIA's H100 SXM data sheet):
@@ -90,7 +125,8 @@ SMS, FP32_LANES = 132, 128
 # (each source's header comment gives the tally)
 INSTR = {"all_pairs_rect": 11, "all_pairs_half_round": 14,
          "all_pairs_half_diag": 11, "tree_sweep": 27, "tree_sweep_n3": 33,
-         "composite": 28}
+         "tree_sweep_with_potential": 41, "tree_sweep_potential_only": 23,
+         "tree_sweep_half_pairs": 23, "composite": 28}
 
 
 def log(msg: str) -> None:
@@ -100,6 +136,20 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     log(f"FAIL: {msg}")
     raise SystemExit(1)
+
+
+def timed(fn):
+    """(fn(), its device milliseconds): one call between CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -161,17 +211,20 @@ def phase_device():
 
 
 def _kernel_name(mangled: str) -> str:
-    """A kernel's name (and its first template argument, an int or a bool)
-    from its Itanium-mangled symbol:
-    `_ZN12_GLOBAL__N_120sweep_n3_pair_kernelILi4E...` ->
-    `sweep_n3_pair_kernel<4>`."""
+    """A kernel's name and its template arguments (ints or bools) from its
+    Itanium-mangled symbol: `_ZN12_GLOBAL__N_120sweep_n3_pair_kernelILi4E
+    ...` -> `sweep_n3_pair_kernel<4>`, `..._kernelILb1ELb0ELb0EE...` ->
+    `..._kernel<1,0,0>`."""
     s = mangled[2:].lstrip("N") if mangled.startswith("_Z") else mangled
     name = s
     while (m := re.match(r"\d+", s)):
         n, start = int(m.group()), m.end()
         name, s = s[start:start + n], s[start + n:]
-    t = re.match(r"IL[a-z]+(-?\d+)E", s)
-    return name + (f"<{t.group(1)}>" if t else "")
+    t = re.match(r"I((?:L[a-z]+-?\d+E)+)", s)
+    if not t:
+        return name
+    return name + "<" + ",".join(re.findall(r"L[a-z]+(-?\d+)E",
+                                           t.group(1))) + ">"
 
 
 def phase_build():
@@ -736,11 +789,12 @@ def _tree_scene(dev, n):
     return pos, host, grid, r_c, gn, budget
 
 
-def _sweeps(lists, r_c):
-    """(wrapper, bare kernel, twin) calls of the sweep `lists` asks for.
-    The wrapper checks the list (one host sync) and, halved, builds the
-    fold index each call; the bare call launches the kernels on int32
-    lists built here once, so its time is the kernels' alone."""
+def _sweeps(lists, r_c, **flags):
+    """(wrapper, bare kernel, twin) calls of the sweep `lists` asks for;
+    `flags` pick a potential variant of the directed sweep. The wrapper
+    checks the list (one host sync) and, halved, builds the fold index
+    each call; the bare call launches the kernels on int32 lists built
+    here once, so its time is the kernels' alone."""
     import torch
 
     from multi_adapter_particles_torch import constants as C
@@ -748,7 +802,7 @@ def _sweeps(lists, r_c):
 
     eps2, sigma = C.SOFTENING_SQUARED, r_c * p3m._SIGMA_PER_CUTOFF
     L = lists
-    if L.halved:
+    if L.n3:
         args = (L.spos, L.sweep_i, L.sweep_j)
         kw = dict(nb=L.nb, block=L.block, eps2=eps2, sigma=sigma)
         prep = treeforce._n3_prepare(*args, L.nb, L.block)
@@ -756,13 +810,16 @@ def _sweeps(lists, r_c):
                 lambda: treeforce._launch_sweep_n3(L.spos, *prep, eps2,
                                                    sigma),
                 lambda: treeforce.near_sweep_n3_plain(*args, **kw))
+    variant = treeforce._variant(flags.get("with_potential", False),
+                                 flags.get("potential_only", False),
+                                 flags.get("half_pairs", False))
     args = (L.spos, L.bounds, L.sweep_j)
-    kw = dict(block=L.sweep_block, eps2=eps2, sigma=sigma)
+    kw = dict(block=L.sweep_block, eps2=eps2, sigma=sigma, **flags)
     b32, j32 = L.bounds.to(torch.int32), L.sweep_j.to(torch.int32)
     return (lambda: treeforce.near_sweep(*args, **kw),
             lambda: treeforce._launch_sweep(L.spos, L.sweep_nb,
                                             L.sweep_block, b32, j32, eps2,
-                                            sigma),
+                                            sigma, variant),
             lambda: treeforce.near_sweep_plain(*args, **kw))
 
 
@@ -815,9 +872,8 @@ def phase_tree_expansion(pos, host, r_c, gn, budget):
     wide = treeforce.tree_lists(pos, BOX, r_c, gn, block=1024,
                                 pair_budget=int(coarse * 1.25) + 1,
                                 sub_pair_budget=int(sub * 1.25) + 2)
-    if (wide.sweep_block, wide.halved) != (512, False):
-        fail(f"block 1024 swept at {wide.sweep_block}, halved "
-             f"{wide.halved}")
+    if (wide.sweep_block, wide.n3) != (512, False):
+        fail(f"block 1024 swept at {wide.sweep_block}, n3 {wide.n3}")
     if wide.pairs != sub or wide.dropped:
         fail(f"expansion kept {wide.pairs} sub-pairs (host probe {sub}), "
              f"dropped {wide.dropped}")
@@ -851,8 +907,8 @@ def phase_tree_1m(dev):
         if L.dropped:
             fail(f"{name}: {L.dropped} block pairs dropped")
         wrapper, kernel, twin = _sweeps(L, r_c)
-        k, again, p = wrapper(), kernel(), twin()
-        torch.cuda.synchronize()
+        k, again = wrapper(), kernel()
+        p, plain_ms = timed(twin)
         if not torch.equal(k, again):
             fail(f"{name}: two runs at {N_TREE:,} differ")
         err = check_rel(f"{name} vs plain", k, p, 1e-5)
@@ -1042,6 +1098,348 @@ def phase_tree_main_path():
     return launches, results
 
 
+# the potential variants of the directed sweep: (name, wrapper flags)
+POT_VARIANTS = (
+    ("tree_sweep_with_potential", dict(with_potential=True)),
+    ("tree_sweep_potential_only", dict(with_potential=True,
+                                       potential_only=True)),
+    ("tree_sweep_half_pairs", dict(with_potential=True, potential_only=True,
+                                   half_pairs=True)),
+)
+POT = dict(POT_VARIANTS)
+
+
+def check_u(name: str, got, want, live, rel: float) -> float:
+    """Fail unless the potential rows agree within rel x max|want| over the
+    live lanes (dead lanes are zeroed by the caller); returns the max abs
+    error there."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite kernel output")
+    scale = float(want[live].abs().max())
+    err = float((got[live] - want[live]).abs().max())
+    if not err <= rel * scale:
+        fail(f"{name}: max abs err {err:.3e} > {rel} x max|u| {scale:.3e}")
+    log(f"  {name}: max abs err {err:.3e} = {err / scale:.2e} of max|u| "
+        f"{scale:.3e} (limit {rel}, live lanes)")
+    return err
+
+
+def _time_variant(name, lists, kernel, plain_ms, reps):
+    """Kernel ms, the SM clock under load, and the issue bound of `name`
+    over the listed pairs, beside the twin's ms (one timed call)."""
+    ms = time_ms(kernel, reps=reps)
+    mhz = busy_clock_mhz(kernel, reps=max(8, reps))
+    pairs = lists.pairs * lists.sweep_block ** 2
+    bound = issue_bound_ms(pairs * INSTR[name], mhz)
+    log(f"  {name}: {lists.pairs:,} listed block pairs of "
+        f"{lists.sweep_block} = {pairs:.4e} pair interactions; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.1f} ms; bound {bound:.3f} ms "
+        f"({INSTR[name]} FP32 instructions a pair at {mhz:.0f} MHz) -> "
+        f"{bound / ms:.1%} of it")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations", "pairs": pairs, "mhz": mhz}
+
+
+def _potential_totals(pos, r_c, gn, **budgets):
+    """Σu of the potential-only sweep, directed and halved (dropped must be
+    0), through `near_field_tree(total_only=True)`."""
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.ops import treeforce
+
+    totals = []
+    for half in (False, True):
+        tot, dropped = treeforce.near_field_tree(
+            pos, BOX, 1.0, C.SOFTENING_SQUARED, r_c, gn, with_potential=True,
+            potential_only=True, half_pairs=half, total_only=True, **budgets)
+        if dropped:
+            fail(f"potential total (half_pairs={half}): {dropped} pairs "
+                 "dropped")
+        totals.append(float(tot))
+    rel = abs(totals[1] - totals[0]) / abs(totals[0])
+    log(f"  Σu directed {totals[0]:.9e}, halved {totals[1]:.9e}: rel "
+        f"{rel:.2e} (limit 1e-5)")
+    if not rel <= 1e-5:
+        fail(f"halved potential total off the directed one by {rel:.2e}")
+    return rel
+
+
+def phase_potential_check(dev):
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.ops import p3m, treeforce
+
+    log(f"phase 18: potential sweep variants vs twins @ {N_TREE_CHECK:,}")
+    pos, _, _, r_c, gn, budget = _tree_scene(dev, N_TREE_CHECK)
+    L = treeforce.tree_lists(pos, BOX, r_c, gn, pair_budget=budget)
+    Lh = treeforce.tree_lists(pos, BOX, r_c, gn, pair_budget=budget,
+                              half_pairs=True)
+    if L.dropped or Lh.dropped:
+        fail(f"dropped pairs: {L.dropped} directed, {Lh.dropped} halved")
+    log(f"  {L.pairs:,} directed block pairs, {Lh.pairs:,} halved")
+    force = _sweeps(L, r_c)[1]()
+    out = {}
+    for name, flags in POT_VARIANTS:
+        lists = Lh if flags.get("half_pairs") else L
+        wrapper, kernel, twin = _sweeps(lists, r_c, **flags)
+        k = wrapper()
+        p, plain_ms = timed(twin)
+        check_u(f"{name} vs plain", k[3], p[3], lists.live, 1e-5)
+        if flags.get("potential_only"):
+            if not bool((k[:3] == 0).all()):
+                fail(f"{name}: nonzero force rows")
+        else:
+            check_rel(f"{name} force rows vs plain", k[:3], p[:3], 1e-5)
+            if not torch.equal(k[:3], force[:3]):
+                fail(f"{name}: the force rows are not bitwise the "
+                     "force-only kernel's")
+            log(f"  {name}: force rows bitwise the force-only kernel's")
+        out[name] = k
+        _time_variant(name, lists, kernel, plain_ms, reps=10)
+    if not torch.equal(out["tree_sweep_potential_only"][3],
+                       out["tree_sweep_with_potential"][3]):
+        fail("potential-only row 3 is not bitwise the fused variant's")
+    log("  potential-only row 3 bitwise the fused variant's")
+    # the self-pair constant the wrappers subtract is what a sweep adds:
+    # 32 particles 4 r_c apart in one block, each alone with itself
+    eps2, sigma = C.SOFTENING_SQUARED, r_c * p3m._SIGMA_PER_CUTOFF
+    u_self = treeforce.potential_self(eps2, sigma, dev)
+    lone = torch.zeros((4, 32), device=dev)
+    lone[0] = torch.arange(32, device=dev) * (4.0 * r_c) - 60.0 * r_c
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    bounds = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    for name, flags in POT_VARIANTS:
+        row = treeforce.near_sweep(lone, bounds, one, block=32, eps2=eps2,
+                                   sigma=sigma, **flags)[3]
+        want = u_self * (0.5 if flags.get("half_pairs") else 1.0)
+        if not bool((row == want).all()):
+            fail(f"{name}: a lone particle's sum {row[:2].tolist()} is not "
+                 f"the self constant {want!r}")
+    log(f"  self-pair constant on the card {u_self!r} (host evaluation "
+        f"{treeforce.short_potential_self(eps2, sigma)!r}): every variant's "
+        "lone-particle sum is it, bitwise")
+    _potential_totals(pos, r_c, gn, pair_budget=budget)
+
+
+def phase_gauge_sweeps(dev):
+    import torch
+
+    from multi_adapter_particles_torch.config import SimConfig
+    from multi_adapter_particles_torch.models import diagnostics as D
+    from multi_adapter_particles_torch.models import init as pinit
+    from multi_adapter_particles_torch.ops import p3m, treeforce
+    from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
+
+    log(f"phase 19: gauge sweeps @ {N_MAIN:,} (pm_grid gauge) and "
+        f"{N_TREE:,} (tree-P3M gauge)")
+    out = {}
+    state = pinit.initialize_particles_device(
+        N_MAIN, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pos = state.position
+    grid = D._gauge_grid(N_MAIN, PM_GRID)
+    r_c, gn = p3m.near_grid_for(grid, BOX, CUTOFF)
+    t0 = time.perf_counter()
+    coarse, sub, block = treeforce.host_tree_counts(pos.cpu().numpy(), BOX,
+                                                    r_c, gn)
+    probe_s = time.perf_counter() - t0
+    budgets = dict(pair_budget=int(coarse * treeforce.PAIR_HEADROOM) + 1,
+                   sub_pair_budget=int(sub * treeforce.PAIR_HEADROOM) + 2)
+    log(f"  {N_MAIN:,}: gauge grid G={grid}, near grid {gn}, block {block}; "
+        f"host probe {probe_s:.2f} s: {coarse:,} block pairs, {sub:,} "
+        f"sub-pairs of 512; budgets {budgets}")
+    Lh = treeforce.tree_lists(pos, BOX, r_c, gn, half_pairs=True, **budgets)
+    if (block, Lh.sweep_block, Lh.dropped) != (2048, 512, 0):
+        fail(f"4M gauge list: block {block} swept at {Lh.sweep_block}, "
+             f"dropped {Lh.dropped}")
+    build_ms = time_ms(lambda: treeforce.tree_lists(
+        pos, BOX, r_c, gn, half_pairs=True, **budgets), reps=3)
+    name = "tree_sweep_half_pairs"
+    wrapper, kernel, twin = _sweeps(Lh, r_c, **POT[name])
+    k, again = wrapper(), kernel()
+    p, plain_ms = timed(twin)
+    if not torch.equal(k, again):
+        fail(f"{name}: two runs at {N_MAIN:,} differ")
+    err = check_u(f"{name} vs plain @4M", k[3], p[3], Lh.live, 1e-5)
+    del again, p
+    out[name] = {"max_abs_err": err, "list_ms": build_ms,
+                 "probe_s": probe_s,
+                 **_time_variant(name, Lh, kernel, plain_ms, reps=5)}
+    log(f"  halved list build {build_ms:.3f} ms")
+    del k, Lh
+    out["total_rel_4m"] = _potential_totals(pos, r_c, gn, **budgets)
+
+    cfg = SimConfig(num_particles=N_MAIN, force_model="pm_grid",
+                    pm_grid_size=PM_GRID)
+    probe = D.DiagnosticsProbe(cfg, 1)
+    if not probe.use_run_accel:
+        fail("the 4M pm_grid probe does not take the run's accel")
+    seen = []
+    for _ in range(2):
+        m = MetricsRegistry()
+        probe.maybe_publish(0, state, m)
+        seen.append(m.gauges)
+    first, warm = seen[1]["diag_sample_ms"]
+    for key, v in seen[0].items():
+        if key != "diag_sample_ms" and v != seen[1][key]:
+            fail(f"gauge {key}: {v!r} then {seen[1][key]!r} on the same "
+                 "state")
+    if seen[0]["diag_dropped_pairs"] != 0:
+        fail(f"4M gauge dropped {seen[0]['diag_dropped_pairs']} pairs")
+    out["publish_ms"] = {"first": first, "warm": warm}
+    log(f"  DiagnosticsProbe.maybe_publish @4M: first {first:.1f} ms (budget "
+        f"probe included), warm {warm:.1f} ms; gauges bitwise equal on the "
+        f"second call: potential {seen[0]['potential']:.9e}, energy "
+        f"{seen[0]['energy']:.9e}")
+    del state, pos, seen
+    torch.cuda.empty_cache()
+
+    pos, _, grid, r_c, gn, budget = _tree_scene(dev, N_TREE)
+    if D._gauge_grid(N_TREE, grid) != grid:
+        fail(f"the 1M gauge grid is not the run's G={grid}")
+    L = treeforce.tree_lists(pos, BOX, r_c, gn, pair_budget=budget)
+    if L.dropped:
+        fail(f"1M gauge list dropped {L.dropped} pairs")
+    force = _sweeps(L, r_c)[1]()
+    rows = {}
+    for name in ("tree_sweep_with_potential", "tree_sweep_potential_only"):
+        wrapper, kernel, twin = _sweeps(L, r_c, **POT[name])
+        k, again = wrapper(), kernel()
+        p, plain_ms = timed(twin)
+        if not torch.equal(k, again):
+            fail(f"{name}: two runs at {N_TREE:,} differ")
+        err = check_u(f"{name} vs plain @1M", k[3], p[3], L.live, 1e-5)
+        if name == "tree_sweep_with_potential":
+            err = max(err, check_rel(f"{name} force rows vs plain @1M",
+                                     k[:3], p[:3], 1e-5))
+            if not torch.equal(k[:3], force[:3]):
+                fail(f"{name}: force rows differ from the force-only "
+                     "kernel's @1M")
+        rows[name] = k[3]
+        del again, p
+        out[name] = {"max_abs_err": err,
+                     **_time_variant(name, L, kernel, plain_ms, reps=5)}
+    if not torch.equal(rows["tree_sweep_potential_only"],
+                       rows["tree_sweep_with_potential"]):
+        fail("potential-only row 3 differs from the fused one @1M")
+    log("  @1M: fused force rows bitwise the force-only kernel's, "
+        "potential-only row 3 bitwise the fused one")
+    out["scene_1m"] = (pos, grid, budget)
+    return out
+
+
+def phase_exact_gauge(dev):
+    import torch
+
+    from multi_adapter_particles_torch.config import SimConfig
+    from multi_adapter_particles_torch.models import diagnostics as D
+    from multi_adapter_particles_torch.models import init as pinit
+
+    n = N_TREE_CHECK
+    log(f"phase 20: mesh vs exact potential gauge @ {n:,}")
+    state = pinit.initialize_particles_device(
+        n, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cfg = SimConfig(num_particles=n, force_model="pm_grid")
+    exact_fn = D.make_diagnostics(cfg, potential_mode="exact")
+    mesh_fn = D.DiagnosticsProbe(cfg, 1, potential_mode="mesh")._build(
+        state, external_accel=False)
+    got, ms = {}, {}
+    for label, fn in (("exact", exact_fn), ("mesh", mesh_fn), ("exact", exact_fn),
+                      ("mesh", mesh_fn)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[label] = {k: float(v) for k, v in fn(state).items()}
+        ms[label] = (time.perf_counter() - t0) * 1e3   # the second: warm
+    if got["mesh"]["diag_dropped_pairs"] != 0:
+        fail(f"mesh gauge dropped {got['mesh']['diag_dropped_pairs']} pairs")
+    pe, pm_ = got["exact"]["potential"], got["mesh"]["potential"]
+    rel = abs(pm_ - pe) / abs(pe)
+    log(f"  G={cfg.pm_grid_size}: potential exact {pe:.9e}, mesh {pm_:.9e}: "
+        f"rel {rel:.2e} (limit 1e-3); a sample: exact {ms['exact']:.1f} ms, "
+        f"mesh {ms['mesh']:.1f} ms (warm, host wall)")
+    if not rel <= 1e-3:
+        fail(f"mesh potential off the exact sum by {rel:.2e}")
+    return {"rel": rel, "exact_ms": ms["exact"], "mesh_ms": ms["mesh"]}
+
+
+def phase_diag_main_paths(scene_1m):
+    import math
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.models import diagnostics as D
+    from multi_adapter_particles_torch.ops.central_well import central_well_step
+    from multi_adapter_particles_torch.ops.treeforce import (
+        LAUNCH_COUNTERS,
+        near_sweep,
+    )
+
+    names = dict(zip(LAUNCH_COUNTERS, ("tree_sweep", *POT)))
+    results, launches = {}, {}
+    for label, argv, steps, every in DIAG_RUNS:
+        full = argv + ["-novsync", "-nogui", "-steps", str(steps),
+                       "-diagnostics", str(every)]
+        log(f"phase 21: diagnostics main path ({label}) — app.main "
+            f"{' '.join(full)}")
+        for c in LAUNCH_COUNTERS:
+            setattr(near_sweep, c, 0)
+        central_well_step.launches = 0
+        t0 = time.perf_counter()
+        metrics, seen = _run_app(full, steps, draw="-nodraw" not in argv)
+        wall = time.perf_counter() - t0
+        got = {names[c]: getattr(near_sweep, c) for c in LAUNCH_COUNTERS}
+        got["central_well"] = central_well_step.launches
+        g = metrics["gauges"]
+        samples = steps // every
+        log(f"  rc 0, {steps} frames in {wall:.2f} s wall; launches {got}; "
+            f"sample ms {g.get('diag_sample_ms')}")
+        for key in ("kinetic", "potential", "energy", "energy_drift",
+                    "momentum_mag", "angular_momentum_mag"):
+            if not math.isfinite(g.get(key, math.nan)):
+                fail(f"{label}: gauge {key} = {g.get(key)!r}")
+        if len(g["diag_sample_ms"]) != samples:
+            fail(f"{label}: {len(g['diag_sample_ms'])} samples, expected "
+                 f"{samples}")
+        mesh = label in ("pm_grid", "p3m")
+        if mesh != ("diag_dropped_pairs" in g):
+            fail(f"{label}: expected the {'mesh' if mesh else 'exact'} "
+                 "gauge")
+        if mesh and g["diag_dropped_pairs"] != 0:
+            fail(f"{label}: diag_dropped_pairs {g['diag_dropped_pairs']}")
+        want = {"pm_grid": "tree_sweep_half_pairs",
+                "p3m": "tree_sweep_with_potential",
+                "central_well": "central_well"}.get(label)
+        if want and got[want] < (samples if mesh else steps):
+            fail(f"{label}: {want} launched {got[want]} times")
+        if label == "p3m" and seen["config"].pm_grid_size != scene_1m[1]:
+            fail(f"p3m run picked G={seen['config'].pm_grid_size}")
+        launches[label] = got
+        results[label] = {"sample_ms": g["diag_sample_ms"],
+                          "energy_drift": g["energy_drift"],
+                          "frame_ms": metrics["gauges"].get(
+                              "device_frame_ms", [])}
+        del seen
+
+    pos, grid, budget = scene_1m
+    label = "mesh_potential_only(half_pairs=False)"
+    log(f"phase 21: potential-only directed path — {label} @ {N_TREE:,}, "
+        f"G={grid}")
+    for c in LAUNCH_COUNTERS:
+        setattr(near_sweep, c, 0)
+    pot, dropped = D.mesh_potential_only(
+        pos, C.PARTICLE_MASS / N_TREE, C.SOFTENING_SQUARED, grid=grid,
+        box=BOX, cutoff_cells=CUTOFF, pair_budget=budget, half_pairs=False,
+        total_only=False)
+    got = {names[c]: getattr(near_sweep, c) for c in LAUNCH_COUNTERS}
+    log(f"  potential {float(pot):.9e}, dropped {dropped}, launches {got}")
+    if dropped or got["tree_sweep_potential_only"] < 1:
+        fail(f"{label}: dropped {dropped}, launches {got}")
+    if not math.isfinite(float(pot)):
+        fail(f"{label}: potential {float(pot)!r}")
+    launches["potential_only"] = got
+    return launches, results
+
+
 def main() -> int:
     phase_device()
     import torch
@@ -1074,6 +1472,14 @@ def main() -> int:
     pm_path = phase_pm_main_path()
     torch.cuda.empty_cache()
     tree_launches, tree_path = phase_tree_main_path()
+    torch.cuda.empty_cache()
+    phase_potential_check(dev)
+    torch.cuda.empty_cache()
+    gauge = phase_gauge_sweeps(dev)
+    torch.cuda.empty_cache()
+    exact = phase_exact_gauge(dev)
+    torch.cuda.empty_cache()
+    diag_launches, diag_path = phase_diag_main_paths(gauge.pop("scene_1m"))
 
     def entry(name, source, replaces, launches, stats):
         return {"name": name, "route": "cuda",
@@ -1098,6 +1504,15 @@ def main() -> int:
               tree_launches["directed"]["tree_sweep"], tree["tree_sweep"]),
         entry("tree_sweep_n3", "treeforce.cu", "treeforce.py:422",
               tree_launches["n3"]["tree_sweep_n3"], tree["tree_sweep_n3"]),
+        entry("tree_sweep_with_potential", "treeforce.cu", "treeforce.py:288",
+              diag_launches["p3m"]["tree_sweep_with_potential"],
+              gauge["tree_sweep_with_potential"]),
+        entry("tree_sweep_potential_only", "treeforce.cu", "treeforce.py:305",
+              diag_launches["potential_only"]["tree_sweep_potential_only"],
+              gauge["tree_sweep_potential_only"]),
+        entry("tree_sweep_half_pairs", "treeforce.cu", "treeforce.py:293",
+              diag_launches["pm_grid"]["tree_sweep_half_pairs"],
+              gauge["tree_sweep_half_pairs"]),
     ]
     log(f"main path: {json.dumps(frame)}; composite @262K Q=64: kernel "
         f"{comp['ms_262k']:.4f} ms, plain {comp['plain_ms_262k']:.4f} ms")
@@ -1109,6 +1524,9 @@ def main() -> int:
         f"RMS vs exact {rms:.4e} of max|a|; solve B/cell {json.dumps(solve)};"
         f" pm_grid @{N_MAIN:,} G={PM_GRID} {json.dumps(pm_path)}; main path "
         f"{json.dumps(tree_path)}; launches {json.dumps(tree_launches)}")
+    log(f"diagnostics: 4M gauge sweep {json.dumps(gauge)}; exact vs mesh "
+        f"@{N_TREE_CHECK:,} {json.dumps(exact)}; main paths "
+        f"{json.dumps(diag_path)}; launches {json.dumps(diag_launches)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,8 @@ prints help (`ArgParser.h:105-127`). Extensions: preset, steps, seed,
 force, interactionscale, rectpair / halfpair, the pm_grid / p3m knobs
 (pmgrid, pmbox, p3mcutoff, p3mcapacity, p3mnear, p3mbudget,
 treedirected), adapter indices, frame size, frame dumping, metrics JSON,
-hard-sync stage profiling. For `-force p3m` the JAX CLI's startup probe
+hard-sync stage profiling, the conservation gauges (diagnostics,
+diagmode). For `-force p3m` the JAX CLI's startup probe
 runs on the port's own device init: it resolves `-p3mnear auto`, picks the
 grid when `-pmgrid` is absent and sizes the tree's pair budgets. The JAX
 package's other flags, the slot near field and the presets that need them
@@ -37,8 +38,6 @@ _LATER_FLAGS = {
     "meshdevices": "item 14",
     "shardrender": "item 14",
     "probecache": "item 13",
-    "diagnostics": "item 12",
-    "diagmode": "item 12",
     "debug": "item 13",
     "checkpoint": "item 13",
     "checkpointevery": "item 13",
@@ -52,9 +51,8 @@ _LATER_FLAGS = {
 }
 # flags among those that take a value
 _LATER_VALUED = {
-    "meshdevices", "probecache", "diagnostics",
-    "diagmode", "checkpoint", "checkpointevery", "resume", "dashboard",
-    "serve", "timerwindow", "trace", "compilecache",
+    "meshdevices", "probecache", "checkpoint", "checkpointevery", "resume",
+    "dashboard", "serve", "timerwindow", "trace", "compilecache",
 }
 
 
@@ -160,6 +158,18 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
               lambda v: extra.__setitem__("metrics", v))
     p.add_int("profileevery", "hard-sync stage timing every K frames",
               lambda v: extra.__setitem__("profile_every", v))
+    p.add_int("diagnostics",
+              "conservation gauges (energy/momentum/angular momentum + "
+              "energy drift) every K frames; the self-gravity potential "
+              "is the exact O(N^2) pairwise sum up to 262K particles and "
+              "the P3M-split mesh gauge above (usable at the 4M default; "
+              "-diagmode overrides)",
+              lambda v: extra.__setitem__("diag_every", v))
+    p.add_str("diagmode",
+              "diagnostics potential: auto (default; exact <=262K, mesh "
+              "above), exact (O(N^2) sum at any N), mesh (P3M-split gauge, "
+              "~1e-4 of exact)",
+              lambda v: extra.__setitem__("diag_mode", v))
     p.add_flag("nodraw", "simulate only (SPACE-toggle analog)",
                lambda: extra.__setitem__("draw", False))
     p.add_flag("listadapters", "print the adapter list and exit",
@@ -308,6 +318,12 @@ def main(argv: Optional[List[str]] = None,
               "them)", file=sys.stderr)
         return 2
 
+    diag_mode = extra.get("diag_mode", "auto")
+    if diag_mode not in ("auto", "exact", "mesh"):
+        print(f"error: -diagmode {diag_mode}: one of auto | exact | mesh",
+              file=sys.stderr)
+        return 2
+
     force = extra.get("force", "central_well")
     if force == "p3m":
         err = probe_p3m(app_cfg, extra, compute_ad.device)
@@ -355,7 +371,20 @@ def main(argv: Optional[List[str]] = None,
     if "probe_s" in extra:
         particles.metrics.gauge("probe_s", extra["probe_s"])
 
+    diag = None
+    if extra.get("diag_every"):
+        from multi_adapter_particles_torch.models.diagnostics import (
+            DiagnosticsProbe,
+        )
+
+        diag = DiagnosticsProbe(sim_cfg, extra["diag_every"],
+                                potential_mode=diag_mode)
+
     def overlay(p: ParticlesApp):
+        if diag is not None:
+            # one host sync a sample (float() pulls the scalars); the
+            # cadence keeps it off the frames in between
+            diag.maybe_publish(p.frame_count, p.compute.state, p.metrics)
         if app_cfg.gui and p.frame_count % 30 == 0:
             print(f"--- frame {p.frame_count} ---")
             print(p.metrics.render_text())

@@ -12,10 +12,15 @@ with σ_eff = r_c / 4.5. The mesh convolves the analytic long-range
 acceleration kernels tabulated at σ_tab = sqrt(σ_eff² - h²/3), so the
 variance the CIC deposit and interpolation add composes to exactly σ_eff.
 
+The diagnostics gauge's potential splits the same way: the mesh convolves
+the analytic potential kernel -erf(r/(√2σ_tab))/r, and the tree sweeps the
+short remainder (`treeforce.short_potential_cheb`). `with_potential` adds
+it to the force; `p3m_potential_with_overflow` and
+`p3m_potential_total_with_overflow` compute it without the force work.
+
 Not here yet: the static-K slot near field (`near_mode="slots"`, and
 `"auto"`, which resolves to slots without the CLI's startup probe), ROADMAP
-queue 1 item 10; the `p3m_potential_*` functions, which belong to the
-diagnostics path (item 12).
+queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -74,6 +79,14 @@ def _g_long(d2: Tensor, sigma: float) -> Tensor:
     return num / torch.clamp(d2 * r, min=1e-30)
 
 
+def _sigma_tab(grid: int, box: float, r_c: float) -> float:
+    """σ_tab = sqrt(σ_eff² - h²/3): the width the mesh kernels are
+    tabulated at."""
+    h = box / grid
+    return float(((r_c * _SIGMA_PER_CUTOFF) ** 2
+                  - _CIC2_VARIANCE_CELLS * h * h) ** 0.5)
+
+
 # z-planes of the doubled grid per step of the kernel tabulation: bounds
 # _g_long's temporaries to a slab while the [2G]³ real grid is filled
 _KERNEL_SLAB_CELLS = 1 << 22
@@ -88,9 +101,7 @@ def _long_grad_kernels_rfft(grid: int, box: float, r_c: float,
     is tabulated slab by slab and transformed before the next is built, so
     the build holds at most one real grid and its spectrum beside the
     spectra already made."""
-    h = box / grid
-    sigma_eff = r_c * _SIGMA_PER_CUTOFF
-    sigma_tab = float((sigma_eff**2 - _CIC2_VARIANCE_CELLS * h * h) ** 0.5)
+    sigma_tab = _sigma_tab(grid, box, r_c)
     off = pm.doubled_offsets(grid, box, device)
     g2 = 2 * grid
     ry, rx = off[:, None], off[None, :]
@@ -105,6 +116,58 @@ def _long_grad_kernels_rfft(grid: int, box: float, r_c: float,
         spectra.append(torch.fft.rfftn(real))
         del real
     return tuple(spectra)
+
+
+@functools.lru_cache(maxsize=8)
+def _long_potential_kernel_rfft(grid: int, box: float, r_c: float,
+                                device: torch.device) -> Tensor:
+    """rfft of the analytic long-range potential kernel K_phi(v) =
+    -erf(|v|/(√2 σ_tab))/|v| (-√(2/π)/σ_tab at 0) on the doubled grid,
+    cached per (G, box, r_c, device) and tabulated slab by slab like
+    `_long_grad_kernels_rfft`: its negative gradient is their
+    acceleration. The float32 constants are formed as the JAX function
+    forms them."""
+    s_tab = _sigma_tab(grid, box, r_c)
+    c_u = float(np.float32(1.0) / (np.sqrt(np.float32(2.0))
+                                   * np.float32(s_tab)))
+    limit0 = pm._f32(-((2.0 / math.pi) ** 0.5) / s_tab)
+    off = pm.doubled_offsets(grid, box, device)
+    g2 = 2 * grid
+    ry, rx = off[:, None], off[None, :]
+    dz = max(1, _KERNEL_SLAB_CELLS // (g2 * g2))
+    real = torch.empty((g2, g2, g2), dtype=torch.float32, device=device)
+    for z0 in range(0, g2, dz):
+        rz = off[z0:z0 + dz, None, None]
+        d2 = rx * rx + ry * ry + rz * rz
+        r = torch.sqrt(d2)
+        real[z0:z0 + dz] = torch.where(
+            d2 > 0.0, -torch.special.erf(r * c_u) / torch.clamp(r, min=1e-30),
+            limit0)
+    return torch.fft.rfftn(real)
+
+
+def _potential_long(rho: Tensor, grid: int, box: float, r_c: float) -> Tensor:
+    """Long-range potential solve -> phi [G, G, G] per unit coupling (one
+    forward transform, one pruned inverse)."""
+    kp = _long_potential_kernel_rfft(grid, box, r_c, rho.device)
+    return pm._irfft_pruned(pm._rfft_pruned(rho, grid) * kp, grid)
+
+
+def _self_long(r_c: float, g_const: float = 1.0) -> float:
+    """g √(2/π)/σ_eff: the mesh's delivered self response u_long(0; σ_eff)
+    at coupling g, with the sign that removes it (float32, formed as the
+    JAX package forms it)."""
+    return pm._f32(g_const * float((2.0 / math.pi) ** 0.5)
+                   / (r_c * _SIGMA_PER_CUTOFF))
+
+
+def _gathered_potential(rho: Tensor, position: Tensor, grid: int,
+                        box: float, g_const: float, r_c: float) -> Tensor:
+    """The mesh's long-range potential at each particle, its own smoothed
+    blob removed (in-box particles), 0 out of the box -> [N]."""
+    phi = _potential_long(rho, grid, box, r_c) * pm._f32(g_const)
+    u_long, inside = pm._interp_scalar(phi, position, grid, box)
+    return u_long + torch.where(inside, _self_long(r_c, g_const), 0.0)
 
 
 def _accel_long(rho: Tensor, grid: int, box: float, g_const: float,
@@ -144,32 +207,102 @@ def p3m_accel_with_overflow(
 ):
     """-> (accel [3, N], dropped block pairs): mesh long range + the tree
     near field (`near_mode="tree"`). `capacity` belongs to the slot near
-    field, which is not ported; `with_potential` belongs to diagnostics."""
+    field, which is not ported. `with_potential` (the diagnostics gauge)
+    also returns the per-particle softened pair potential u_i = g Σ_{j≠i}
+    -1/sqrt(r_ij² + eps²), split the same Ewald way -> (accel, u [N],
+    dropped); the total potential energy is 0.5 Σu. `half_force` is
+    dropped there: the fused sweep is the directed one."""
     validate_cutoff_cells(cutoff_cells)
     _require_tree(near_mode)
-    if with_potential:
-        raise NotImplementedError(
-            "the p3m potential belongs to the diagnostics path, not ported "
-            "yet (ROADMAP queue 1 item 12)")
     from multi_adapter_particles_torch.ops.treeforce import near_field_tree
 
     r_c, gn = near_grid_for(grid, box, cutoff_cells)
     rho = pm.deposit_cic(position, grid, box)
     a_far = pm._interp(_accel_long(rho, grid, box, g_const, r_c), position,
                        grid, box)
-    del rho
-    a_near, dropped = near_field_tree(
+    near = near_field_tree(
         position, box, g_const, softening_squared, r_c, gn,
         pair_budget=pair_budget, sub_pair_budget=sub_pair_budget,
-        half_force=half_force,
+        with_potential=with_potential,
+        half_force=half_force and not with_potential,
     )
-    return a_far + a_near, dropped
+    if not with_potential:
+        a_near, dropped = near
+        return a_far + a_near, dropped
+    a_near, u_near, dropped = near
+    u_long = _gathered_potential(rho, position, grid, box, g_const, r_c)
+    return a_far + a_near, u_long + u_near, dropped
 
 
 def p3m_accel(position: Tensor, **kw) -> Tensor:
     """-> accel [3, N] (the dropped-pair count dropped)."""
     acc, _ = p3m_accel_with_overflow(position, **kw)
     return acc
+
+
+def p3m_potential_with_overflow(
+    position: Tensor,
+    grid: int = 64,
+    box: float = 2048.0,
+    g_const: float = 1.0,
+    softening_squared: float = 25.0,
+    cutoff_cells: float = 6.75,
+    pair_budget: Optional[int] = None,
+    sub_pair_budget: Optional[int] = None,
+    half_pairs: bool = False,
+):
+    """-> (u [N], dropped): the potential of `p3m_accel_with_overflow(...,
+    with_potential=True)` with none of its force work (no gradient solves,
+    the potential-only sweep), u bitwise the fused variant's on the same
+    sweep. `half_pairs`: the halved near sweep; 0.5 Σu is unchanged to
+    float32 rounding, but entries are no longer per-particle."""
+    validate_cutoff_cells(cutoff_cells)
+    from multi_adapter_particles_torch.ops.treeforce import near_field_tree
+
+    r_c, gn = near_grid_for(grid, box, cutoff_cells)
+    rho = pm.deposit_cic(position, grid, box)
+    u_near, dropped = near_field_tree(
+        position, box, g_const, softening_squared, r_c, gn,
+        pair_budget=pair_budget, sub_pair_budget=sub_pair_budget,
+        with_potential=True, potential_only=True, half_pairs=half_pairs,
+    )
+    u_long = _gathered_potential(rho, position, grid, box, g_const, r_c)
+    return u_long + u_near, dropped
+
+
+def p3m_potential_total_with_overflow(
+    position: Tensor,
+    grid: int = 64,
+    box: float = 2048.0,
+    g_const: float = 1.0,
+    softening_squared: float = 25.0,
+    cutoff_cells: float = 6.75,
+    pair_budget: Optional[int] = None,
+    sub_pair_budget: Optional[int] = None,
+    half_pairs: bool = True,
+):
+    """-> (Σu, a 0-d tensor; dropped): `p3m_potential_with_overflow`'s
+    total without per-particle values. The long part by the CIC adjoint
+    identity (the gather-back weights are the deposit's, and both drop
+    out-of-box particles): Σ_i phi(x_i) = Σ_c phi(c) rho(c) and Σ_i
+    inside_i = Σ_c rho(c), so it is g (Σ phi·rho + self_long Σ rho); the
+    near part is the sweep's block-order sum (`total_only`). Every sum is
+    a `torch.sum` over a fixed shape: the same run to run."""
+    validate_cutoff_cells(cutoff_cells)
+    from multi_adapter_particles_torch.ops.treeforce import near_field_tree
+
+    r_c, gn = near_grid_for(grid, box, cutoff_cells)
+    rho = pm.deposit_cic(position, grid, box)
+    u_near_total, dropped = near_field_tree(
+        position, box, g_const, softening_squared, r_c, gn,
+        pair_budget=pair_budget, sub_pair_budget=sub_pair_budget,
+        with_potential=True, potential_only=True, half_pairs=half_pairs,
+        total_only=True,
+    )
+    phi = _potential_long(rho, grid, box, r_c)
+    u_long_total = pm._f32(g_const) * (
+        torch.sum(phi * rho) + _self_long(r_c) * torch.sum(rho))
+    return u_long_total + u_near_total, dropped
 
 
 def host_overflow_count(position, grid: int, box: float,

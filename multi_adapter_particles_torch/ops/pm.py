@@ -14,10 +14,11 @@ and interpolate the three acceleration grids back to the particles.
   is the same from run to run.
 - **Solve**: axis-pruned rfft/fft on the doubled grid (both ends of every
   axis pruned) times a cached kernel spectrum, in complex64.
-- **Interpolate**: the 8 corner values of each acceleration grid are read
-  by plain indexing and summed in (dz, dy, dx) order. The JAX package's
-  lane-packed corner rows (`_pack_corner_rows`, a TPU tiling workaround)
-  have no counterpart.
+- **Interpolate**: the 8 corner values of each acceleration grid (or of
+  the diagnostics' potential grid, `_interp_scalar`) are read by plain
+  indexing and summed in (dz, dy, dx) order. The JAX package's lane-packed
+  corner rows (`_pack_corner_rows`, `_pack_scalar_corner_rows`, TPU tiling
+  workarounds) have no counterpart.
 
 Cell geometry follows what the JAX package's compiled code computes: XLA
 turns `x / h + c` into one fused multiply-add with the float32 reciprocal
@@ -208,6 +209,22 @@ def _interp(grids, position: Tensor, grid: int, box: float) -> Tensor:
             acc[c] = term if acc[c] is None else acc[c] + term
     out = torch.stack(acc)
     return torch.where(inside[None, :], out, 0.0)
+
+
+def _interp_scalar(phi: Tensor, position: Tensor, grid: int, box: float):
+    """Trilinear gather-back of a scalar grid [G, G, G] -> (values [N],
+    inside [N]): `_interp`'s corners and weights, 0 outside the 1-cell
+    margin; `inside` lets callers gate per-particle corrections."""
+    g = grid
+    i0, frac, inside = _cic_cells(position, g, box)
+    i0c = torch.clamp(i0, 0, g - 2)
+    cid = i0c[2] * g * g + i0c[1] * g + i0c[0]
+    flat = phi.reshape(-1)
+    val = None
+    for (dz, dy, dx), w in zip(_CORNERS, _corner_weights(frac)):
+        term = flat[cid + (dz * g * g + dy * g + dx)] * w
+        val = term if val is None else val + term
+    return torch.where(inside, val, 0.0), inside
 
 
 def solve_and_gather(rho: Tensor, position: Tensor, grid: int, box: float,

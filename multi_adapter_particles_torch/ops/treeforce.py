@@ -1,6 +1,7 @@
 """Block-sparse exact near field: the tree-structured P³M near mode.
 
-The port of the JAX package's `ops/treeforce.py`, force trace:
+The port of the JAX package's `ops/treeforce.py`, force and potential
+traces:
 
 1. One stable Morton sort of the particles. Blocks of B consecutive
    Morton-sorted particles are compact spatial nodes.
@@ -10,6 +11,13 @@ The port of the JAX package's `ops/treeforce.py`, force trace:
    it are counted in `dropped`, never lost silently).
 4. The sweep over the listed pairs (`near_sweep`, or `near_sweep_n3` over
    the halved list j >= i), un-sorted back to particle order, × g_const.
+
+The diagnostics gauge's potential variants (`with_potential`,
+`potential_only`, `half_pairs`, `total_only`) run the directed kernel with
+a fourth output row, the short-range pair potential u_short
+(`short_potential_cheb`). Its self pair is not 0: the live entries lose
+the constant the sweep picks up from it (`potential_self`), the others are
+zeroed, in sorted order.
 
 Blocks wider than the sweep's 512 are split for the sweep only: each
 listed block pair expands to split² sub-block pairs, pruned by sub-block
@@ -96,6 +104,32 @@ def _fit_h_poly():
 _H_POLY = tuple(float(c) for c in _fit_h_poly())
 
 
+def _fit_e_poly():
+    """Degree-12 monomial fit of E(v) = erf(t/sqrt(2))/t (t = r/σ, v = t²)
+    on [0, VMAX], in the same mapped variable: the long-range pair
+    potential's numerator (u_long = -E/σ). The JAX package's fit, to the
+    bit."""
+    v = np.linspace(0.0, _VMAX, 8001)
+    t = np.sqrt(v)
+    # series: E(v) = sqrt(2/pi) * sum_n (-v/2)^n / (n! (2n+1))
+    es = np.zeros_like(v)
+    term = np.ones_like(v)
+    for n in range(0, 40):
+        es += term / (2 * n + 1)
+        term = term * (-v / 2) / (n + 1)
+    es *= math.sqrt(2.0 / math.pi)
+    erf_v = np.vectorize(math.erf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ee = erf_v(t / math.sqrt(2.0)) / np.maximum(t, 1e-30)
+    e = np.where(v <= 4.0, es, ee)
+    x = 2.0 * v / _VMAX - 1.0
+    return np.polynomial.polynomial.polyfit(x, e, _POLY_DEG).astype(
+        np.float32)
+
+
+_E_POLY = tuple(float(c) for c in _fit_e_poly())
+
+
 def _factor_consts(eps2: float, sigma: float):
     """The float32 constants of `short_factor_cheb`: (eps2, 1/σ², 2/VMAX,
     1/σ³, VMAX)."""
@@ -118,6 +152,34 @@ def short_factor_cheb(d2: Tensor, eps2: float, sigma: float) -> Tensor:
     return torch.where(v <= vmax, s, 0.0)
 
 
+def short_potential_cheb(d2: Tensor, eps2: float, sigma: float) -> Tensor:
+    """Polynomial short-range pair potential u_short = u_exact - u_long,
+    u_exact = -(d² + eps²)^(-1/2), u_long = -erf(r/(√2σ))/r: the potential
+    whose gradient is `short_factor_cheb`'s force, exactly 0 beyond the
+    cutoff. At d2 = 0 it is sqrt(2/π)/σ - 1/eps, not 0: callers remove the
+    self pair (`potential_self`)."""
+    e2, inv_s2, c2v, _, vmax = _factor_consts(eps2, sigma)
+    u_exact = -torch.rsqrt(d2 + e2)
+    v = d2 * inv_s2
+    x = torch.clamp(v * c2v - 1.0, -1.0, 1.0)
+    e = torch.full_like(x, _E_POLY[-1])
+    for c in _E_POLY[-2::-1]:
+        e = e * x + c
+    u = u_exact + e * pm._f32(1.0 / sigma)
+    return torch.where(v <= vmax, u, 0.0)
+
+
+def short_potential_self(eps2: float, sigma: float) -> float:
+    """u_short(0) through the same float32 Horner steps as the twins (x =
+    -1 at v = 0): the self-pair constant of a CPU sweep, bitwise the JAX
+    package's."""
+    e = np.float32(_E_POLY[-1])
+    for c in _E_POLY[-2::-1]:
+        e = e * np.float32(-1.0) + np.float32(c)     # x(v=0) = -1
+    u_exact0 = -np.float32(1.0) / np.float32(np.sqrt(np.float32(eps2)))
+    return float(u_exact0 + e * np.float32(1.0 / sigma))
+
+
 # Widest block the sweeps take; wider tree blocks are split for the sweep.
 _SWEEP_MAX_BLOCK = 512
 
@@ -132,12 +194,18 @@ def _blocks(spos: Tensor, block: int):
     return [spos[c].reshape(nb, block) for c in range(3)]
 
 
-def _pair_planes(planes, ti: Tensor, tj: Tensor, eps2: float, sigma: float):
+def _pair_d(planes, ti: Tensor, tj: Tensor):
     """Target blocks ti and source blocks tj ([A] each) -> the [A, B, B]
-    pair terms (tx, ty, tz) (targets on dim 1, sources on dim 2)."""
+    separations (dx, dy, dz) and d2 (targets on dim 1, sources on dim
+    2)."""
     d = [p[tj][:, None, :] - p[ti][:, :, None] for p in planes]
-    f = short_factor_cheb(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], eps2,
-                          sigma)
+    return d, d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+
+
+def _pair_planes(planes, ti: Tensor, tj: Tensor, eps2: float, sigma: float):
+    """The [A, B, B] force pair terms (tx, ty, tz) of `_pair_d`'s pairs."""
+    d, d2 = _pair_d(planes, ti, tj)
+    f = short_factor_cheb(d2, eps2, sigma)
     return [dc * f for dc in d]
 
 
@@ -158,13 +226,41 @@ def _chunks(n: int, block: int):
     return range(0, n, step), step
 
 
+# The directed sweep's variants: (with_potential, potential_only,
+# half_pairs) -> the kernel's variant index, and the wrapper's count of
+# each variant's launches.
+_VARIANTS = {(False, False, False): 0, (True, False, False): 1,
+             (True, True, False): 2, (True, True, True): 3}
+LAUNCH_COUNTERS = ("launches", "launches_with_potential",
+                   "launches_potential_only", "launches_half_pairs")
+
+
+def _variant(with_potential: bool, potential_only: bool,
+             half_pairs: bool) -> int:
+    """The directed sweep's variant index; raises on the combinations the
+    JAX package refuses."""
+    if potential_only and not with_potential:
+        raise ValueError("potential_only requires with_potential=True")
+    if half_pairs and not potential_only:
+        raise ValueError("half_pairs requires potential_only=True")
+    return _VARIANTS[(bool(with_potential), bool(potential_only),
+                      bool(half_pairs))]
+
+
 def near_sweep_plain(spos: Tensor, bounds: Tensor, j_idx: Tensor, *,
-                     block: int, eps2: float, sigma: float) -> Tensor:
+                     block: int, eps2: float, sigma: float,
+                     with_potential: bool = False,
+                     potential_only: bool = False,
+                     half_pairs: bool = False) -> Tensor:
     """Plain twin of the directed sweep: spos [4, nb*B], bounds [nb+1] over
-    the i-major list j_idx -> [4, nb*B] (ax, ay, az, 0), unscaled."""
+    the i-major list j_idx -> [4, nb*B] (ax, ay, az, u), unscaled. Rows
+    0-2 are 0 under `potential_only`, row 3 unless `with_potential`: the
+    list-order sum of `short_potential_cheb`, a diagonal pair (source block
+    = target block) weighted 1/2 under `half_pairs`."""
+    _variant(with_potential, potential_only, half_pairs)
     planes = _blocks(spos, block)
     nb = planes[0].shape[0]
-    acc = torch.zeros((3, nb, block), dtype=torch.float32,
+    acc = torch.zeros((4, nb, block), dtype=torch.float32,
                       device=spos.device)
     bounds = bounds.long()
     for act, pos in _rounds(bounds):
@@ -172,12 +268,16 @@ def near_sweep_plain(spos: Tensor, bounds: Tensor, j_idx: Tensor, *,
         starts, step = _chunks(act.numel(), block)
         for a0 in starts:
             ti, tj = act[a0:a0 + step], js[a0:a0 + step]
-            terms = _pair_planes(planes, ti, tj, eps2, sigma)
-            acc[:, ti] += torch.stack([t.sum(2) for t in terms])
-    out = torch.zeros((4, nb * block), dtype=torch.float32,
-                      device=spos.device)
-    out[:3] = acc.reshape(3, -1)
-    return out
+            d, d2 = _pair_d(planes, ti, tj)
+            if not potential_only:
+                f = short_factor_cheb(d2, eps2, sigma)
+                acc[:3, ti] += torch.stack([(dc * f).sum(2) for dc in d])
+            if with_potential:
+                us = short_potential_cheb(d2, eps2, sigma).sum(2)
+                if half_pairs:
+                    us = torch.where((ti == tj)[:, None], us * 0.5, us)
+                acc[3, ti] += us
+    return acc.reshape(4, -1)
 
 
 def _n3_lists(sweep_i: Tensor, sweep_j: Tensor, nb: int):
@@ -228,8 +328,11 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("treeforce")
     f, i, p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
     coef = ctypes.POINTER(ctypes.c_float)
-    lib.tree_sweep.argtypes = [p, i, i, p, p, p, coef, f, f, f, f, f, p]
+    lib.tree_sweep.argtypes = [p, i, i, p, p, p, coef, coef, f, f, f, f,
+                               f, f, i, p]
     lib.tree_sweep.restype = ctypes.c_int
+    lib.tree_potential_at.argtypes = [p, p, coef, f, f, f, f, f, p]
+    lib.tree_potential_at.restype = ctypes.c_int
     lib.tree_sweep_n3.argtypes = [p, i, i, p, p, p, p, p, p, coef,
                                   f, f, f, f, f, p]
     lib.tree_sweep_n3.restype = ctypes.c_int
@@ -239,13 +342,19 @@ def _library() -> ctypes.CDLL:
     if lib.tree_sweep_max_block() != _SWEEP_MAX_BLOCK:
         raise RuntimeError("csrc/treeforce.cu's widest block is not "
                            "_SWEEP_MAX_BLOCK")
-    if lib.tree_sweep_poly_terms() != len(_H_POLY):
+    if not lib.tree_sweep_poly_terms() == len(_H_POLY) == len(_E_POLY):
         raise RuntimeError("csrc/treeforce.cu takes another number of "
-                           "Horner coefficients than _H_POLY has")
+                           "Horner coefficients than _H_POLY or _E_POLY has")
     return lib
 
 
 _POLY_C = (ctypes.c_float * len(_H_POLY))(*_H_POLY)
+_E_POLY_C = (ctypes.c_float * len(_E_POLY))(*_E_POLY)
+
+
+def _sweep_consts(eps2: float, sigma: float):
+    """The kernels' float32 constants: `_factor_consts` and 1/σ."""
+    return (*_factor_consts(eps2, sigma), pm._f32(1.0 / sigma))
 
 
 def _check_sweep_args(spos: Tensor, block: int, what: str) -> int:
@@ -290,36 +399,79 @@ def _i32(t: Tensor) -> Tensor:
 
 
 def near_sweep(spos: Tensor, bounds: Tensor, j_idx: Tensor, *, block: int,
-               eps2: float, sigma: float) -> Tensor:
+               eps2: float, sigma: float, with_potential: bool = False,
+               potential_only: bool = False,
+               half_pairs: bool = False) -> Tensor:
     """Directed sweep: spos [4, nb*B] (sorted, parked), bounds [nb+1] over
-    the i-major source-block list j_idx -> [4, nb*B] (ax, ay, az, 0),
-    unscaled. A CPU tensor runs the plain twin; a CUDA tensor launches the
-    kernel (counted in `near_sweep.launches`)."""
+    the i-major source-block list j_idx -> [4, nb*B] (ax, ay, az, u),
+    unscaled; the variants as `near_sweep_plain` has them. A CPU tensor
+    runs the plain twin; a CUDA tensor launches the kernel, counted per
+    variant in `near_sweep.launches` (force), `.launches_with_potential`,
+    `.launches_potential_only` and `.launches_half_pairs`."""
+    variant = _variant(with_potential, potential_only, half_pairs)
     if spos.device.type == "cpu":
         return near_sweep_plain(spos, bounds, j_idx, block=block, eps2=eps2,
-                                sigma=sigma)
+                                sigma=sigma, with_potential=with_potential,
+                                potential_only=potential_only,
+                                half_pairs=half_pairs)
     nb = _check_sweep_args(spos, block, "near_sweep")
     bounds, j_idx = _i32(bounds), _i32(j_idx)
     _build.check_arg(bounds, torch.int32, (nb + 1,), spos.device, "bounds")
     _check_list("near_sweep", spos, nb, j_idx, bounds=bounds)
-    return _launch_sweep(spos, nb, block, bounds, j_idx, eps2, sigma)
+    return _launch_sweep(spos, nb, block, bounds, j_idx, eps2, sigma,
+                         variant)
 
 
-near_sweep.launches = 0
+for _name in LAUNCH_COUNTERS:
+    setattr(near_sweep, _name, 0)
 
 
 def _launch_sweep(spos: Tensor, nb: int, block: int, bounds: Tensor,
-                  j_idx: Tensor, eps2: float, sigma: float) -> Tensor:
-    """The directed kernel on lists `near_sweep` has checked (int32)."""
+                  j_idx: Tensor, eps2: float, sigma: float,
+                  variant: int = 0) -> Tensor:
+    """The directed kernel's `variant` (`_VARIANTS`) on lists `near_sweep`
+    has checked (int32)."""
     out = torch.empty_like(spos)
     with torch.cuda.device(spos.device):
         stream = torch.cuda.current_stream(spos.device).cuda_stream
         rc = _library().tree_sweep(
             spos.data_ptr(), nb, block, bounds.data_ptr(), j_idx.data_ptr(),
-            out.data_ptr(), _POLY_C, *_factor_consts(eps2, sigma), stream)
+            out.data_ptr(), _POLY_C, _E_POLY_C, *_sweep_consts(eps2, sigma),
+            variant, stream)
     _build.check(rc, "tree_sweep")
-    near_sweep.launches += 1
+    name = LAUNCH_COUNTERS[variant]
+    setattr(near_sweep, name, getattr(near_sweep, name) + 1)
     return out
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_potential_self(eps2: float, sigma: float,
+                           device: torch.device) -> float:
+    """u_short(0) by the kernels' own device function on `device` (one
+    launch and one host sync per (eps², σ, device))."""
+    d2 = torch.zeros(1, dtype=torch.float32, device=device)
+    out = torch.empty(1, dtype=torch.float32, device=device)
+    e2, inv_s2, c2v, _, vmax, inv_s = _sweep_consts(eps2, sigma)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _library().tree_potential_at(d2.data_ptr(), out.data_ptr(),
+                                          _E_POLY_C, e2, inv_s2, c2v, vmax,
+                                          inv_s, stream)
+    _build.check(rc, "tree_potential_at")
+    return float(out[0])
+
+
+def potential_self(eps2: float, sigma: float, device) -> float:
+    """The constant a potential sweep on `device` adds to each live target
+    from its own self pair: the CUDA kernels' evaluation of u_short(0) on a
+    card (rsqrtf and the kernel's fused multiply-adds round otherwise than
+    torch's CPU ops), `short_potential_self` on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _kernel_potential_self(float(eps2), float(sigma), device)
+    if device.type == "cpu":
+        return short_potential_self(eps2, sigma)
+    raise ValueError(f"potential sweeps run on cuda or cpu, got {device}")
 
 
 def near_sweep_n3(spos: Tensor, sweep_i: Tensor, sweep_j: Tensor, *,
@@ -436,19 +588,24 @@ class TreeLists:
     """The sweep's inputs from one tree walk (`tree_lists`).
 
     spos [4, nb*block] sorted, parked positions; spid [nb*block] the
-    particle of each sorted column (padding n..); `halved` says which sweep
-    takes the list: the Newton-3rd one over (sweep_i, sweep_j) at `block`,
-    or the directed one over (bounds, sweep_j) at `sweep_block`
-    (`sweep_nb` blocks, > nb after sub-block expansion); `pairs` counts the
-    listed (live) block pairs at sweep granularity; `dropped` the pairs
-    past the budgets."""
+    particle of each sorted column (padding n..); live [nb*block] the
+    in-box columns; `n3` says which sweep takes the list: the Newton-3rd
+    force sweep over (sweep_i, sweep_j) at `block`, or the directed one
+    over (bounds, sweep_j) at `sweep_block` (`sweep_nb` blocks, > nb after
+    sub-block expansion); `half_pairs` that the directed list is the
+    potential gauge's halved one (j >= i at sweep granularity, diagonal
+    pairs weighted 1/2 in the sweep); `pairs` counts the listed (live)
+    block pairs at sweep granularity; `dropped` the pairs past the
+    budgets."""
 
     spos: Tensor
     spid: Tensor
+    live: Tensor
     n: int
     nb: int
     block: int
-    halved: bool
+    n3: bool
+    half_pairs: bool
     sweep_block: int
     sweep_nb: int
     sweep_i: Tensor
@@ -462,11 +619,16 @@ def tree_lists(position: Tensor, box: float, r_c: float, near_grid: int,
                block: Optional[int] = None, pair_budget: Optional[int] = None,
                pair_chunk: Optional[int] = None,
                sub_pair_budget: Optional[int] = None,
-               half_force: bool = False) -> TreeLists:
+               half_force: bool = False,
+               half_pairs: bool = False) -> TreeLists:
     """The tree walk of `near_field_tree`: Morton sort and parking, block
     AABBs, the [nb, nb] adjacency, its compaction under the budget (halved
-    where the Newton-3rd gate holds) and, for blocks wider than the sweep,
-    the sub-block expansion."""
+    where the Newton-3rd gate holds, or for the potential gauge's
+    `half_pairs`) and, for blocks wider than the sweep, the sub-block
+    expansion (halved again inside parent diagonals under `half_pairs`)."""
+    if half_force and half_pairs:
+        raise ValueError("half_force (the force sweep) and half_pairs (the "
+                         "potential gauge) halve different sweeps")
     dev = position.device
     n = position.shape[1]
     if block is None:
@@ -504,8 +666,11 @@ def tree_lists(position: Tensor, box: float, r_c: float, near_grid: int,
 
     # Newton-3rd gate: the halved list and its sweep, or the directed one.
     # half_force is the caller's (SimConfig.tree_half_force, as in the JAX
-    # package); PERF.md §7 has the two sweeps' measured times.
-    halved = bool(half_force) and block <= _SWEEP_MAX_BLOCK
+    # package); PERF.md §7 has the two sweeps' measured times. The
+    # potential gauge's half_pairs halves the list too, but its directed
+    # sweep weights the diagonal pairs instead.
+    n3 = bool(half_force) and block <= _SWEEP_MAX_BLOCK
+    halved = n3 or bool(half_pairs)
     if halved:
         m = m & (col[None, :] >= col[:, None])
     listed = torch.nonzero(m.reshape(-1)).squeeze(1)   # i-major
@@ -523,28 +688,37 @@ def tree_lists(position: Tensor, box: float, r_c: float, near_grid: int,
     spos = torch.stack([sx, sy, sz, torch.zeros_like(sx)])
     sweep_block, sweep_nb, bounds = block, nb, None
     pairs = int(listed.numel())
-    if not halved:
+    if not n3:
         if block > _SWEEP_MAX_BLOCK:
             sweep_i, sweep_j, sweep_nb, pairs, shortfall = _expand(
                 sweep_i, sweep_j, nb, block, sx, sy, sz, live_flat, rc2,
-                sub_pair_budget)
+                sub_pair_budget, half_pairs)
             sweep_block = _SWEEP_MAX_BLOCK
             dropped += shortfall
         bounds = pm._segment_bounds(sweep_i, sweep_nb)
-    return TreeLists(spos, spid, n, nb, block, halved, sweep_block, sweep_nb,
-                     sweep_i, sweep_j, bounds, pairs, dropped)
+    return TreeLists(spos, spid, live_flat, n, nb, block, n3,
+                     bool(half_pairs), sweep_block, sweep_nb, sweep_i,
+                     sweep_j, bounds, pairs, dropped)
 
 
-def tree_sweep(lists: TreeLists, eps2: float, r_c: float) -> Tensor:
+def tree_sweep(lists: TreeLists, eps2: float, r_c: float,
+               with_potential: bool = False,
+               potential_only: bool = False) -> Tensor:
     """The sweep `lists` asks for -> [4, nb*block] unscaled near sums in
-    sorted order."""
+    sorted order (row 3 the pair potential under `with_potential`)."""
     sigma = r_c * _SIGMA_PER_CUTOFF
-    if lists.halved:
+    if lists.n3:
+        if with_potential:
+            raise ValueError("the Newton-3rd force sweep has no potential "
+                             "row")
         return near_sweep_n3(lists.spos, lists.sweep_i, lists.sweep_j,
                              nb=lists.nb, block=lists.block, eps2=eps2,
                              sigma=sigma)
     return near_sweep(lists.spos, lists.bounds, lists.sweep_j,
-                      block=lists.sweep_block, eps2=eps2, sigma=sigma)
+                      block=lists.sweep_block, eps2=eps2, sigma=sigma,
+                      with_potential=with_potential,
+                      potential_only=potential_only,
+                      half_pairs=lists.half_pairs)
 
 
 def near_field_tree(
@@ -573,20 +747,60 @@ def near_field_tree(
     nothing truncated. `block` None = adaptive (nb capped near 2048).
     `half_force`: the Newton-3rd halved sweep where its gate holds (no
     sub-block expansion); the same pair set, another summation order.
-    The mesh (`block_owner_fn`) and potential variants belong to later
-    slices and raise."""
+
+    The diagnostics variants, as in the JAX package:
+    `with_potential` also returns u [N] = g_const * Σ_j u_short(r_ij), self
+    pair removed, out-of-box particles 0 -> (accel, u, dropped);
+    `potential_only` (requires `with_potential`) skips the force -> (u,
+    dropped), u bitwise the fused variant's; `half_pairs` (requires
+    `potential_only`) sweeps each unordered pair once (j >= i at sweep
+    granularity, diagonal pairs weighted 1/2) and returns 2u, whose sum is
+    the directed one's to float32 rounding but whose entries are no longer
+    per-particle; `total_only` (requires `potential_only`) returns the
+    scalar Σu (a 0-d tensor: the block-order sum, no un-sort). Budgets keep
+    their directed-count meaning under `half_pairs`. The mesh
+    (`block_owner_fn`) belongs to a later slice and raises."""
+    _variant(with_potential, potential_only, half_pairs)
+    if total_only and not potential_only:
+        raise ValueError("total_only requires potential_only=True")
+    if half_force and with_potential:
+        raise ValueError("half_force is a force-trace option "
+                         "(with_potential computes its own channels)")
     if block_owner_fn is not None:
         raise NotImplementedError(
             "block_owner_fn (mesh runs) is not ported to "
             "multi_adapter_particles_torch yet (ROADMAP queue 1 item 14)")
-    if with_potential or potential_only or half_pairs or total_only:
-        raise NotImplementedError(
-            "the tree sweep's potential variants belong to the diagnostics "
-            "path, not ported yet (ROADMAP queue 1 item 12)")
     lists = tree_lists(position, box, r_c, near_grid, block=block,
                        pair_budget=pair_budget, pair_chunk=pair_chunk,
-                       sub_pair_budget=sub_pair_budget, half_force=half_force)
-    return unsort(lists, tree_sweep(lists, eps2, r_c), g_const), lists.dropped
+                       sub_pair_budget=sub_pair_budget, half_force=half_force,
+                       half_pairs=half_pairs)
+    acc = tree_sweep(lists, eps2, r_c, with_potential=with_potential,
+                     potential_only=potential_only)
+    if not with_potential:
+        return unsort(lists, acc, g_const), lists.dropped
+    # Every live particle picked up u_short(0) from its own self pair once
+    # (half of it under half_pairs, whose diagonal pairs weigh 1/2), and
+    # co-parked dead lanes from each other: subtract the one, zero the
+    # others, in sorted order.
+    u_self = potential_self(eps2, r_c * _SIGMA_PER_CUTOFF, acc.device)
+    if half_pairs:
+        u_self *= 0.5
+    acc_u = torch.where(lists.live, acc[3] - u_self, 0.0)
+    scale = pm._f32(g_const)
+    if potential_only:
+        u_scale = scale * 2.0 if half_pairs else scale
+        if total_only:
+            return acc_u.sum() * u_scale, lists.dropped
+        return _unsort_row(lists, acc_u) * u_scale, lists.dropped
+    return (unsort(lists, acc, g_const), _unsort_row(lists, acc_u) * scale,
+            lists.dropped)
+
+
+def _unsort_row(lists: TreeLists, row: Tensor) -> Tensor:
+    """A sorted row [nb*block] -> [n] in particle order."""
+    out = torch.empty_like(row)
+    out[lists.spid] = row
+    return out[:lists.n]
 
 
 def unsort(lists: TreeLists, acc: Tensor, g_const: float) -> Tensor:
@@ -599,10 +813,12 @@ def unsort(lists: TreeLists, acc: Tensor, g_const: float) -> Tensor:
 
 
 def _expand(i_idx, j_idx, nb, block, sx, sy, sz, live_flat, rc2,
-            sub_pair_budget):
+            sub_pair_budget, half_pairs=False):
     """Split each listed wide block pair into split² sub-block pairs at the
-    sweep width, drop those whose sub-AABBs are farther apart than r_c,
-    sort i-major (stable) and truncate to `sub_pair_budget`.
+    sweep width, drop those whose sub-AABBs are farther apart than r_c
+    (and, under `half_pairs`, the sub-pairs j < i that a parent diagonal
+    pair expands to), sort i-major (stable) and truncate to
+    `sub_pair_budget` (a directed count, halved here under `half_pairs`).
     -> (sweep_i with dead entries at sweep_nb, sweep_j, sweep_nb, live
     sub-pairs kept, live sub-pairs past the budget)."""
     split = block // _SWEEP_MAX_BLOCK
@@ -615,13 +831,22 @@ def _expand(i_idx, j_idx, nb, block, sx, sy, sz, live_flat, rc2,
         p, split, split).reshape(-1)
     smin, smax = _aabbs(sx, sy, sz, live_flat, sweep_nb, _SWEEP_MAX_BLOCK)
     near_e = _gap2(smin, smax, i_e, j_e) <= rc2
+    if half_pairs:
+        # parent i < j pairs always give j_e > i_e: this prunes only
+        # inside parent diagonals
+        near_e = near_e & (j_e >= i_e)
     i_e = torch.where(near_e, i_e, sweep_nb)
     sweep_i, order = torch.sort(i_e, stable=True)
     sweep_j = j_e[order]
     live_e = int(near_e.sum())
     shortfall = 0
     if sub_pair_budget is not None:
-        keep = int(min(i_e.shape[0], max(2, sub_pair_budget)))
+        keep = max(2, sub_pair_budget)
+        if half_pairs:
+            # the probe counts directed sub-pairs; the halved survivors
+            # are (S + D_sub)/2 <= (S + sweep_nb)/2 (halve, then clamp)
+            keep = (keep + sweep_nb) // 2 + 2
+        keep = int(min(i_e.shape[0], keep))
         shortfall = max(live_e - keep, 0)
         sweep_i, sweep_j = sweep_i[:keep], sweep_j[:keep]
     return sweep_i, sweep_j, sweep_nb, live_e - shortfall, shortfall

@@ -270,7 +270,7 @@ class TestCli:
 
     @pytest.mark.parametrize("argv", [
         ["-fused"], ["-meshdevices", "4"], ["-probecache", "off"],
-        ["-diagnostics", "10"], ["-checkpoint", "x.npz"],
+        ["-dashboard", "d.html"], ["-checkpoint", "x.npz"],
     ])
     def test_later_flags_exit_nonzero(self, argv, capsys):
         from multi_adapter_particles_torch import app

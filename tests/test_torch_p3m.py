@@ -141,7 +141,7 @@ class TestTreeP3M:
         assert _rel(got.numpy(), np.asarray(directed)) < 1e-6
 
     @pytest.mark.parametrize("kw", [dict(near_mode="slots"),
-                                    dict(near_mode="tree",
+                                    dict(near_mode="slots",
                                          with_potential=True)])
     def test_later_slices_raise(self, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
@@ -195,6 +195,91 @@ class TestTreeP3M:
                                    rtol=2e-5, atol=2e-5)
         assert teng.metrics.counters["interactions"] == \
             jeng.metrics.counters["interactions"] == 3.0 * n
+
+
+class TestPotential:
+    """The diagnostics gauge's P3M potential against the JAX package's
+    (`p3m_potential_*`, `with_potential`), and the scalar-total path
+    against the per-particle one, as tests/test_p3m.py's
+    TestPotentialTotal pins them. Port vs JAX: per-particle u within 1e-5
+    of max|u| and totals within rel 1e-5 (two FFT libraries and another
+    order of every sum; measured ~2e-7 on these scenes); total vs
+    per-particle sum within the JAX pin, rel 2e-6."""
+
+    PKW = dict(grid=16, box=2048.0, g_const=MASS, softening_squared=EPS2)
+
+    @pytest.mark.parametrize("g,box", [(16, 2048.0), (32, 4096.0)])
+    def test_potential_kernel_spectrum_matches_jax(self, g, box,
+                                                   monkeypatch):
+        r_c = 6.75 * box / g
+        monkeypatch.setattr(p3m, "_KERNEL_SLAB_CELLS", 4096)
+        p3m._long_potential_kernel_rfft.cache_clear()
+        want = np.asarray(JP3._long_potential_kernel_rfft(g, box, r_c))
+        got = p3m._long_potential_kernel_rfft(g, box, r_c,
+                                              torch.device("cpu")).numpy()
+        p3m._long_potential_kernel_rfft.cache_clear()
+        assert _rel(got, want) < 1e-5
+
+    @pytest.mark.parametrize("half", [False, True])
+    def test_total_matches_per_particle_sum(self, half):
+        p = torch.from_numpy(_clustered(768, seed=17))
+        u, d0 = p3m.p3m_potential_with_overflow(p, half_pairs=half,
+                                                **self.PKW)
+        tot, d1 = p3m.p3m_potential_total_with_overflow(p, half_pairs=half,
+                                                        **self.PKW)
+        assert d0 == d1 == 0 and tot.dim() == 0
+        assert float(tot) == pytest.approx(float(u.double().sum()), rel=2e-6)
+
+    def test_total_with_out_of_box_particles(self):
+        pos = _clustered(768, seed=29)
+        pos[:3, :9] = 5000.0
+        p = torch.from_numpy(pos)
+        u, _ = p3m.p3m_potential_with_overflow(p, **self.PKW)
+        tot, _ = p3m.p3m_potential_total_with_overflow(p, **self.PKW)
+        assert (u[:9] == 0.0).all()
+        assert float(tot) == pytest.approx(float(u.double().sum()), rel=2e-6)
+
+    def test_total_only_requires_potential_only(self):
+        from multi_adapter_particles_torch.ops import treeforce
+
+        with pytest.raises(ValueError, match="requires potential_only"):
+            treeforce.near_field_tree(torch.from_numpy(_clustered(256)),
+                                      2048.0, MASS, EPS2, 216.0, 9,
+                                      with_potential=True, total_only=True)
+
+    @pytest.mark.parametrize("half", [False, True])
+    def test_potential_matches_jax(self, half):
+        pos = _clustered(seed=31)
+        u_jax, d_jax = JP3.p3m_potential_with_overflow(
+            jnp.asarray(pos), half_pairs=half, **self.PKW)
+        t_jax, _ = JP3.p3m_potential_total_with_overflow(
+            jnp.asarray(pos), half_pairs=half, **self.PKW)
+        p = torch.from_numpy(pos)
+        u, d = p3m.p3m_potential_with_overflow(p, half_pairs=half,
+                                               **self.PKW)
+        tot, _ = p3m.p3m_potential_total_with_overflow(p, half_pairs=half,
+                                                       **self.PKW)
+        assert int(d_jax) == d == 0
+        if not half:   # halved entries are sums only
+            assert _rel(u.numpy(), np.asarray(u_jax)) < 1e-5
+        assert float(tot) == pytest.approx(float(t_jax), rel=1e-5)
+
+    def test_with_potential_matches_jax(self):
+        """The fused variant: u as the JAX package's, and the force bitwise
+        the port's force-only accel."""
+        pos = _clustered(seed=33)
+        a_jax, u_jax, _ = JP3.p3m_accel_with_overflow(
+            jnp.asarray(pos), with_potential=True, **KW)
+        p = torch.from_numpy(pos)
+        a, u, d = p3m.p3m_accel_with_overflow(p, with_potential=True,
+                                              half_force=True, **KW)
+        assert d == 0
+        assert _rel(u.numpy(), np.asarray(u_jax)) < 1e-5
+        assert _rel(a.numpy(), np.asarray(a_jax)) < 1e-6
+        a_force, _ = p3m.p3m_accel_with_overflow(p, **KW)
+        assert torch.equal(a, a_force)
+        u_only, _ = p3m.p3m_potential_with_overflow(p, **self.PKW)
+        assert torch.equal(u_only, u)
 
 
 class TestCli:

@@ -225,7 +225,7 @@ class TestHalvedSweep:
         t = torch.from_numpy(p)
         full = T.tree_lists(t, BOX, R_C, GN, block=128)
         half = T.tree_lists(t, BOX, R_C, GN, block=128, half_force=True)
-        assert half.halved and not full.halved
+        assert half.n3 and not full.n3
         assert bool((half.sweep_j >= half.sweep_i).all())
         diag = int((full.sweep_i == full.sweep_j).sum())
         assert 2 * half.pairs == full.pairs + diag
@@ -333,6 +333,229 @@ class TestHostProbes:
         assert T.solve_budget("cpu") > 0
 
 
+def _jax_potential(p, **kw):
+    """The JAX package's per-particle potential (and accel where fused)."""
+    out = JT.near_field_tree(jnp.asarray(p), BOX, MASS, EPS2, R_C, GN,
+                             with_potential=True, **kw)
+    return tuple(np.asarray(o) for o in out[:-1]), int(out[-1])
+
+
+def _port_potential(p, **kw):
+    out = T.near_field_tree(torch.from_numpy(p), BOX, MASS, EPS2, R_C, GN,
+                            with_potential=True, **kw)
+    return tuple(o.numpy() for o in out[:-1]), out[-1]
+
+
+class TestPotentialChannel:
+    """The diagnostics gauge's potential channel (`with_potential`), as
+    tests/test_treeforce.py's TestPotentialChannel pins the JAX package's.
+    Per-particle potentials agree with the JAX package's within 1e-5 of
+    max|u| (each u_i sums ~1,000 terms of both signs in another order)."""
+
+    def test_e_poly_and_self_constant_bitwise(self):
+        assert T._E_POLY == JT._E_POLY
+        assert len(T._E_POLY) == T._POLY_DEG + 1
+        for sigma in (24.0, 48.0, 108.0):
+            want = JT.short_potential_self(EPS2, sigma)
+            assert T.short_potential_self(EPS2, sigma) == want
+            # the CPU twins' evaluation at d2 = 0 is the constant, bitwise
+            at0 = T.short_potential_cheb(torch.zeros(1), EPS2, sigma)
+            assert float(at0[0]) == want
+            assert T.potential_self(EPS2, sigma, "cpu") == want
+
+    def test_short_potential_matches_f64_truth(self):
+        """The JAX test's bound against the float64 erf formula inside the
+        cutoff, exactly 0 beyond it, and within 1e-6 of max|u| of the JAX
+        function everywhere."""
+        import math
+
+        sigma = 48.0
+        r = np.concatenate([np.linspace(1e-3, T._TC * sigma, 4001),
+                            np.linspace(T._TC * sigma * 1.0001,
+                                        3 * T._TC * sigma, 64)])
+        d2 = (r * r).astype(np.float32)
+        got = T.short_potential_cheb(torch.from_numpy(d2), EPS2,
+                                     sigma).numpy()
+        erf_v = np.vectorize(math.erf)
+        truth = -1.0 / np.sqrt(r ** 2 + EPS2) + erf_v(
+            r / (math.sqrt(2.0) * sigma)) / r
+        inside = r <= T._TC * sigma
+        assert np.abs(got[inside] - truth[inside]).max() < 2e-5
+        assert (got[~inside] == 0.0).all()
+        want = np.asarray(JT.short_potential_cheb(jnp.asarray(d2), EPS2,
+                                                  sigma))
+        assert _rel(got, want) < 1e-6
+        np.testing.assert_array_equal(got == 0.0, want == 0.0)
+
+    @pytest.mark.parametrize("pallas", [False, True])
+    def test_matches_jax_with_potential(self, pallas, monkeypatch):
+        """Against the JAX XLA fallback and its Pallas sweep in interpret
+        mode: u within 1e-5 of max|u|, the force as the force-only pin."""
+        p = _clustered(768, seed=21)
+        if pallas:
+            monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
+        (a_jax, u_jax), d_jax = _jax_potential(p, block=128)
+        (a, u), d = _port_potential(p, block=128)
+        assert d_jax == d == 0
+        assert _rel(u, u_jax) < 1e-5
+        _assert_forces_close(a, a_jax)
+
+    def test_matches_direct_pair_sum(self):
+        """The tree-swept potential is the direct all-pairs sum of the same
+        u_short (0 past the cutoff), self pair removed."""
+        p = _clustered(768, seed=11)
+        (_, u), d = _port_potential(p)
+        assert d == 0
+        x = torch.from_numpy(p[:3].T.copy())
+        d2 = ((x[None, :, :] - x[:, None, :]) ** 2).sum(-1)
+        up = T.short_potential_cheb(d2, EPS2, R_C * T._SIGMA_PER_CUTOFF)
+        up.fill_diagonal_(0.0)
+        ref = (MASS * up.sum(1)).numpy()
+        assert _rel(u, ref) < 1e-5
+
+    def test_force_bitwise_with_and_without_potential(self):
+        p = _clustered(768, seed=5)
+        a0, d0 = _port_tree(p)
+        (a1, _), d1 = _port_potential(p)
+        np.testing.assert_array_equal(a0, a1)
+        assert d0 == d1
+
+    def test_potential_only_bitwise_fused(self):
+        p = _clustered(768, seed=6)
+        (_, u_fused), _ = _port_potential(p)
+        (u_only,), d = _port_potential(p, potential_only=True)
+        assert d == 0
+        np.testing.assert_array_equal(u_only, u_fused)
+
+    @pytest.mark.parametrize("kw", [{}, dict(potential_only=True,
+                                             half_pairs=True)])
+    def test_out_of_box_particles_get_zero_potential(self, kw):
+        p = _clustered(768, seed=9)
+        p[:3, :7] = 5000.0
+        u = _port_potential(p, **kw)[0][-1]
+        assert (u[:7] == 0.0).all()
+        assert np.isfinite(u).all() and np.abs(u[7:]).max() > 0
+
+    def test_twins_on_cpu_count_no_launch(self):
+        """A CPU list runs the plain twin for every variant; row 3 is the
+        list-order potential, rows 0-2 zero under potential_only."""
+        p = torch.from_numpy(_clustered(1024, seed=2))
+        lists = T.tree_lists(p, BOX, R_C, GN, block=128)
+        sigma = R_C * T._SIGMA_PER_CUTOFF
+        before = [getattr(T.near_sweep, c) for c in T.LAUNCH_COUNTERS]
+        fused = T.tree_sweep(lists, EPS2, R_C, with_potential=True)
+        only = T.tree_sweep(lists, EPS2, R_C, with_potential=True,
+                            potential_only=True)
+        force = T.tree_sweep(lists, EPS2, R_C)
+        assert [getattr(T.near_sweep, c)
+                for c in T.LAUNCH_COUNTERS] == before
+        assert torch.equal(fused[:3], force[:3])
+        assert torch.equal(only[3], fused[3])
+        assert bool((only[:3] == 0).all()) and bool((force[3] == 0).all())
+        want = T.near_sweep_plain(lists.spos, lists.bounds, lists.sweep_j,
+                                  block=128, eps2=EPS2, sigma=sigma,
+                                  with_potential=True)
+        assert torch.equal(fused, want)
+
+
+class TestHalfPairPotential:
+    """`half_pairs`: each unordered block pair swept once, diagonal pairs
+    weighted 1/2, as tests/test_treeforce.py's TestHalfPairPotential pins
+    the JAX package's. The totals agree with the directed enumeration to
+    rel 2e-6 (the JAX pin) and with the JAX package's totals to rel 1e-5.
+    The JAX package's sliced-path test (its SMEM slice cap,
+    `sweep_slice_cap`) has no counterpart: the port's sweeps take the whole
+    list in one launch."""
+
+    def _total(self, p, half, **kw):
+        (u,), d = _port_potential(p, potential_only=True, half_pairs=half,
+                                  **kw)
+        return 0.5 * float(u.astype(np.float64).sum()), d
+
+    def _total_only(self, p, half, **kw):
+        u, d = T.near_field_tree(torch.from_numpy(p), BOX, MASS, EPS2, R_C,
+                                 GN, with_potential=True, potential_only=True,
+                                 half_pairs=half, total_only=True, **kw)
+        assert u.dim() == 0
+        return 0.5 * float(u), d
+
+    def _jax_total(self, p, half, **kw):
+        (u,), d = _jax_potential(p, potential_only=True, half_pairs=half,
+                                 **kw)
+        return 0.5 * float(u.astype(np.float64).sum()), d
+
+    def test_total_matches_directed_and_jax(self):
+        p = _clustered(768, seed=11)
+        t_dir, d0 = self._total(p, False)
+        t_half, d1 = self._total(p, True)
+        assert d0 == d1 == 0
+        assert t_half == pytest.approx(t_dir, rel=2e-6)
+        assert t_half == pytest.approx(self._jax_total(p, True)[0], rel=1e-5)
+        for half in (False, True):
+            t, d = self._total_only(p, half)
+            assert d == 0
+            assert t == pytest.approx(t_dir, rel=2e-6)
+
+    def test_total_matches_jax_pallas_interpret(self, monkeypatch):
+        p = _clustered(768, seed=5)
+        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
+        t_jax, d_jax = self._jax_total(p, True, block=128)
+        t, d = self._total(p, True, block=128)
+        assert d == d_jax == 0
+        assert t == pytest.approx(t_jax, rel=1e-5)
+        assert t == pytest.approx(self._total(p, False, block=128)[0],
+                                  rel=2e-6)
+
+    def test_total_matches_under_subblock_expansion(self, monkeypatch):
+        """Blocks of 128 split four ways at a sweep width of 32, with the
+        probed sub-pair budget: a parent diagonal pair keeps one order of
+        its sub-pairs (sub-diagonals weighted 1/2). The halved list holds
+        (S + D)/2 sub-pairs for the directed probe's S (D its diagonal
+        sub-pairs), and the JAX expanded sweep agrees."""
+        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
+        monkeypatch.setattr(JT, "_SWEEP_MAX_BLOCK", 32)
+        monkeypatch.setattr(T, "_SWEEP_MAX_BLOCK", 32)
+        p = _clustered(1024, seed=13)
+        _, sub, _ = T.host_tree_counts(p, BOX, R_C, GN, block=128)
+        cap = int(sub * T.PAIR_HEADROOM) + 2
+        kw = dict(block=128, sub_pair_budget=cap)
+        t_dir, d0 = self._total(p, False, **kw)
+        t_half, d1 = self._total(p, True, **kw)
+        assert d0 == d1 == 0
+        assert t_half == pytest.approx(t_dir, rel=2e-6)
+        t_jax, d_jax = self._jax_total(p, True, **kw)
+        assert d_jax == 0 and t_half == pytest.approx(t_jax, rel=1e-5)
+        t = torch.from_numpy(p)
+        full = T.tree_lists(t, BOX, R_C, GN, block=128, sub_pair_budget=cap)
+        half = T.tree_lists(t, BOX, R_C, GN, block=128, sub_pair_budget=cap,
+                            half_pairs=True)
+        assert full.pairs == sub and half.half_pairs and not half.n3
+        live = half.sweep_i < half.sweep_nb
+        assert bool((half.sweep_j[live] >= half.sweep_i[live]).all())
+        fl = full.sweep_i < full.sweep_nb
+        diag = int((full.sweep_i[fl] == full.sweep_j[fl]).sum())
+        assert 2 * half.pairs == full.pairs + diag
+
+    def test_probed_budget_never_drops(self):
+        p = _clustered(768, seed=23)
+        budget = JT.host_pair_budget(p, BOX, R_C, GN)
+        assert T.host_pair_budget(p, BOX, R_C, GN) == budget
+        assert self._total(p, True, pair_budget=budget)[1] == 0
+
+    def test_starved_budget_counts_the_halved_list(self):
+        """The halved list keeps (budget + nb)//2 + 1 pairs of the directed
+        budget and counts the rest, as the JAX package counts them."""
+        p = _clustered(2048, seed=3)
+        d_jax = self._jax_total(p, True, pair_budget=40)[1]
+        d = self._total(p, True, pair_budget=40)[1]
+        assert d == d_jax > 0
+
+    def test_half_force_and_half_pairs_are_exclusive(self):
+        with pytest.raises(ValueError, match="halve different sweeps"):
+            T.tree_lists(torch.from_numpy(_clustered(256, seed=3)), BOX, R_C,
+                         GN, half_force=True, half_pairs=True)
+
+
 class TestWrappers:
     def test_cpu_tensors_run_the_twins(self):
         p = torch.from_numpy(_clustered(1024, seed=2))
@@ -387,12 +610,20 @@ class TestWrappers:
             T.near_sweep_n3(spos, idx, idx, nb=2, block=128, eps2=EPS2,
                             sigma=48.0)
 
-    @pytest.mark.parametrize("kw", [
-        dict(with_potential=True), dict(potential_only=True),
-        dict(half_pairs=True), dict(total_only=True),
-        dict(block_owner_fn=lambda ids: ids >= 0),
+    @pytest.mark.parametrize("kw,err,match", [
+        (dict(with_potential=True, half_force=True), ValueError,
+         "force-trace option"),
+        (dict(potential_only=True), ValueError, "requires with_potential"),
+        (dict(with_potential=True, half_pairs=True), ValueError,
+         "requires potential_only"),
+        (dict(with_potential=True, total_only=True), ValueError,
+         "requires potential_only"),
+        (dict(block_owner_fn=lambda ids: ids >= 0), NotImplementedError,
+         "ROADMAP queue 1 item 14"),
     ])
-    def test_later_variants_raise(self, kw):
+    def test_later_variants_raise(self, kw, err, match):
+        """The combinations the JAX package refuses raise its ValueErrors;
+        the mesh variant belongs to a later slice."""
         p = torch.from_numpy(_clustered(256, seed=1))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        with pytest.raises(err, match=match):
             T.near_field_tree(p, BOX, MASS, EPS2, R_C, GN, **kw)
