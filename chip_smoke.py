@@ -7,7 +7,8 @@ self-gravity; 1024x1024 split frame loops) and checks that each went
 through its kernels and produced a sane frame; then the conservation
 diagnostics (`-diagnostics K`) on those scenes, whose P3M gauge runs the
 tree sweep's three potential variants, with finite gauges and no dropped
-pairs.
+pairs; then the fused single-program frame (`-fused`, captured CUDA
+graphs) against the split loop from the same seed.
 
     python3 chip_smoke.py
 
@@ -18,8 +19,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
 4. composite kernel vs plain on the rows the renderer builds for one 1M
    chunk of the 4M state (Q=256) and for 262,144 particles (Q=64)
+4a. sort kernel vs plain, bitwise on every output: the render keys and
+   payloads of the 4M state's first chunk after one step (E = 2^22), its
+   dup 2x3 window (E = 6 x 2^20, padded), keys in [0, 37) and all-equal
+   keys at 2^20 (the identity), negative keys at 2^20 + 3; times beside
+   torch.sort + 4 gathers and the bytes bound
+4b. row gather kernel vs plain, bitwise: the render's packed payload rows
+   of that chunk, the TPU prototype's shape ([2,097,152, 32] x 4,194,304),
+   clamped out-of-range indices (16-byte and scalar paths); times beside
+   index_select (on indices clamped beforehand) and the bytes bound
 5. main path: `multi_adapter_particles_torch.app.main`, launch counters
-6. the final state's frame through the kernel vs through the plain twin
+   (composite, sort and gather at least 4 a frame)
+6. the final state's frame through the kernels vs through the plain twins
+   of all three render kernels
 7. all-pairs rectangle kernel vs plain: 4,096 targets spread over the
    1,048,576-particle state against all its sources (float32 twin and a
    float64 evaluation); kernel time at the full 1M
@@ -70,13 +82,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     every 2); finite gauges, `diag_dropped_pairs == 0`, the variants'
     launch counters; and the potential-only directed sweep's path, the
     library call `mesh_potential_only(half_pairs=False)` on the 1M scene
+22. fused main path: `app.main -fused` at 4,194,304 and 1024x1024, 40
+    frames through captured CUDA graphs: positions bitwise the split run of
+    phase 5, the last frame within 1e-5 of it, `fused_graph` true; frame,
+    render and simulate ms, replays, launches a frame, peak memory
+23. the same at 262,144 and 1280x720 against a split run of that shape
+24. `-fused -force p3m -p3mnear tree` at 262,144 runs uncaptured
+    (`fused_graph` false) and agrees with split the same way; all_pairs
+    (65,536) and pm_grid (262,144, G=64) capture and agree likewise
 
 The kernels line (before the last) has one entry per kernel with its
 launches on its main path, the error against its twin, kernel / twin times
 and the least time the card could take (`bound_ms`: bytes over 3.35 TB/s,
 or FP32-pipe instructions counted from the source over 132 SMs x 128 lanes
-at the SM clock sampled while the kernel ran); the last line is
-{"ok": true, "device": {...}}.
+at the SM clock sampled while the kernel ran), and for the sort and the row
+gather the time of the one PyTorch call that computes the same function
+(`library_ms`); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -90,6 +111,9 @@ import time
 
 N_MAIN = 4_194_304
 STEPS = 40
+# phase 5's frame on an H100 at 700 W before the sort and row-gather
+# kernels, logged beside the new one (no gate)
+MAIN_FRAME_MS_BEFORE = 39.92
 WIDTH = HEIGHT = 1024
 N_AP = 1_048_576          # the all-pairs path (BASELINE.json's 1M)
 AP_SAMPLE = 4_096         # rectangle targets held against the plain twin
@@ -235,6 +259,8 @@ def phase_build():
         allpairs,
         central_well,
         composite,
+        rowgather,
+        sortkv,
         treeforce,
     )
 
@@ -242,7 +268,9 @@ def phase_build():
     sources = (("central_well", central_well, ()),
                ("composite", composite, composite._NVCC_FLAGS),
                ("allpairs", allpairs, ()),
-               ("treeforce", treeforce, ()))
+               ("treeforce", treeforce, ()),
+               ("sortkv", sortkv, ()),
+               ("rowgather", rowgather, ()))
 
     def ptxas_report(name, extra, tmp):
         """register / spill lines of one source (compile only, no library)"""
@@ -404,6 +432,165 @@ def phase_composite(dev):
             "ms_262k": times["262K"][0], "plain_ms_262k": times["262K"][1]}
 
 
+def _render_io(dev, dup_y=2, dup_x=2):
+    """The sort's (key, *payloads) and the row gather's (packed, idx)
+    arguments as the renderer makes them for the first 1M chunk of the 4M
+    device-init state (seed 0) after one central-well step, at
+    1024x1024 and the given dup window."""
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.config import RenderConfig
+    from multi_adapter_particles_torch.models import init as pinit
+    from multi_adapter_particles_torch.ops.central_well import central_well_step
+    from multi_adapter_particles_torch.ops.rowgather import gather_rows_plain
+    from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable_plain
+    from multi_adapter_particles_torch.render import renderer as R
+    from multi_adapter_particles_torch.render.camera import Camera
+
+    st = pinit.initialize_particles_device(
+        N_MAIN, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pos, _ = central_well_step(st.position, st.velocity, dt=C.TIMESTEP,
+                               damping=C.DAMPING, mass=C.PARTICLE_MASS,
+                               softening_squared=C.SOFTENING_SQUARED)
+    del st
+    chunk = 1_048_576
+    rend = R.Renderer(RenderConfig(width=WIDTH, height=HEIGHT))
+    rend.dup_y, rend.dup_x = dup_y, dup_x
+    seen = {}
+
+    def sort(*args):
+        seen["sort"] = args
+        return sort_kv_stable_plain(*args)
+
+    def gather(*args):
+        seen["gather"] = args
+        return gather_rows_plain(*args)
+
+    args = rend._device_args(Camera(), 2.5, 0.15, dev)
+    R._render(pos[:, :chunk], *args, chunk, width=WIDTH, height=HEIGHT,
+              seg_q=rend.resolve_seg_q(chunk), dup_y=dup_y, dup_x=dup_x,
+              near=1.0, blend="over", return_trans=True, sort=sort,
+              gather=gather)
+    return seen["sort"], seen["gather"]
+
+
+def phase_sort(dev):
+    import torch
+
+    from multi_adapter_particles_torch.ops.sortkv import (
+        sort_kv_stable,
+        sort_kv_stable_plain,
+    )
+
+    log("phase 4a: sort kernel vs plain (bitwise on every output)")
+    (key, *pay), gather_args = _render_io(dev)
+    e = key.shape[0]
+    wide = _render_io(dev, 2, 3)[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    m = 1 << 20
+
+    def rand_pay(n):
+        return [torch.rand(n, device=dev, generator=gen),
+                torch.randint(-2**31, 2**31 - 1, (n,), device=dev,
+                              dtype=torch.int32, generator=gen)]
+
+    neg = torch.randint(-2**31, 2**31 - 1, (m + 3,), device=dev,
+                        dtype=torch.int32, generator=gen)
+    neg[:4] = torch.tensor([-2**31, 2**31 - 1, -1, 0], dtype=torch.int32)
+    ident = torch.arange(m, device=dev, dtype=torch.int32)
+    cases = (
+        ("render chunk, dup 2x2", (key, *pay)),
+        ("render chunk, dup 2x3 (padded)", wide),
+        ("keys in [0, 37)", (torch.randint(0, 37, (m,), device=dev,
+                                           dtype=torch.int32, generator=gen),
+                             *rand_pay(m))),
+        ("all-equal keys", (torch.zeros(m, device=dev, dtype=torch.int32),
+                            ident, *rand_pay(m))),
+        ("negative keys, E = 2^20 + 3", (neg, *rand_pay(m + 3))),
+    )
+    for label, args in cases:
+        k = sort_kv_stable(*args)
+        p = sort_kv_stable_plain(*args)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(k, p)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"sort {label}: output {i} differs from the twin "
+                     f"({int((a != b).sum())} entries)")
+        if label == "all-equal keys" and not torch.equal(k[1], ident):
+            fail("sort of all-equal keys is not the identity")
+        log(f"  {label}: E = {args[0].shape[0]:,}, {len(args) - 1} payloads:"
+            " bitwise the twin")
+    del wide, cases
+
+    def library():
+        sk, perm = torch.sort(key, stable=True)
+        return sk, *(q[perm] for q in pay)
+
+    ms = time_ms(lambda: sort_kv_stable(key, *pay), reps=20)
+    plain_ms = time_ms(lambda: sort_kv_stable_plain(key, *pay), reps=20)
+    lib_ms = time_ms(library, reps=20)
+    bound = bytes_bound_ms(e * (4 + 4 * len(pay)) * 2)
+    log(f"  E = {e:,}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.sort + {len(pay)} gathers {lib_ms:.4f} ms; bound "
+        f"{bound:.4f} ms (bytes) -> {bound / ms:.1%} of it")
+    # every output bitwise the twin's (checked above)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib_ms}, gather_args
+
+
+def phase_gather(dev, render_args):
+    import torch
+
+    from multi_adapter_particles_torch.ops.rowgather import (
+        gather_rows,
+        gather_rows_plain,
+    )
+
+    log("phase 4b: row gather kernel vs plain (bitwise)")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    table, idx = render_args
+    rows_p, w_p, n_p = 2_097_152, 32, 4_194_304
+    proto = (torch.randn((rows_p, w_p), device=dev, generator=gen),
+             torch.randint(0, rows_p, (n_p,), device=dev, dtype=torch.int32,
+                           generator=gen))
+    flat = torch.randn(4096 * 36 + 1, device=dev, generator=gen)
+    wild = torch.randint(-5000, 9000, (50_000,), device=dev,
+                         dtype=torch.int32, generator=gen)
+    cases = (
+        (f"render rows {list(table.shape)} x {idx.shape[0]:,}", table, idx),
+        (f"prototype [{rows_p:,}, {w_p}] x {n_p:,}", *proto),
+        ("clamped, 16-byte path", flat[:4096 * 36].view(4096, 36), wild),
+        ("clamped, unaligned rows", flat[1:].view(4096, 36), wild),
+        ("clamped, W = 7", flat[:4096 * 7].view(4096, 7), wild),
+    )
+    timings = {}
+    for label, tab, ix in cases:
+        k = gather_rows(tab, ix)
+        p = gather_rows_plain(tab, ix)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            fail(f"gather {label}: {int((k != p).sum())} words differ")
+        log(f"  {label}: bitwise the twin")
+        if label.startswith(("render", "prototype")):
+            ms = time_ms(lambda: gather_rows(tab, ix), reps=20)
+            plain_ms = time_ms(lambda: gather_rows_plain(tab, ix), reps=20)
+            # the library call on indices clamped once beforehand (the
+            # render's dead rows point past the table)
+            ixc = ix.clamp(0, tab.shape[0] - 1)
+            lib_ms = time_ms(lambda: torch.index_select(tab, 0, ixc), reps=20)
+            bound = bytes_bound_ms(2 * ix.shape[0] * tab.shape[1] * 4)
+            log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"index_select {lib_ms:.4f} ms; bound {bound:.4f} ms "
+                f"(bytes) -> {bound / ms:.1%} of it")
+            timings[label.split()[0]] = (ms, plain_ms, lib_ms, bound)
+    ms, plain_ms, lib_ms, bound = timings["render"]
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            "prototype_ms": timings["prototype"]}
+
+
 def _run_app(argv, steps, draw=True):
     """app.main with -metrics; returns (metrics dict, what on_exit saw).
     With `draw` the last frame must be finite, nonzero and untruncated."""
@@ -425,6 +612,7 @@ def _run_app(argv, steps, draw=True):
         seen["rate"] = particles.metrics.rate("interactions")
         seen["renderer"] = particles.render.renderer
         seen["camera"] = particles.render.camera
+        seen["fused"] = particles.fused_engine
 
     with tempfile.TemporaryDirectory() as tmp:
         metrics_path = os.path.join(tmp, "metrics.json")
@@ -451,39 +639,62 @@ def _run_app(argv, steps, draw=True):
     return metrics, seen
 
 
+def _counted():
+    """name -> the kernel wrapper whose `.launches` counts it."""
+    from multi_adapter_particles_torch.ops.allpairs import (
+        all_pairs_accel,
+        all_pairs_accel_halfpair,
+    )
+    from multi_adapter_particles_torch.ops.central_well import central_well_step
+    from multi_adapter_particles_torch.ops.composite import composite_rows
+    from multi_adapter_particles_torch.ops.rowgather import gather_rows
+    from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
+
+    return {"central_well": central_well_step, "composite": composite_rows,
+            "sort_kv_stable": sort_kv_stable, "gather_rows": gather_rows,
+            "all_pairs_rect": all_pairs_accel,
+            "all_pairs_half": all_pairs_accel_halfpair}
+
+
+def _zero_counters() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def _read_counters() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
+
+
 def phase_main_path(dev):
     import statistics
 
-    from multi_adapter_particles_torch.ops.central_well import central_well_step
-    from multi_adapter_particles_torch.ops.composite import composite_rows
-
     log(f"phase 5: main path — app.main -numparticles {N_MAIN} -steps {STEPS}"
         f" at {WIDTH}x{HEIGHT}")
-    central_well_step.launches = 0
-    composite_rows.launches = 0
+    _zero_counters()
     t0 = time.perf_counter()
     metrics, seen = _run_app(
         ["-numparticles", str(N_MAIN), "-steps", str(STEPS), "-novsync",
          "-nogui", "-width", str(WIDTH), "-height", str(HEIGHT)], STEPS)
     wall = time.perf_counter() - t0
-    launches = {"central_well": central_well_step.launches,
-                "composite": composite_rows.launches}
+    launches = _read_counters()
     log(f"  app.main: rc 0, {seen['frames']} frames in {wall:.2f} s wall "
         f"(first-frame costs included), launches {launches}")
     if launches["central_well"] < STEPS:
         fail(f"central-well kernel launched {launches['central_well']} times"
              f" in {STEPS} frames")
-    if launches["composite"] < 4 * STEPS:
-        fail(f"composite kernel launched {launches['composite']} times in "
-             f"{STEPS} frames of 4 chunks")
+    for name in ("composite", "sort_kv_stable", "gather_rows"):
+        if launches[name] < 4 * STEPS:
+            fail(f"{name} launched {launches[name]} times in {STEPS} frames "
+                 "of 4 chunks")
     dev_frames = metrics["gauges"].get("device_frame_ms", [])[-30:]
     if len(dev_frames) < 10:
         fail(f"only {len(dev_frames)} CUDA-event frame samples")
     frame_ms = statistics.median(dev_frames)
     stages = metrics["stages_ms"]
     log(f"  ms/frame (CUDA events, median of last {len(dev_frames)}): "
-        f"{frame_ms:.3f}; simulate ms {stages['simulate']:.3f}, render ms "
-        f"{stages['render']:.3f} (20-sample EMA); host frameTime ms "
+        f"{frame_ms:.3f} (before the sort and gather kernels: "
+        f"{MAIN_FRAME_MS_BEFORE}); simulate ms {stages['simulate']:.3f}, "
+        f"render ms {stages['render']:.3f} (20-sample EMA); host frameTime ms "
         f"{metrics['frame_ms']:.3f}")
     frame = seen["frame"]
     log(f"  last frame: max {float(frame.max()):.4f}, mean "
@@ -497,15 +708,110 @@ def phase_full_frame(seen):
     import torch
 
     from multi_adapter_particles_torch.ops.composite import composite_rows_plain
+    from multi_adapter_particles_torch.ops.rowgather import gather_rows_plain
+    from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable_plain
 
-    log("phase 6: final state's frame, kernel vs plain composite")
+    log("phase 6: final state's frame, the composite, sort and row-gather "
+        "kernels vs their plain twins")
     rend = seen["renderer"]
     pos = seen["position"]
     with_kernel = rend.render_arrays(pos, seen["camera"], 2.5, 0.15).frame
     rend.composite = composite_rows_plain
+    rend.sort = sort_kv_stable_plain
+    rend.gather = gather_rows_plain
     with_plain = rend.render_arrays(pos, seen["camera"], 2.5, 0.15).frame
     torch.cuda.synchronize()
+    log(f"  bitwise equal: {torch.equal(with_kernel, with_plain)}")
     return check_close("frame", with_kernel, with_plain, 0.0, 1e-5)
+
+
+def _fused_vs_split(label, argv, steps, graph, split=None):
+    """`app.main` with `-fused` against the split loop from the same seed
+    (`split`: that run's `seen`, else run here): positions bitwise, the last
+    frame within 1e-5, `fused_graph` == `graph`; with graphs, every counted
+    kernel launched its captured frame's count once a frame. Returns the
+    fused run's numbers."""
+    import statistics
+
+    import torch
+
+    split_ms = None
+    if split is None:
+        split_metrics, split = _run_app(argv + ["-steps", str(steps)], steps)
+        frames = split_metrics["gauges"].get("device_frame_ms", [])
+        split_ms = statistics.median(frames) if frames else None
+    _zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    metrics, seen = _run_app(argv + ["-fused", "-steps", str(steps)], steps)
+    wall = time.perf_counter() - t0
+    # the run's own peak, above what the process held before it
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    launches = {k: v for k, v in _read_counters().items() if v}
+    eng = seen["fused"]
+    ran_graph = metrics["gauges"].get("fused_graph")
+    log(f"  {label}: rc 0, {steps} frames in {wall:.2f} s wall; fused_graph "
+        f"{ran_graph}, {eng.replays} replays, launches a frame "
+        f"{eng.launches_per_frame}, launches {launches}; peak memory "
+        f"{peak:.2f} GiB")
+    if ran_graph is not graph:
+        fail(f"{label}: fused_graph {ran_graph}, expected {graph}")
+    if graph:
+        if eng.replays != steps - 1:
+            fail(f"{label}: {eng.replays} replays in {steps} frames")
+        for name, fn in _counted().items():
+            want = eng.launches_per_frame.get(fn.__name__, 0) * steps
+            if launches.get(name, 0) != want:
+                fail(f"{label}: {name} launched {launches.get(name, 0)} "
+                     f"times, the captured frame's count x {steps} is {want}")
+    if not torch.equal(seen["position"], split["position"]):
+        err = float((seen["position"] - split["position"]).abs().max())
+        fail(f"{label}: positions after {steps} frames differ from the "
+             f"split run's (max abs err {err:.3e})")
+    frame_err = check_close(f"{label} last frame vs split", seen["frame"],
+                            split["frame"], 0.0, 1e-5)
+    bitwise = torch.equal(seen["frame"], split["frame"])
+    frames = metrics["gauges"].get("device_frame_ms", [])
+    stages = metrics["stages_ms"]
+    out = {"frame_ms": statistics.median(frames) if frames else None,
+           "split_frame_ms": split_ms, "render_ms": stages.get("render"),
+           "simulate_ms": stages.get("simulate"), "replays": eng.replays,
+           "launches_per_frame": eng.launches_per_frame,
+           "peak_gib": peak, "frame_bitwise": bitwise,
+           "frame_err": frame_err}
+    log(f"  positions bitwise the split run's; last frame bitwise {bitwise};"
+        f" ms/frame (CUDA events, median of {len(frames)}) "
+        f"{out['frame_ms']} (the split run here: {split_ms}); render ms "
+        f"{out['render_ms']}, simulate ms {out['simulate_ms']} (EMA)")
+    return out
+
+
+def phase_fused(split_4m):
+    base = ["-novsync", "-nogui"]
+    log(f"phase 22: fused main path — app.main -fused -numparticles {N_MAIN} "
+        f"-steps {STEPS} at {WIDTH}x{HEIGHT} (vs phase 5)")
+    out = {"4m": _fused_vs_split(
+        "fused 4M", base + ["-numparticles", str(N_MAIN), "-width", str(WIDTH),
+                            "-height", str(HEIGHT)], STEPS, True, split_4m)}
+    log("phase 23: fused @262,144, 1280x720, vs split")
+    out["262k_720p"] = _fused_vs_split(
+        "fused 262K 720p", base + ["-numparticles", "262144", "-width", "1280",
+                                   "-height", "720"], 30, True)
+    log("phase 24: fused p3m (uncaptured), all_pairs and pm_grid, vs split")
+    out["p3m"] = _fused_vs_split(
+        "fused p3m 262K", base + ["-force", "p3m", "-p3mnear", "tree",
+                                  "-numparticles", "262144"], 4, False)
+    out["all_pairs"] = _fused_vs_split(
+        "fused all_pairs 64K", base + ["-force", "all_pairs", "-numparticles",
+                                       "65536", "-width", "512", "-height",
+                                       "512"], 6, True)
+    out["pm_grid"] = _fused_vs_split(
+        "fused pm_grid 262K", base + ["-force", "pm_grid", "-pmgrid", "64",
+                                      "-numparticles", "262144", "-width",
+                                      "512", "-height", "512"], 6, True)
+    return out
 
 
 def check_rel(name: str, got, want, rel: float) -> float:
@@ -1450,7 +1756,12 @@ def main() -> int:
     cw = phase_central_well(dev)
     comp = phase_composite(dev)
     torch.cuda.empty_cache()
+    sort, gather_args = phase_sort(dev)
+    gather = phase_gather(dev, gather_args)
+    del gather_args
+    torch.cuda.empty_cache()
     launches, seen, frame = phase_main_path(dev)
+    split_4m = {"position": seen["position"], "frame": seen["frame"]}
     frame_err = phase_full_frame(seen)
     del seen
     torch.cuda.empty_cache()
@@ -1480,15 +1791,22 @@ def main() -> int:
     exact = phase_exact_gauge(dev)
     torch.cuda.empty_cache()
     diag_launches, diag_path = phase_diag_main_paths(gauge.pop("scene_1m"))
+    torch.cuda.empty_cache()
+    fused = phase_fused(split_4m)
+    del split_4m
 
     def entry(name, source, replaces, launches, stats):
+        """`replaces`: the TPU kernel's file:line from the repository root
+        (a bare name is under multi_adapter_particles_tpu/ops/)."""
+        if "/" not in replaces:
+            replaces = f"multi_adapter_particles_tpu/ops/{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"multi_adapter_particles_torch/csrc/{source}",
-                "replaces": f"multi_adapter_particles_tpu/ops/{replaces}",
+                "replaces": replaces,
                 "launches": launches, "max_abs_err": stats["max_abs_err"],
                 "ms": stats["ms"], "plain_ms": stats["plain_ms"],
                 "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
-                "library_ms": None}
+                "library_ms": stats.get("library_ms")}
 
     kernels = [
         entry("central_well", "central_well.cu", "central_well.py:32",
@@ -1513,6 +1831,11 @@ def main() -> int:
         entry("tree_sweep_half_pairs", "treeforce.cu", "treeforce.py:293",
               diag_launches["pm_grid"]["tree_sweep_half_pairs"],
               gauge["tree_sweep_half_pairs"]),
+        entry("sort_kv_stable", "sortkv.cu", "sortkv.py:113",
+              launches["sort_kv_stable"], sort),
+        entry("gather_rows", "rowgather.cu",
+              "experiments/rowgather_pallas.py:27",
+              launches["gather_rows"], gather),
     ]
     log(f"main path: {json.dumps(frame)}; composite @262K Q=64: kernel "
         f"{comp['ms_262k']:.4f} ms, plain {comp['plain_ms_262k']:.4f} ms")
@@ -1527,6 +1850,9 @@ def main() -> int:
     log(f"diagnostics: 4M gauge sweep {json.dumps(gauge)}; exact vs mesh "
         f"@{N_TREE_CHECK:,} {json.dumps(exact)}; main paths "
         f"{json.dumps(diag_path)}; launches {json.dumps(diag_launches)}")
+    log(f"sort @E={N_MAIN:,}: {json.dumps(sort)}; row gather "
+        f"{json.dumps(gather)}")
+    log(f"fused: {json.dumps(fused)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,10 @@
 JAX package's app (`multi_adapter_particles_tpu/app.py`) on torch devices:
 the simulation (the central well, or `-force all_pairs | pm_grid | p3m`
 self-gravity) plus the exact splat render, by default at the reference's
-4,194,304 particles in a 1024x1024 window on one GPU. Without a GPU it
-exits 2 unless `-computeadapter`/`-renderadapter` name an adapter (the CPU
-is listed by `-listadapters`).
+4,194,304 particles in a 1024x1024 window on one GPU; `-fused` runs the
+fused single-program frame instead (captured CUDA graphs on a GPU).
+Without a GPU it exits 2 unless `-computeadapter`/`-renderadapter` name an
+adapter (the CPU is listed by `-listadapters`).
 
 Flags follow the reference (`Particles.cpp:251-267`): numparticles, nogui,
 noext, size, intensity, novsync, fullscreen, numCopy, numDraw, numSim; `?`
@@ -34,7 +35,6 @@ from multi_adapter_particles_torch.utils.argparser import ArgParser
 # Flags of the JAX package's CLI whose slice is not ported yet, with the
 # ROADMAP queue 1 item that brings each.
 _LATER_FLAGS = {
-    "fused": "item 7",
     "meshdevices": "item 14",
     "shardrender": "item 14",
     "probecache": "item 13",
@@ -170,6 +170,10 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
               "above), exact (O(N^2) sum at any N), mesh (P3M-split gauge, "
               "~1e-4 of exact)",
               lambda v: extra.__setitem__("diag_mode", v))
+    p.add_flag("fused",
+               "fused single-program frame: render state N and step to N+1 "
+               "on one device, replayed as captured CUDA graphs on a GPU",
+               lambda: extra.__setitem__("fused", True))
     p.add_flag("nodraw", "simulate only (SPACE-toggle analog)",
                lambda: extra.__setitem__("draw", False))
     p.add_flag("listadapters", "print the adapter list and exit",
@@ -364,6 +368,7 @@ def main(argv: Optional[List[str]] = None,
         seed=extra.get("seed", 0),
         draw_enabled=extra.get("draw", True),
         profile_every=extra.get("profile_every", 0),
+        fused=extra.get("fused", False),
         # a -metrics dump with empty stage rows is useless: time the stages
         # with CUDA events (non-stalling) whenever one is asked for
         async_timers="metrics" in extra,

@@ -78,7 +78,6 @@ PRESETS = {
 # Presets of slices not ported yet, with their ROADMAP queue 1 items.
 NOT_PORTED = {
     "1m-mesh8": "item 14",
-    "4m-fused": "item 7",
 }
 
 

@@ -11,29 +11,30 @@ gather:
    (center, half-extents, rgb, intensity).
 2. **Bin** sprites to (TILE_H x TILE_W) pixel tiles: each particle emits
    up to dup_y x dup_x candidate (tile, id) entries, entry e = p*dup + k.
-   A stable sort by tile key orders entries by tile, then particle id —
-   the draw order of the reference's single DrawInstanced
-   (`Render.cpp:891`) — and the payloads follow by index gather.
+   ONE stable sort of the int32 tile keys carries the entries' four
+   payloads (cx, cy, w_clip, and (cg, cb) packed as two f16 halves) and
+   orders them by tile, then particle id — the draw order of the
+   reference's single DrawInstanced (`Render.cpp:891`): the hand-written
+   CUDA kernel `ops/sortkv.py` on CUDA tensors, its plain twin on CPU.
 3. **Composite** exactly at any depth: over-composition with a per-sprite
    source clamp is associative on (premultiplied color, transmittance), so
    the sorted stream splits into Q-aligned data rows; each (data row, tile)
    intersection is a virtual row of one depth-Q pass — the hand-written
    CUDA kernel `ops/composite.py` on CUDA tensors, its plain twin on CPU —
-   and consecutive rows of a tile tree-combine in O(log rows) passes.
+   and consecutive rows of a tile tree-combine in O(log rows) passes. The
+   virtual rows' payloads come from ONE gather of the packed data rows
+   (`ops/rowgather.py`, a CUDA kernel likewise).
 
 What changed against the JAX package, and why it is the same result:
-- entry expansion: a broadcast-and-reshape of the key planes (the JAX
-  package's MXU permutation matmul was a TPU layout workaround); payloads
-  gather through `perm // dup` from the per-particle arrays;
-- sort: `torch.sort(key, stable=True)` + index gathers replace the
-  5-operand stable `lax.sort` (same permutation: stable, same keys);
+- entry expansion: a broadcast-and-reshape of the key planes and payloads
+  (the JAX package's MXU permutation matmul was a TPU layout workaround;
+  it falls back to the same broadcast where dup does not divide 128);
 - tile starts: `torch.searchsorted(..., side="left")`, which the JAX
   package's `_starts_two_level` docstring states it equals;
 - virtual-row map: `torch.searchsorted(row_end, v, right=True)` + gathers
   replace the merge sort; the integers are the same;
-- (cg, cb) keep the JAX package's f16 rounding (it packed them as two
-  f16 halves of one lane) — without it frames only match at golden
-  tolerance.
+- keys are int32 tile ids where the JAX package keeps f32 ids (exact
+  below 2^24): the same order.
 
 `truncated` counts sprite-tile entries outside the dup_y x dup_x candidate
 window.
@@ -50,6 +51,8 @@ from multi_adapter_particles_torch import constants as C
 from multi_adapter_particles_torch.config import RenderConfig
 from multi_adapter_particles_torch.models.state import PAD_POSITION
 from multi_adapter_particles_torch.ops.composite import composite_rows
+from multi_adapter_particles_torch.ops.rowgather import gather_rows
+from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
 from multi_adapter_particles_torch.render.camera import Camera
 
 Tensor = torch.Tensor
@@ -118,6 +121,36 @@ def _pixel_bound(edge: Tensor, limit: int) -> Tensor:
         torch.int32)
 
 
+def pack_cgb(cg: Tensor, cb: Tensor) -> Tensor:
+    """(cg, cb) f32 -> int32 (f16 bits of cg clamped to [0, 6e4]) << 16 |
+    f16 bits of cb: the JAX package's `pack_cgb` lane (`render/renderer.py`
+    there). Each half is masked to 16 bits before the shift, so a negative
+    f16 cannot sign-extend into the other; cg is clamped below f16-inf (the
+    blend clips source terms to [0, 1] anyway, and an inf would NaN-poison
+    dead slots through `inf * 0`)."""
+    def bits(x):
+        return x.to(torch.float16).view(torch.int16).to(torch.int32) & 0xFFFF
+
+    return (bits(torch.clamp(cg, 0.0, 6.0e4)) << 16) | bits(cb)
+
+
+def unpack_cgb(u: Tensor):
+    """int32 `pack_cgb` words -> (cg, cb) f32, each rounded through f16."""
+    def half(bits):
+        s16 = ((bits & 0xFFFF) ^ 0x8000) - 0x8000    # sign-extend 16 bits
+        return s16.to(torch.int16).view(torch.float16).to(torch.float32)
+
+    return half(u >> 16), half(u)
+
+
+def _chunk_draw(num_draw, start: int, width: int):
+    """A chunk's slice [start, start + width) of the num_draw prefix, for a
+    host int or a 0-dim device tensor (the fused engine's)."""
+    if isinstance(num_draw, Tensor):
+        return torch.clamp(num_draw - start, 0, width)
+    return min(max(num_draw - start, 0), width)
+
+
 def virtual_rows(starts: Tensor, row_end: Tensor, row_start: Tensor,
                  num_rows: int):
     """Virtual row v -> (tile_v, starts_v, ends_v, row_start_v).
@@ -144,7 +177,7 @@ def _render(
     p11: Tensor,        # proj[1, 1], 0-dim f32
     radius: Tensor,     # particle size (eye units), 0-dim f32
     intensity: Tensor,  # sprite intensity, 0-dim f32
-    num_draw: int,      # draw count (decoupling knob)
+    num_draw,           # draw count (decoupling knob): int, or 0-dim int32
     id_offset: int = 0,  # global id of column 0 (chunked renders)
     *,
     width: int,
@@ -157,10 +190,15 @@ def _render(
     frame_uint8: bool = False,
     return_trans: bool = False,
     composite: Callable = composite_rows,
+    sort: Callable = sort_kv_stable,
+    gather: Callable = gather_rows,
 ) -> FrameOutput:
     """One frame of `position`'s first `num_draw` particles. `composite`
-    is the depth-Q pass (`ops/composite.composite_rows`; a caller may hand
-    in its plain twin to compare the two on the card)."""
+    is the depth-Q pass (`ops/composite.composite_rows`), `sort` the stable
+    key + payload sort (`ops/sortkv.sort_kv_stable`), `gather` the row
+    gather (`ops/rowgather.gather_rows`); a caller may hand in their plain
+    twins to compare on the card. No host sync: a CUDA graph can capture
+    it (a device `num_draw` keeps the draw count out of the graph)."""
     dev = position.device
     n = position.shape[1]
     gh, gw = height // TILE_H, width // TILE_W
@@ -173,7 +211,7 @@ def _render(
     _, cg, cb = _colors(position, id_offset)
 
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-    alive = (ids < int(num_draw)) & (w_clip > near)
+    alive = (ids < num_draw) & (w_clip > near)
 
     # Sprite pixel rect [x0, x1) x [y0, y1); pixel centers at +0.5.
     px0 = _pixel_bound(cx - hx, width)
@@ -189,16 +227,14 @@ def _render(
 
     # Candidate tiles (ty0 + dy, tx0 + dx), one key plane per (dy, dx);
     # sprites spanning more tiles lose their far tiles -> `truncated`.
-    # Keys are f32 tile ids (exact below 2^24); num_tiles marks "no tile".
+    # Keys are int32 tile ids; num_tiles marks "no tile".
     key_planes = []
     for dy in range(dup_y):
         for dx in range(dup_x):
             typ = ty0 + dy
             txp = tx0 + dx
             okp = nonempty & (typ <= ty1) & (txp <= tx1)
-            key_planes.append(torch.where(
-                okp, (typ * gw + txp).to(torch.float32),
-                torch.tensor(float(num_tiles), device=dev)))
+            key_planes.append(torch.where(okp, typ * gw + txp, num_tiles))
     span_h = ty1 - ty0 + 1
     span_w = tx1 - tx0 + 1
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
@@ -210,23 +246,26 @@ def _render(
     span_x = torch.where(nonempty, span_w, zero_i).max().to(torch.int32)
 
     # Degenerate sprites never bin to a tile, but their params still ride
-    # along as payloads of sentinel entries; NaN/Inf there would poison
-    # composite pixels through `x * 0 == NaN`, so sanitize the geometry.
+    # the sort as payloads of sentinel entries; NaN/Inf there would poison
+    # composite pixels through `x * 0 == NaN`, so sanitize the geometry
+    # (the w-derived extents after the gather).
     cx = torch.nan_to_num(cx, nan=0.0, posinf=0.0, neginf=0.0)
     cy = torch.nan_to_num(cy, nan=0.0, posinf=0.0, neginf=0.0)
-    # (cg, cb) rounded through f16, as the JAX package carries them; cg
-    # clamped below f16-inf (the blend clips source terms to [0, 1] anyway)
-    cg16 = torch.clamp(cg, 0.0, 6.0e4).to(torch.float16).to(torch.float32)
-    cb16 = cb.to(torch.float16).to(torch.float32)
 
-    # Entry expansion e = p*dup + k, then ONE stable sort by tile key.
+    def expand(a: Tensor) -> Tensor:  # per-particle [Np] -> per-entry [E]
+        return a[:, None].expand(n, dup).reshape(-1)
+
+    # Entry expansion e = p*dup + k, then ONE stable sort by tile key that
+    # carries the four payloads the composite needs (the JAX package's
+    # minimum: 1/(2h) is linear in w_clip, cr = 1 - cb, (cg, cb) share one
+    # word as two f16 halves).
     key = torch.stack(key_planes, dim=1).reshape(-1)
-    sorted_key, perm = torch.sort(key, stable=True)
-    pidx = perm // dup  # the particle of each sorted entry
+    sorted_key, s_cx, s_cy, s_w, s_cgb = sort(
+        key, expand(cx), expand(cy), expand(w_clip), expand(pack_cgb(cg, cb)))
 
     starts = torch.searchsorted(
         sorted_key,
-        torch.arange(num_tiles + 1, dtype=torch.float32, device=dev),
+        torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
         side="left",
     ).to(torch.int32)
     counts = starts[1:] - starts[:-1]                     # [T]
@@ -263,19 +302,21 @@ def _render(
     valid_k = (kk[:, None] >= lo_k[None, :]) & (kk[:, None] < hi_k[None, :])
     t_sa = torch.where(valid_k, intensity, 0.0)  # [Q, V]; dead slots blend 0
 
-    # Payloads per sorted entry, Q-aligned rows gathered per virtual row.
-    # Rows past the stream (dead virtual rows only) clamp to the last data
-    # row, as the JAX gather does; their slots are dead either way.
-    j_g = torch.clamp(j_v, max=data_rows - 1).long()
-
-    def rows(a: Tensor) -> Tensor:  # per-particle [Np] -> [Q, V]
-        s = a[pidx]
-        if e_pad:
-            s = torch.cat([s, s.new_zeros(e_pad)])
-        return s.reshape(data_rows, q)[j_g].T
-
-    t_cx, t_cy, t_w = rows(cx), rows(cy), rows(w_clip)
-    t_cg, t_cb = rows(cg16), rows(cb16)
+    # ONE packed row gather: the 4 sorted payloads (as int32 bits) per
+    # Q-aligned data row, [data_rows, 4Q] with channel-major rows, gathered
+    # at each virtual row's data row, then viewed as [4, Q, V]. Rows past
+    # the stream (dead virtual rows only) read the last data row (the
+    # gather clamps, as XLA's does); their slots are dead either way.
+    payload = torch.stack([s_cx.view(torch.int32), s_cy.view(torch.int32),
+                           s_w.view(torch.int32), s_cgb], dim=1)   # [E, 4]
+    if e_pad:
+        # tail pad: beyond every tile's `ends`, never selected by masks
+        payload = torch.cat([payload, payload.new_zeros((e_pad, 4))])
+    packed = payload.reshape(data_rows, q, 4).transpose(1, 2).reshape(
+        data_rows, 4 * q)
+    spt = gather(packed, j_v).reshape(num_rows, 4, q).permute(1, 2, 0)
+    t_cx, t_cy, t_w = (spt[c].view(torch.float32) for c in range(3))
+    t_cg, t_cb = unpack_cgb(spt[3])
     # post-gather derivations: 1/(2hx) is linear in w_clip
     inv_sx = 1.0 / (radius * p00 * float(width))
     inv_sy = 1.0 / (radius * p11 * float(height))
@@ -353,6 +394,7 @@ def _chunked_fold(
     position, wvp, p00, p11, size, intensity, num_draw,
     *, width, height, seg_q, dup_y, dup_x, near, blend,
     chunk_size, frame_uint8, composite: Callable = composite_rows,
+    sort: Callable = sort_kv_stable, gather: Callable = gather_rows,
 ) -> FrameOutput:
     """Fold id-ordered particle chunks through the associative composite:
     later ∘ earlier = (C_l + C_e T_l, T_e T_l). Each chunk renders with its
@@ -365,17 +407,17 @@ def _chunked_fold(
                          device=position.device)
         pad[3].zero_()
         position = torch.cat([position, pad], dim=1)
-    nd_global = n if num_draw is None else int(num_draw)
+    nd_global = n if num_draw is None else num_draw
 
     cf = tf = trunc = sy = sx = None
     for i in range(k):
         chunk = position[:, i * cn:(i + 1) * cn]
-        nd = min(max(nd_global - i * cn, 0), cn)
         out = _render(
-            chunk, wvp, p00, p11, size, intensity, nd, i * cn,
+            chunk, wvp, p00, p11, size, intensity,
+            _chunk_draw(nd_global, i * cn, cn), i * cn,
             width=width, height=height, seg_q=seg_q,
             dup_y=dup_y, dup_x=dup_x, near=near, blend=blend,
-            return_trans=True, composite=composite,
+            return_trans=True, composite=composite, sort=sort, gather=gather,
         )
         if cf is None:
             cf, tf = out.frame, out.trans
@@ -397,8 +439,9 @@ class Renderer:
 
     The composite is exact at any tile depth; `seg_q` is a pure performance
     knob (sprites per segment row). `last_truncated` reports sprites larger
-    than the dup_y x dup_x tile window (fix by raising those). The composite
-    kernel runs for every Q on CUDA tensors; CPU tensors take its twin.
+    than the dup_y x dup_x tile window (fix by raising those). The sort,
+    row-gather and composite kernels run on CUDA tensors; CPU tensors take
+    their twins.
     """
 
     def __init__(
@@ -440,9 +483,11 @@ class Renderer:
         # Auto-raise budget: dup growth may not push N x dup sort entries
         # past this (see raise_dup_values).
         self.entry_budget = 64 * 1024 * 1024
-        # The depth-Q composite pass: the CUDA kernel's wrapper (its plain
-        # twin runs for CPU tensors); replaceable to compare the two.
+        # The kernels' wrappers (their plain twins run for CPU tensors);
+        # each replaceable by its twin to compare the two on the card.
         self.composite = composite_rows
+        self.sort = sort_kv_stable
+        self.gather = gather_rows
         self._last_n = 0
         # particles per sort of the LAST render: == _last_n for single-pass
         # frames, the chunk width for chunked ones (drives the budget)
@@ -472,53 +517,62 @@ class Renderer:
     ) -> FrameOutput:
         """One render (async launches, no host sync). States larger than
         `chunk_threshold` render in id-ordered chunks (see `_chunked_fold`)."""
+        n = position.shape[1]
+        nd = int(n if num_draw is None else num_draw)
+        args = self._device_args(camera, particle_size, particle_intensity,
+                                 position.device)
+        return self.render_with(position, args, nd, seg_q)
+
+    def render_with(self, position: Tensor, args, num_draw,
+                    seg_q: Optional[int] = None) -> FrameOutput:
+        """`render_arrays` on device arguments already made: `args` =
+        (wvp, p00, p11, size, intensity) as `_device_args` orders them, and
+        `num_draw` an int or a 0-dim int32 tensor on position's device. With
+        tensors that stay put (the fused engine's), a CUDA graph can
+        capture this call and replay it as the arguments change."""
         cfg = self.config
         n = position.shape[1]
         self._last_n = n
-        nd = int(n if num_draw is None else num_draw)
-        wvp, p00, p11, size, intensity = self._device_args(
-            camera, particle_size, particle_intensity, position.device
-        )
         kw = dict(width=cfg.width, height=cfg.height, dup_y=self.dup_y,
                   dup_x=self.dup_x, near=cfg.near, blend=self.blend,
-                  frame_uint8=cfg.frame_uint8, composite=self.composite)
+                  frame_uint8=cfg.frame_uint8, composite=self.composite,
+                  sort=self.sort, gather=self.gather)
         if n > self.chunk_threshold:
             _, cn = _chunk_width(n, self.chunk_size)
             self._last_sort_n = cn
             return _chunked_fold(
-                position, wvp, p00, p11, size, intensity, nd,
+                position, *args, num_draw,
                 seg_q=self.resolve_seg_q(cn, seg_q),
                 chunk_size=self.chunk_size, **kw,
             )
         self._last_sort_n = n
         return _render(
-            position, wvp, p00, p11, size, intensity, nd,
+            position, *args, num_draw,
             seg_q=self.resolve_seg_q(n, seg_q), **kw,
         )
 
-    def _device_args(self, camera, particle_size, particle_intensity, device):
-        """Camera/scalar device arguments through the per-frame cache."""
+    def frame_args(self, camera, particle_size, particle_intensity):
+        """The frame's camera/scalar arguments on the host: (wvp [4, 4]
+        float32 array, p00, p11, size, intensity as floats)."""
         cfg = self.config
         proj = camera.projection_matrix(cfg.aspect, cfg.fov_y, cfg.near,
                                         cfg.far)
         wvp = camera.world_view_projection(
             cfg.aspect, fov_y=cfg.fov_y, near=cfg.near, far=cfg.far
         )
-        akey = (
-            wvp.tobytes(), float(proj[0, 0]), float(proj[1, 1]),
-            float(particle_size), float(particle_intensity), str(device),
-        )
-        if akey != self._arg_key:
-            def f32(x):
-                return torch.tensor(x, dtype=torch.float32, device=device)
+        return (np.asarray(wvp, np.float32),
+                abs(float(np.float32(proj[0, 0]))),
+                abs(float(np.float32(proj[1, 1]))),
+                float(particle_size), float(particle_intensity))
 
-            self._arg_dev = (
-                torch.tensor(np.asarray(wvp, np.float32), device=device),
-                f32(abs(float(np.float32(proj[0, 0])))),
-                f32(abs(float(np.float32(proj[1, 1])))),
-                f32(float(particle_size)),
-                f32(float(particle_intensity)),
-            )
+    def _device_args(self, camera, particle_size, particle_intensity, device):
+        """Camera/scalar device arguments through the per-frame cache."""
+        host = self.frame_args(camera, particle_size, particle_intensity)
+        akey = (host[0].tobytes(), *host[1:], str(device))
+        if akey != self._arg_key:
+            self._arg_dev = (torch.tensor(host[0], device=device), *(
+                torch.tensor(x, dtype=torch.float32, device=device)
+                for x in host[1:]))
             self._arg_key = akey
         return self._arg_dev
 

@@ -45,6 +45,33 @@ from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 from multi_adapter_particles_torch.utils.timers import sync
 
 
+def step_into(config: SimConfig, step, state: ParticleState,
+              out: ParticleState, num_sim: Optional[int]) -> None:
+    """One step of `state` written into `out`: the fused central-well
+    kernel on a CUDA state, else `step` (`integrator.make_step(config)`)."""
+    if config.force_model == "central_well" and state.device.type == "cuda":
+        central_well_step(
+            state.position, state.velocity,
+            dt=config.dt, damping=config.damping, mass=config.mass,
+            softening_squared=config.softening_squared,
+            num_live=integrator.live_count(num_sim, state.padded_count),
+            out=(out.position, out.velocity),
+        )
+    else:
+        step(state, num_sim, out=out)
+
+
+def interactions(config: SimConfig, num_sim: Optional[int],
+                 padded: int) -> float:
+    """A step's `interactions` count: pairs for all_pairs (n_sim targets x
+    every padded source, the same count for both schedules), particles for
+    the other models."""
+    n_sim = float(num_sim if num_sim is not None else config.num_particles)
+    if config.force_model == "all_pairs":
+        n_sim *= padded
+    return n_sim
+
+
 class ComputeEngine:
     """Simulation role bound to one torch device.
 
@@ -63,7 +90,6 @@ class ComputeEngine:
         self.config = sim_config
         self.device = torch.device(device)
         self.metrics = metrics or MetricsRegistry()
-        self.use_kernel = self.device.type == "cuda"
         # raises for a part not ported yet (the p3m slot near field)
         self._step = integrator.make_step(sim_config)
         self.step_count = 0  # the shared fence value analog
@@ -88,28 +114,12 @@ class ComputeEngine:
     def simulate(self, num_sim: Optional[int] = None) -> ParticleState:
         """One async step into the spare buffer, then swap. Returns the new
         state (also kept on self)."""
-        cfg = self.config
         out = self._spare
-        if cfg.force_model == "central_well" and self.use_kernel:
-            central_well_step(
-                self.state.position, self.state.velocity,
-                dt=cfg.dt, damping=cfg.damping, mass=cfg.mass,
-                softening_squared=cfg.softening_squared,
-                num_live=integrator.live_count(
-                    num_sim, self.state.padded_count
-                ),
-                out=(out.position, out.velocity),
-            )
-        else:
-            self._step(self.state, num_sim, out=out)
+        step_into(self.config, self._step, self.state, out, num_sim)
         self._spare, self.state = self.state, out
         self.step_count += 1
-        # pairs for all_pairs (n_sim targets x every padded source, the same
-        # count for both schedules), particles for the other models
-        n_sim = float(num_sim if num_sim is not None else cfg.num_particles)
-        if cfg.force_model == "all_pairs":
-            n_sim *= self.state.padded_count
-        self.metrics.count("interactions", n_sim)
+        self.metrics.count("interactions", interactions(
+            self.config, num_sim, self.state.padded_count))
         return self.state
 
     @property

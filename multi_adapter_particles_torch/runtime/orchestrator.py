@@ -16,9 +16,11 @@ buffer the draw does not read, so the render shows frame N while N+1
 simulates — the reference's stale-by-one contract (fences `Render.cpp:925`,
 `Compute.cpp:1012`). With one GPU both roles share it (async-compute mode).
 
-Not ported yet, and raising: the fused single-program mode (ROADMAP queue 1
-item 7), mesh compute and sharded render (item 14), the debug validation
-layer (item 13).
+`fused=True` runs the fused single-program frame instead
+(`runtime/fused.py`): one engine in both roles on one device.
+
+Not ported yet, and raising: mesh compute and sharded render (ROADMAP
+queue 1 item 14), the debug validation layer (item 13).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import List, Optional
 from multi_adapter_particles_torch.config import AppConfig, RenderConfig, SimConfig
 from multi_adapter_particles_torch.runtime import devices as devmod
 from multi_adapter_particles_torch.runtime.compute_engine import ComputeEngine
+from multi_adapter_particles_torch.runtime.fused import FusedEngine
 from multi_adapter_particles_torch.runtime.gputimer import EventStageTimer
 from multi_adapter_particles_torch.runtime.pacing import FrameLatencyQueue
 from multi_adapter_particles_torch.runtime.render_engine import RenderEngine
@@ -63,9 +66,8 @@ class ParticlesApp:
         """`async_timers` turns on the non-stalling CUDA-event stage timer
         ("simulate ms" / "render ms", `runtime/gputimer.py`) when the
         compute device is a GPU. `profile_every` K > 0 instead times both
-        stages with a hard sync every K-th frame."""
-        if fused:
-            raise _not_ported("fused mode", "item 7")
+        stages with a hard sync every K-th frame (split mode only). `fused`
+        runs the fused single-program frame on one device."""
         if mesh_devices > 1 or shard_render:
             raise _not_ported("mesh compute / sharded render", "item 14")
         if debug:
@@ -90,6 +92,13 @@ class ParticlesApp:
         compute_ad, render_ad = devmod.assign_adapters(
             self.adapters, compute_adapter, render_adapter
         )
+        if fused and compute_adapter is None and render_adapter is None:
+            # fused = the single-adapter async-compute analog: an
+            # unspecified assignment binds both roles to one device
+            render_ad = compute_ad
+        if fused and compute_ad.device != render_ad.device:
+            raise ValueError("fused mode needs a single shared device (the "
+                             "async-compute analog)")
         self.compute_adapter = compute_ad
         self.render_adapter = render_ad
         # prev-value change detection (`Particles.cpp:162-166,458-463`)
@@ -97,12 +106,20 @@ class ParticlesApp:
         self._prev_render_index = render_ad.index
         self._prev_fullscreen = self.app.fullscreen
 
-        self.compute = ComputeEngine(
-            self.sim_config, compute_ad.device, self.metrics, seed=seed
-        )
-        self.render = RenderEngine(
-            self._active_render_config(), render_ad.device, self.metrics
-        )
+        self.fused_engine: Optional[FusedEngine] = None
+        if fused:
+            # one object serves both roles (zero copies, one frame program)
+            self.fused_engine = FusedEngine(
+                self.sim_config, self._active_render_config(),
+                compute_ad.device, self.metrics, seed=seed)
+            self.compute = self.render = self.fused_engine
+        else:
+            self.compute = ComputeEngine(
+                self.sim_config, compute_ad.device, self.metrics, seed=seed
+            )
+            self.render = RenderEngine(
+                self._active_render_config(), render_ad.device, self.metrics
+            )
         self.stage_timer = (
             EventStageTimer(self.metrics, compute_ad.device)
             if async_timers and compute_ad.device.type == "cuda"
@@ -124,7 +141,9 @@ class ParticlesApp:
         )
         self.metrics.gauge(
             "mode_banner",
-            devmod.mode_banner(self.compute_adapter, self.render_adapter),
+            "Single Adapter with Async Compute (fused single-program)"
+            if self.fused_engine is not None
+            else devmod.mode_banner(self.compute_adapter, self.render_adapter),
         )
         self.metrics.gauge("compute_device", self.compute_adapter.description)
         self.metrics.gauge("render_device", self.render_adapter.description)
@@ -145,6 +164,9 @@ class ParticlesApp:
         )
         if timer is not None:
             timer.begin_frame()
+        if self.fused_engine is not None:
+            self._draw_fused(sim_arg, num_draw)
+            return
 
         if self.draw_enabled:
             if profile:
@@ -194,6 +216,26 @@ class ParticlesApp:
         self.frame_count += 1
         self._handle_reconfiguration()
 
+    def _draw_fused(self, sim_arg: Optional[int], num_draw: int) -> None:
+        """One fused frame (the JAX orchestrator's fused branch). The SPACE
+        toggle draws 0 sprites: the frame keeps its shape, no recapture."""
+        eng = self.fused_engine
+        timer = self.stage_timer
+        eng.frame(self.app, num_sim=sim_arg,
+                  num_draw=num_draw if self.draw_enabled else 0,
+                  stage_timer=timer)
+        if timer is not None:
+            timer.mark("simulate")
+            timer.end_frame()
+        if self.app.vsync and self.draw_enabled:
+            eng.present()  # the single host block per frame
+        else:
+            # launch ahead, bounded in flight; no present, so no dup raise
+            self.pacing.push(eng.positions)
+        self._display_positions = eng.positions
+        self.frame_count += 1
+        self._handle_reconfiguration()
+
     # -- live reconfiguration (`Particles.cpp:458-537`) ---------------------------
     def set_compute_adapter(self, index: int) -> None:
         self.compute_adapter = self.adapters[index]
@@ -215,19 +257,15 @@ class ParticlesApp:
         self.render.wait_for_gpu()
         self.compute.wait_for_gpu()
 
+        if self.fused_engine is not None:
+            self._rebuild_fused()
+            return
+
         if rchange or fschange:
             # Rebuild the render engine on the (possibly new) device at the
             # active resolution; camera and learned dup window survive.
-            old_rend = self.render.renderer
             rcfg = self._active_render_config()
-            renderer = Renderer(
-                rcfg,
-                seg_q=old_rend.seg_q,
-                dup_y=old_rend.dup_y,
-                dup_x=old_rend.dup_x,
-                blend=old_rend.blend,
-                auto_raise_dup=old_rend.auto_raise_dup,
-            )
+            renderer = self._carry_renderer(rcfg)
             self.render = RenderEngine(
                 rcfg,
                 self.render_adapter.device,
@@ -240,21 +278,53 @@ class ParticlesApp:
 
         if cchange:
             # New engine on the new device, migrating state (CopyState).
-            if self.stage_timer is not None:
-                self.stage_timer.close()
+            self._restart_timer()
             self.compute = ComputeEngine(
                 self.sim_config,
                 self.compute_adapter.device,
                 self.metrics,
                 prev=self.compute,
             )
-            if self.stage_timer is not None:
-                self.stage_timer = (
-                    EventStageTimer(self.metrics, self.compute_adapter.device)
-                    if self.compute_adapter.device.type == "cuda" else None
-                )
             self._prev_compute_index = self.compute_adapter.index
 
+        self.share_handles()
+
+    def _carry_renderer(self, rcfg: RenderConfig) -> Renderer:
+        """A renderer at `rcfg` that keeps the current one's settings and
+        learned dup window."""
+        o = self.render.renderer
+        return Renderer(rcfg, seg_q=o.seg_q, dup_y=o.dup_y, dup_x=o.dup_x,
+                        blend=o.blend, auto_raise_dup=o.auto_raise_dup)
+
+    def _restart_timer(self) -> None:
+        """A stage timer follows the compute role to its new device."""
+        if self.stage_timer is not None:
+            self.stage_timer.close()
+            self.stage_timer = (
+                EventStageTimer(self.metrics, self.compute_adapter.device)
+                if self.compute_adapter.device.type == "cuda" else None
+            )
+
+    def _rebuild_fused(self) -> None:
+        """Fused mode binds both roles to ONE device: a change moves both
+        together, into a new engine that migrates the state and keeps the
+        camera and the learned dup window (the JAX orchestrator's fused
+        reconfiguration)."""
+        if self.compute_adapter.device != self.render_adapter.device:
+            raise ValueError(
+                "fused mode needs compute and render on the same device; "
+                "move both adapters together (or restart split)")
+        old = self.fused_engine
+        rcfg = self._active_render_config()
+        if self.compute_adapter.device != old.device:
+            self._restart_timer()
+        self.fused_engine = FusedEngine(
+            self.sim_config, rcfg, self.compute_adapter.device, self.metrics,
+            prev=old, camera=old.camera, renderer=self._carry_renderer(rcfg))
+        self.compute = self.render = self.fused_engine
+        self._prev_compute_index = self.compute_adapter.index
+        self._prev_render_index = self.render_adapter.index
+        self._prev_fullscreen = self.app.fullscreen
         self.share_handles()
 
     # -- run loop (the message-pump analog, Main-Particles.cpp:76-90) -------------

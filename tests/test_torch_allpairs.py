@@ -358,7 +358,7 @@ class TestCli:
         assert seen["draw"] is False
 
     @pytest.mark.parametrize("argv", [
-        ["-preset", "4m-fused"], ["-preset", "1m-mesh8"],
+        ["-preset", "4m-fused", "-debug"], ["-preset", "1m-mesh8"],
         ["-force", "p3m", "-p3mnear", "slots"],
     ])
     def test_later_slices_exit_2(self, argv, capsys):

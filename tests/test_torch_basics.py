@@ -269,7 +269,8 @@ class TestCli:
         assert "-computeadapter" in err and "-listadapters" in err
 
     @pytest.mark.parametrize("argv", [
-        ["-fused"], ["-meshdevices", "4"], ["-probecache", "off"],
+        ["-fused", "-shardrender"], ["-meshdevices", "4"],
+        ["-probecache", "off"],
         ["-dashboard", "d.html"], ["-checkpoint", "x.npz"],
     ])
     def test_later_flags_exit_nonzero(self, argv, capsys):

@@ -131,7 +131,8 @@ def test_live_reassignment_keeps_trajectory():
     assert b.compute.get_fence_value() == 4
 
 
-@pytest.mark.parametrize("kw", [dict(fused=True), dict(mesh_devices=2),
+@pytest.mark.parametrize("kw", [dict(fused=True, debug=True),
+                                dict(mesh_devices=2),
                                 dict(shard_render=True), dict(debug=True)])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
