@@ -15,7 +15,8 @@ graphs) against the split loop from the same seed.
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 1. device check + the card's name and power limit (nvidia-smi)
 2. kernel build (nvcc, seconds printed; ptxas register and spill report,
-   one line per kernel)
+   one line per kernel; the all-pairs variants' SASS opcode tally, and
+   attr's modes checked to have dropped their rsqrt or multiplies)
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
 4. composite kernel vs plain on the rows the renderer builds for one 1M
    chunk of the 4M state (Q=256) and for 262,144 particles (Q=64)
@@ -41,6 +42,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    kernel; both kernels run twice at 1M give equal results
 10. all-pairs main path: `app.main -force all_pairs` at 1,048,576, 8 frames
     of the half-pair schedule, then 6 with -rectpair; launch counters
+10b. all-pairs variants (`experiments/allpairs_*.py`'s rectangle forms):
+    their path, the harness `tools/allpairs_variants.py` at its defaults
+    (131,072; hybrid 98,304), with launch counters; each kernel vs its twin
+    at 131,072 (hybrid 98,304), two runs bitwise (FP32 forms on the device
+    init scene, the HIGHEST expansion also by RMS against the float64 sum,
+    the bf16 forms on a compact copy); each timed at 1,048,576 (hybrid
+    1,047,552) with pairs/s, its per-pipe bound and its error against v0
 11. tree sweeps vs their twins at 262,144 (device init, auto grid G=128,
     B=256, probed budget, dropped == 0): directed and Newton-3rd kernels
     on the same lists, <= 1e-5 of max|a_near|; kernel (on lists prepared
@@ -95,9 +103,10 @@ The kernels line (before the last) has one entry per kernel with its
 launches on its main path, the error against its twin, kernel / twin times
 and the least time the card could take (`bound_ms`: bytes over 3.35 TB/s,
 or FP32-pipe instructions counted from the source over 132 SMs x 128 lanes
-at the SM clock sampled while the kernel ran), and for the sort and the row
-gather the time of the one PyTorch call that computes the same function
-(`library_ms`); the last line is {"ok": true, "device": {...}}.
+at the SM clock sampled while the kernel ran; for the all-pairs variants
+the slowest of their FP32, MUFU and tensor-core work), and for the sort
+and the row gather the time of the one PyTorch call that computes the
+same function (`library_ms`); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -151,6 +160,20 @@ INSTR = {"all_pairs_rect": 11, "all_pairs_half_round": 14,
          "all_pairs_half_diag": 11, "tree_sweep": 27, "tree_sweep_n3": 33,
          "tree_sweep_with_potential": 41, "tree_sweep_potential_only": 23,
          "tree_sweep_half_pairs": 23, "composite": 28}
+# Per pair and pipe, for the all-pairs variants (the tally in
+# csrc/allpairs_variants.cu's header): FP32 instructions, MUFU (rsqrt)
+# instructions and padded tensor-core flops (BF16 mma, dense)
+PIPES = {
+    "attr full": (11, 1, 0), "attr norsqrt": (10, 0, 0),
+    "attr noaccum": (9, 1, 0), "unroll": (11, 1, 0), "v4": (11, 1, 0),
+    "v1b highest": (5, 1, 128), "v1b default": (3, 1, 48),
+    "v1 highest": (6, 1, 128), "v1 default": (4, 1, 48),
+    "v3 vpu": (8, 1, 32), "v3 mm_split": (5, 1, 64), "v3 mm_bf16": (4, 1, 48),
+    "hybrid": (9, 1, 128 / 3),
+}
+# issue rates a clock per SM: FP32 lanes, MUFU lanes, BF16 dense tensor
+# flops (989 TFLOP/s = 132 x 4,096 x 1,830 MHz, the data sheet's clock)
+PIPE_RATE = {"fp32": FP32_LANES, "mufu": 16, "tensor": 4096}
 
 
 def log(msg: str) -> None:
@@ -257,6 +280,7 @@ def phase_build():
     from multi_adapter_particles_torch.ops import _build
     from multi_adapter_particles_torch.ops import (
         allpairs,
+        allpairs_variants,
         central_well,
         composite,
         rowgather,
@@ -270,7 +294,8 @@ def phase_build():
                ("allpairs", allpairs, ()),
                ("treeforce", treeforce, ()),
                ("sortkv", sortkv, ()),
-               ("rowgather", rowgather, ()))
+               ("rowgather", rowgather, ()),
+               ("allpairs_variants", allpairs_variants, ()))
 
     def ptxas_report(name, extra, tmp):
         """register / spill lines of one source (compile only, no library)"""
@@ -311,6 +336,48 @@ def phase_build():
         for name, fut in reports:
             for line in fut.result():
                 log(f"  ptxas {name}: {line}")
+        sass_tally(os.path.join(tmp, "allpairs_variants.cubin"))
+
+
+# SASS opcodes tallied per kernel of csrc/allpairs_variants.cu
+SASS_OPS = ("FFMA", "FADD", "FMUL", "MUFU", "HMMA", "F2FP", "SHFL", "LDS")
+
+
+def sass_tally(cubin):
+    """Count the SASS opcodes of each kernel in `cubin` (cuobjdump), and
+    fail unless attr's modes removed what they remove: no rsqrt in the
+    source loop of "norsqrt" (only |a|'s sqrt is left), fewer multiplies
+    in "noaccum" than in "full"."""
+    from multi_adapter_particles_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", cubin], capture_output=True,
+                          text=True, timeout=120)
+    if proc.returncode != 0:
+        fail(f"cuobjdump: {proc.stderr}")
+    counts, kernel = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            counts[kernel] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                      line)
+        if m and kernel and m.group(1) in SASS_OPS:
+            counts[kernel][m.group(1)] += 1
+    for kernel, c in counts.items():
+        log(f"  SASS {kernel}: " + ", ".join(f"{k} {v}" for k, v in
+                                              c.items()))
+    full, norsqrt, noaccum = (counts.get(f"elem_kernel<{m}>")
+                              for m in range(3))
+    if None in (full, norsqrt, noaccum):
+        fail(f"attr kernels missing from the SASS: {sorted(counts)}")
+    if not norsqrt["MUFU"] < full["MUFU"] / 4:
+        fail(f"attr norsqrt keeps {norsqrt['MUFU']} MUFU (full "
+             f"{full['MUFU']})")
+    if not noaccum["FMUL"] + noaccum["FFMA"] < full["FMUL"] + full["FFMA"]:
+        fail("attr noaccum keeps full's multiplies")
 
 
 def phase_central_well(dev):
@@ -1043,6 +1110,187 @@ def phase_allpairs_main_path():
     return launches, results
 
 
+# The variants' sizes (phase 10b): kernel vs twin at 131,072 (hybrid at
+# 98,304, its JAX harness's 192 tiles of 512); timed at 1M (hybrid at
+# 1,047,552 = 2,046 tiles of 512). All multiples of 128: no padding.
+N_VAR_CHECK = 131_072
+N_HYBRID_CHECK = 98_304
+N_HYBRID_1M = 1_047_552
+VAR_SAMPLE = 4_096   # targets held against the float64 sum
+# Kernel vs twin, in units of max|a|. "fp32": elementwise, the same terms
+# in another order (phase 7's 1e-5). "highest": the expansion's d²
+# cancels ~|p|² down to ~eps2, which multiplies the difference between the
+# kernel's six bf16-piece products (summed in the tensor cores) and the
+# twin's float32 ops; held also by RMS against the float64 sum (at most 2x
+# the twin's). "bf16": one bf16 pass, on a compact copy of the scene
+# (|p| <= 4, eps2 = 25: no cancellation), where an s a rounding apart can
+# land in another bf16 step.
+VAR_LIMIT = {"fp32": 1e-5, "highest": 5e-3, "bf16": 1e-4}
+# (PIPES key, JAX launcher it belongs to, keywords, form)
+VAR_CASES = (
+    ("attr full", "attr_accel", dict(mode="full"), "fp32"),
+    ("attr norsqrt", "attr_accel", dict(mode="norsqrt"), "fp32"),
+    ("attr noaccum", "attr_accel", dict(mode="noaccum"), "fp32"),
+    ("unroll", "unroll_accel", {}, "fp32"),
+    ("v4", "v4_accel", {}, "fp32"),
+    ("v1b highest", "v1b_accel", dict(precision="highest"), "highest"),
+    ("v1 highest", "v1_accel", dict(precision="highest"), "highest"),
+    ("hybrid", "hybrid_accel", {}, "highest"),
+    ("v1b default", "v1b_accel", dict(precision="default"), "bf16"),
+    ("v1 default", "v1_accel", dict(precision="default"), "bf16"),
+    ("v3 vpu", "v3_accel", dict(force_path="vpu"), "bf16"),
+    ("v3 mm_split", "v3_accel", dict(force_path="mm_split"), "bf16"),
+    ("v3 mm_bf16", "v3_accel", dict(force_path="mm_bf16"), "bf16"),
+)
+# the JSON entry of each launcher: its JAX defaults' case, and the TPU
+# kernel body it replaces
+VAR_ENTRIES = (
+    ("attr_accel", "attr full", "experiments/allpairs_v2.py:37"),
+    ("v1b_accel", "v1b highest", "experiments/allpairs_v2.py:112"),
+    ("unroll_accel", "unroll", "experiments/allpairs_unroll.py:29"),
+    ("v1_accel", "v1 default", "experiments/allpairs_variants.py:35"),
+    ("v3_accel", "v3 vpu", "experiments/allpairs_v3.py:53"),
+    ("hybrid_accel", "hybrid", "experiments/allpairs_hybrid.py:42"),
+    ("v4_accel", "v4", "experiments/allpairs_planeacc.py:35"),
+)
+
+
+def _rows4(out):
+    """[4, N] of a result in either layout ([N, 4] for attr and v4)."""
+    return out if out.shape[0] == 4 else out.T
+
+
+def _time_and_clock(fn, reps: int, warmup: int):
+    """(mean device ms of `reps` calls after `warmup`, the SM clock read
+    while they run)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    mhz = sm_clock_mhz()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, mhz
+
+
+def phase_allpairs_variants(dev):
+    """Phase 10b: the rectangle-schedule variants. Their path is the
+    harness (`tools/allpairs_variants.py`) at its defaults; then each
+    kernel against its twin, twice bitwise; then each timed at 1M against
+    its per-pipe bound, with its error against v0."""
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.ops import allpairs_variants as V
+    from multi_adapter_particles_torch.ops.allpairs import (
+        all_pairs_accel,
+        all_pairs_accel_plain,
+    )
+    from multi_adapter_particles_torch.tools import allpairs_variants as H
+
+    log("phase 10b: all-pairs variants — the harness "
+        "`python -m multi_adapter_particles_torch.tools.allpairs_variants` "
+        "at its defaults (131,072; hybrid 98,304)")
+    for fn in V.VARIANTS:
+        fn.launches = 0
+    H.run(None, "cuda", reps=1, log=lambda s: log("  " + s))
+    launches = {fn.__name__: fn.launches for fn in V.VARIANTS}
+    log(f"  harness launches {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"{name} launched no kernel in the harness run")
+
+    fns = {fn.__name__: fn for fn in V.VARIANTS}
+    plains = {name: getattr(V, f"{name}_plain") for name in fns}
+    phys = dict(mass=C.PARTICLE_MASS, softening_squared=C.SOFTENING_SQUARED)
+    scenes = {}
+
+    def scene(n, form):
+        if n not in scenes:
+            main = _ap_state(dev, n)
+            scale = 4.0 / float(main[:3].abs().max())
+            scenes[n] = {"main": main, "compact": main * scale}
+        return scenes[n]["compact" if form == "bf16" else "main"]
+
+    log(f"  kernel vs twin @ {N_VAR_CHECK:,} (hybrid {N_HYBRID_CHECK:,}); "
+        f"limits {VAR_LIMIT} of max|a|")
+    stats = {}
+    for label, name, kw, form in VAR_CASES:
+        n = N_HYBRID_CHECK if name == "hybrid_accel" else N_VAR_CHECK
+        pos = scene(n, form)
+        fn = fns[name]
+        k = _rows4(fn(pos, **kw))
+        again = _rows4(fn(pos, **kw))
+        plain, plain_ms = timed(lambda: _rows4(plains[name](pos, **kw)))
+        torch.cuda.synchronize()
+        if not torch.equal(k, again):
+            fail(f"{label}: two runs differ")
+        err = check_rel(f"{label} vs plain ({form}, two runs bitwise)", k,
+                        plain, VAR_LIMIT[form])
+        if form == "highest":
+            idx = torch.linspace(0, n - 1, VAR_SAMPLE, device=dev).long()
+            p64 = all_pairs_accel_plain(pos[:, idx].double(),
+                                        sources=pos.double(), **phys)
+            rms_k = float(((k[:3, idx].double() - p64[:3]) ** 2).mean()
+                          .sqrt())
+            rms_p = float(((plain[:3, idx].double() - p64[:3]) ** 2).mean()
+                          .sqrt())
+            log(f"    RMS vs float64 ({VAR_SAMPLE:,} targets): kernel "
+                f"{rms_k:.3e}, f32 twin {rms_p:.3e} ({rms_k / rms_p:.2f}x)")
+            if not rms_k <= 2.0 * rms_p:
+                fail(f"{label}: kernel RMS error {rms_k:.3e} > 2x the "
+                     f"twin's {rms_p:.3e}")
+        ms, mhz = _time_and_clock(lambda: fn(pos, **kw), reps=3, warmup=1)
+        bound, pipe = pipe_bound_ms(label, float(n) * n, mhz)
+        log(f"    {n:,}: kernel {ms:.3f} ms, twin {plain_ms:.1f} ms, bound "
+            f"{bound:.3f} ms ({pipe}, {mhz:.0f} MHz) -> {bound / ms:.1%}")
+        stats[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": "operations",
+                        "pipe": pipe}
+    del scenes
+    torch.cuda.empty_cache()
+
+    log(f"  each variant @ {N_AP:,} (hybrid {N_HYBRID_1M:,}): ms, pairs/s, "
+        "per-pipe bound, error vs v0 (printed: the bf16 forms are wrong "
+        "by design on this scene)")
+    at_1m = {}
+    for n in (N_AP, N_HYBRID_1M):
+        pos = _ap_state(dev, n)
+        ref = all_pairs_accel(pos, **phys)
+        for label, name, kw, form in VAR_CASES:
+            if (name == "hybrid_accel") != (n == N_HYBRID_1M):
+                continue
+            fn = fns[name]
+            rel, nan = H.error_vs(fn(pos, **kw), ref)
+            ms, mhz = _time_and_clock(lambda: fn(pos, **kw), reps=2,
+                                      warmup=1)
+            bound, pipe = pipe_bound_ms(label, float(n) * n, mhz)
+            at_1m[label] = {"n": n, "ms": ms, "pairs_per_s": n * n / ms * 1e3,
+                            "bound_ms": bound, "pipe": pipe,
+                            "share": bound / ms, "mhz": mhz,
+                            "rel_err_vs_v0": rel, "nan_share": nan}
+            vs = ("(attr: held only against its twin)" if name == "attr_accel"
+                  else f"vs v0 rel {rel:.3e}, NaN share {nan:.3e}")
+            log(f"    {label:13s} @{n:,}: {ms:9.3f} ms = "
+                f"{n * n / ms * 1e3:.4e} pairs/s; bound {bound:.3f} ms "
+                f"({pipe}, {mhz:.0f} MHz) -> {bound / ms:.1%}; {vs}")
+        del pos, ref
+        torch.cuda.empty_cache()
+    for label in ("unroll", "v4"):   # v0's terms in another order
+        if not at_1m[label]["rel_err_vs_v0"] <= 1e-5:
+            fail(f"{label} @1M: {at_1m[label]['rel_err_vs_v0']:.3e} of "
+                 "max|a| from v0")
+    entries = {name: {**stats[label], "launches": launches[name]}
+               for name, label, _ in VAR_ENTRIES}
+    return entries, stats, at_1m
+
+
 def sm_clock_mhz() -> float:
     """The SM clock now (nvidia-smi)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
@@ -1066,11 +1314,22 @@ def busy_clock_mhz(fn, reps: int) -> float:
     return mhz
 
 
-def issue_bound_ms(instructions: float, mhz: float) -> float:
-    """Least time for `instructions` FP32-pipe lane-instructions: 132 SMs x
-    128 lanes, one a clock (at 1,980 MHz that is the 67 TFLOP/s FP32 peak
-    with each instruction an FMA's two flops)."""
-    return instructions / (SMS * FP32_LANES * mhz * 1e6) * 1e3
+def issue_bound_ms(instructions: float, mhz: float, pipe="fp32") -> float:
+    """Least time for `instructions` lane-instructions (tensor: flops) on
+    `pipe`: 132 SMs at PIPE_RATE a clock each (FP32: 128 lanes, at 1,980
+    MHz the 67 TFLOP/s FP32 peak with each instruction an FMA's two
+    flops)."""
+    return instructions / (SMS * PIPE_RATE[pipe] * mhz * 1e6) * 1e3
+
+
+def pipe_bound_ms(name: str, pairs: float, mhz: float):
+    """(least ms, bounding pipe) for `pairs` pairs of variant `name`: the
+    slowest of its FP32, MUFU and tensor-core work (PIPES) at its pipe's
+    issue rate on 132 SMs at `mhz`."""
+    times = {pipe: issue_bound_ms(count * pairs, mhz, pipe)
+             for pipe, count in zip(PIPE_RATE, PIPES[name])}
+    pipe = max(times, key=times.get)
+    return times[pipe], pipe
 
 
 def bytes_bound_ms(nbytes: float) -> float:
@@ -1772,6 +2031,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ap_launches, ap_path = phase_allpairs_main_path()
     torch.cuda.empty_cache()
+    var_entries, var_check, var_1m = phase_allpairs_variants(dev)
+    torch.cuda.empty_cache()
     scene = phase_tree_check(dev)
     phase_tree_expansion(*scene)
     del scene
@@ -1836,7 +2097,9 @@ def main() -> int:
         entry("gather_rows", "rowgather.cu",
               "experiments/rowgather_pallas.py:27",
               launches["gather_rows"], gather),
-    ]
+    ] + [entry(name, "allpairs_variants.cu", replaces,
+               var_entries[name]["launches"], var_entries[name])
+         for name, _, replaces in VAR_ENTRIES]
     log(f"main path: {json.dumps(frame)}; composite @262K Q=64: kernel "
         f"{comp['ms_262k']:.4f} ms, plain {comp['plain_ms_262k']:.4f} ms")
     log(f"all-pairs @{N_AP:,}: rect kernel {rect['ms_1m']:.3f} ms, half "
@@ -1853,6 +2116,8 @@ def main() -> int:
     log(f"sort @E={N_MAIN:,}: {json.dumps(sort)}; row gather "
         f"{json.dumps(gather)}")
     log(f"fused: {json.dumps(fused)}")
+    log(f"all-pairs variants, kernel vs twin: {json.dumps(var_check)}; "
+        f"@1M: {json.dumps(var_1m)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -524,18 +524,22 @@ class Renderer:
         return self.render_with(position, args, nd, seg_q)
 
     def render_with(self, position: Tensor, args, num_draw,
-                    seg_q: Optional[int] = None) -> FrameOutput:
+                    seg_q: Optional[int] = None,
+                    frame_uint8: Optional[bool] = None) -> FrameOutput:
         """`render_arrays` on device arguments already made: `args` =
         (wvp, p00, p11, size, intensity) as `_device_args` orders them, and
         `num_draw` an int or a 0-dim int32 tensor on position's device. With
         tensors that stay put (the fused engine's), a CUDA graph can
-        capture this call and replay it as the arguments change."""
+        capture this call and replay it as the arguments change.
+        `frame_uint8` defaults to the config's."""
         cfg = self.config
         n = position.shape[1]
         self._last_n = n
+        if frame_uint8 is None:
+            frame_uint8 = cfg.frame_uint8
         kw = dict(width=cfg.width, height=cfg.height, dup_y=self.dup_y,
                   dup_x=self.dup_x, near=cfg.near, blend=self.blend,
-                  frame_uint8=cfg.frame_uint8, composite=self.composite,
+                  frame_uint8=frame_uint8, composite=self.composite,
                   sort=self.sort, gather=self.gather)
         if n > self.chunk_threshold:
             _, cn = _chunk_width(n, self.chunk_size)

@@ -57,10 +57,7 @@ from multi_adapter_particles_torch.ops.rowgather import gather_rows
 from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
 from multi_adapter_particles_torch.render.camera import Camera
 from multi_adapter_particles_torch.render.renderer import FrameOutput, Renderer
-from multi_adapter_particles_torch.runtime.compute_engine import (
-    interactions,
-    step_into,
-)
+from multi_adapter_particles_torch.runtime.compute_engine import step_into
 from multi_adapter_particles_torch.runtime.render_engine import _present_probe
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 from multi_adapter_particles_torch.utils.timers import sync
@@ -159,8 +156,11 @@ class FusedEngine:
             self._num_draw_host = num_draw
 
     def _render(self, parity: int) -> FrameOutput:
+        # fused frames stay float whatever `frame_uint8` says, as the JAX
+        # package's do (its runtime/fused.py:166)
         return self.renderer.render_with(self._states[parity].position,
-                                         self._args, self._num_draw)
+                                         self._args, self._num_draw,
+                                         frame_uint8=False)
 
     def _simulate(self, parity: int, num_sim: Optional[int]) -> None:
         step_into(self.config, self._step, self._states[parity],
@@ -230,9 +230,9 @@ class FusedEngine:
             # this frame ran eagerly: capture for the next ones
             self._capture(num_sim)
             self._graph_key = key
+        # no `interactions` count: the JAX fused frame keeps none (only its
+        # split compute engine counts)
         self.metrics.gauge("fused_graph", replay)
-        self.metrics.count("interactions",
-                           interactions(self.config, num_sim, n))
         self.step_count += 1
         self.frame_count += 1
         return out

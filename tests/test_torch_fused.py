@@ -83,7 +83,9 @@ class TestFusedMode:
         assert fused.metrics.gauges["mode_banner"] == (
             "Single Adapter with Async Compute (fused single-program)")
         assert fused.metrics.gauges["fused_graph"] is False   # CPU: eager
-        assert fused.metrics.counters["interactions"] == 3 * N
+        # the JAX fused frame counts no interactions; the split engine does
+        assert "interactions" not in fused.metrics.counters
+        assert split.metrics.counters["interactions"] == 3 * N
 
     def test_fused_chunked_matches_split_chunked(self):
         """Above chunk_threshold the fused frame runs the id-ordered chunk
@@ -202,7 +204,8 @@ class TestFusedForceModels:
         sim = SimConfig(num_particles=N, force_model="all_pairs")
         split, fused = _run_both(2, sim)
         _assert_same_run(split, fused)
-        assert fused.metrics.counters["interactions"] == 2 * N * N
+        assert "interactions" not in fused.metrics.counters
+        assert split.metrics.counters["interactions"] == 2 * N * N
 
 
 def test_fused_novsync_bounded():
@@ -214,17 +217,15 @@ def test_fused_novsync_bounded():
     assert len(fused.pacing) == 0
 
 
-def test_fused_matches_jax_fused_app():
-    """The port's fused app against the JAX package's from the same
-    initial state (the JAX device init handed across): positions at the
-    slice tests' 2e-5, the last frame within 2e-5."""
-    n, frames = 2048, 3
+def _fused_apps(n, frames, render_kw=None):
+    """The port's fused app and the JAX package's, run `frames` frames from
+    the same initial state (the JAX device init handed across)."""
     kw = dict(num_particles=n, particle_size=40.0, vsync=False, gui=False)
+    rkw = dict(width=64, height=64, **(render_kw or {}))
     japp = JApp(JAppConfig(**kw), JSimConfig(num_particles=n),
-                JRenderConfig(width=64, height=64), async_timers=False,
-                fused=True)
+                JRenderConfig(**rkw), async_timers=False, fused=True)
     tapp = ParticlesApp(AppConfig(**kw), SimConfig(num_particles=n),
-                        RenderConfig(width=64, height=64), fused=True, **CPU)
+                        RenderConfig(**rkw), fused=True, **CPU)
     jst = japp.fused_engine.state
     tapp.compute.restore(ParticleState.from_numpy(
         np.array(jst.position), np.array(jst.velocity)))
@@ -234,6 +235,15 @@ def test_fused_matches_jax_fused_app():
         tapp.draw()
     japp.shutdown()
     tapp.shutdown()
+    return tapp, japp
+
+
+def test_fused_matches_jax_fused_app():
+    """The port's fused app against the JAX package's from the same
+    initial state: positions at the slice tests' 2e-5, the last frame
+    within 2e-5, and the same metric counters (the JAX fused frame counts
+    frames and no interactions)."""
+    tapp, japp = _fused_apps(2048, 3)
     tpos, tvel = tapp.compute.state.to_numpy()
     jst = japp.fused_engine.state
     np.testing.assert_allclose(tpos, np.asarray(jst.position), rtol=2e-5,
@@ -244,6 +254,27 @@ def test_fused_matches_jax_fused_app():
     assert tframe.max() > 0
     np.testing.assert_allclose(tframe, np.asarray(japp.render.last_frame),
                                rtol=0, atol=2e-5)
+    assert tapp.metrics.counters == japp.metrics.counters == {"frames": 3.0}
+
+
+def test_fused_u8frame_stays_float_as_jax():
+    """`-u8frame` with `-fused`: the JAX fused frame stays float
+    (its runtime/fused.py:166), and so does the port's, with the same
+    values within 2e-5; the split engine still quantizes."""
+    tapp, japp = _fused_apps(2048, 2, dict(frame_uint8=True))
+    tframe = tapp.render.last_frame
+    jframe = np.asarray(japp.render.last_frame)
+    assert tframe.dtype == torch.float32 and jframe.dtype == np.float32
+    assert tframe.max() > 0
+    np.testing.assert_allclose(tframe.numpy(), jframe, rtol=0, atol=2e-5)
+    split = ParticlesApp(
+        AppConfig(num_particles=N, particle_size=10.0, vsync=False,
+                  gui=False), SimConfig(num_particles=N),
+        RenderConfig(width=64, height=64, frame_uint8=True), **CPU)
+    split.draw()
+    split.draw()
+    split.shutdown()
+    assert split.render.last_frame.dtype == torch.uint8
 
 
 class TestCli:
