@@ -49,6 +49,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     init scene, the HIGHEST expansion also by RMS against the float64 sum,
     the bf16 forms on a compact copy); each timed at 1,048,576 (hybrid
     1,047,552) with pairs/s, its per-pipe bound and its error against v0
+10c. half-pair generations (`experiments/allpairs_halfpair.py`: v5 and its
+    modes, v5s, v6, v7): their path, the harness `tools/allpairs_halfpair.py`
+    at its default (131,072) and in its v7 mode at 131,072, with launch
+    counters and each full form vs v0; every case of the harness (v5, v5s
+    and v6 at each of their t, v5's modes, v7 at the JAX harness's four
+    (t, kb)) kernel vs its twin at 131,072 on the device init scene, two
+    runs bitwise; the full forms vs phase 8's half-pair kernel at 131,072
+    and at 1,048,576; the t = 512 cases and the v7 cases timed at
+    1,048,576 with pairs/s, their FP32 and MUFU bounds, phase 8's time,
+    the peak scratch and the fold kernels' device time (torch.profiler)
 11. tree sweeps vs their twins at 262,144 (device init, auto grid G=128,
     B=256, probed budget, dropped == 0): directed and Newton-3rd kernels
     on the same lists, <= 1e-5 of max|a_near|; kernel (on lists prepared
@@ -280,6 +290,7 @@ def phase_build():
     from multi_adapter_particles_torch.ops import _build
     from multi_adapter_particles_torch.ops import (
         allpairs,
+        allpairs_halfpair,
         allpairs_variants,
         central_well,
         composite,
@@ -295,7 +306,8 @@ def phase_build():
                ("treeforce", treeforce, ()),
                ("sortkv", sortkv, ()),
                ("rowgather", rowgather, ()),
-               ("allpairs_variants", allpairs_variants, ()))
+               ("allpairs_variants", allpairs_variants, ()),
+               ("allpairs_halfpair", allpairs_halfpair, ()))
 
     def ptxas_report(name, extra, tmp):
         """register / spill lines of one source (compile only, no library)"""
@@ -336,6 +348,10 @@ def phase_build():
         for name, fut in reports:
             for line in fut.result():
                 log(f"  ptxas {name}: {line}")
+                if (name == "allpairs_halfpair" and "spill" in line
+                        and "0 bytes spill stores, 0 bytes spill loads"
+                        not in line):
+                    fail(f"{name} spills: {line}")
         sass_tally(os.path.join(tmp, "allpairs_variants.cubin"))
 
 
@@ -1291,6 +1307,177 @@ def phase_allpairs_variants(dev):
     return entries, stats, at_1m
 
 
+# Phase 10c, the half-pair generations: kernel vs twin at N_HALF_CHECK,
+# timed at N_AP. FP32 instructions a pair that takes both sides and a pair
+# that takes the i-side only (the tally in csrc/allpairs_halfpair.cu's
+# header); every computed pair takes one MUFU rsqrt.
+GEN_INSTR = {"both": 15, "iside": 12}
+# the JSON entry of each launcher: its harness case, and the TPU body it
+# replaces
+GEN_ENTRIES = (
+    ("v5_accel", "v5 halfpair t=512", "experiments/allpairs_halfpair.py:45"),
+    ("v5s_accel", "v5s static t=512", "experiments/allpairs_halfpair.py:120"),
+    ("v6_accel", "v6 prefetch t=512", "experiments/allpairs_halfpair.py:268"),
+    ("v7_accel", "v7 banded t=512 kb=128",
+     "experiments/allpairs_halfpair.py:459"),
+)
+GEN_SCRATCH_LIMIT = 3.3e9   # bytes a call may allocate at 1M
+
+
+def halfgen_pipe_ms(mode: str, n: int, t: int, mhz: float) -> dict:
+    """Least ms on the FP32 and the MUFU pipe of a half-pair generation at
+    n, at their issue rates on 132 SMs at `mhz`: diagonal tile pairs take
+    the i-side only in "full", every pair does in "tri_only", and every
+    pair takes both sides in "reduce_only"."""
+    nt = n // t
+    diag, off = nt * t * t, nt * (nt - 1) // 2 * t * t
+    both, iside = GEN_INSTR["both"], GEN_INSTR["iside"]
+    fp32 = {"full": diag * iside + off * both,
+            "reduce_only": (diag + off) * both,
+            "tri_only": (diag + off) * iside}[mode]
+    return {"fp32": issue_bound_ms(fp32, mhz, "fp32"),
+            "mufu": issue_bound_ms(diag + off, mhz, "mufu")}
+
+
+def profiled(fn):
+    """(fn(), {kernel: device ms}) of one call under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    times = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            times[ev.key] = us / 1e3
+    return out, times
+
+
+def phase_halfpair_generations(dev, half, half_1m):
+    """Phase 10c: the Newton-3rd half-pair generations. Their path is the
+    harness (`tools/allpairs_halfpair.py`), each full form held against v0
+    there; then every case of the harness, both modes, kernel against its
+    twin, twice bitwise, and the full forms against phase 8's half-pair
+    kernel (#4); then the t = 512 cases and the v7 cases timed at 1M with
+    their bounds, scratch and fold time."""
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.ops import allpairs_halfpair as G
+    from multi_adapter_particles_torch.ops.allpairs import (
+        all_pairs_accel_halfpair,
+    )
+    from multi_adapter_particles_torch.tools import allpairs_halfpair as HH
+
+    log("phase 10c: half-pair generations — the harness `python -m "
+        "multi_adapter_particles_torch.tools.allpairs_halfpair` at its "
+        f"default ({HH.N_DEFAULT:,}) and `... v7 {N_HALF_CHECK}`; each "
+        "full form vs v0 <= 1e-5, no NaN")
+    for fn in G.GENERATIONS:
+        fn.launches = 0
+    rows = HH.run(None, "cuda", reps=1, log=lambda s: log("  " + s))
+    rows += HH.run(N_HALF_CHECK, "cuda", reps=1, v7=True,
+                   log=lambda s: log("  " + s))
+    launches = {fn.__name__: fn.launches for fn in G.GENERATIONS}
+    log(f"  harness launches {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"{name} launched no kernel in the harness run")
+    for row in rows:
+        if row.get("skipped"):
+            fail(f"harness: {row['label']} skipped at {row['n']:,}")
+        if "rel_err" in row and not (row["rel_err"] <= 1e-5
+                                     and row["nan_share"] == 0):
+            fail(f"harness: {row['label']} vs v0 rel {row['rel_err']:.3e}, "
+                 f"NaN share {row['nan_share']:.3e}")
+
+    checks = HH.cases() + HH.cases(v7=True)
+    pos = _ap_state(dev, N_HALF_CHECK)
+    ref4 = all_pairs_accel_halfpair(pos, mass=C.PARTICLE_MASS,
+                                    softening_squared=C.SOFTENING_SQUARED)
+    # The same tile pairs summed in another order (phase 8's 1e-5); the
+    # attribution modes in units of their twin's own max.
+    log(f"  kernel vs twin @ {N_HALF_CHECK:,}, every harness case; limit "
+        "1e-5 of max|a|")
+    stats = {}
+    for label, fn, kw, _ in checks:
+        mode = kw.get("mode", "full")
+        k = fn(pos, **kw)
+        again = fn(pos, **kw)
+        plain, plain_ms = timed(
+            lambda: getattr(G, f"{fn.__name__}_plain")(pos, **kw))
+        torch.cuda.synchronize()
+        if not torch.equal(k, again):
+            fail(f"{label}: two runs differ")
+        err = check_rel(f"{label} vs plain (two runs bitwise)", k, plain,
+                        1e-5)
+        if mode == "full":
+            check_rel(f"{label} vs #4's kernel", k, ref4, 1e-5)
+        ms, mhz = _time_and_clock(lambda: fn(pos, **kw), reps=3, warmup=1)
+        pipes = halfgen_pipe_ms(mode, N_HALF_CHECK, kw["t"], mhz)
+        pipe = max(pipes, key=pipes.get)
+        bound = pipes[pipe]
+        log(f"    kernel {ms:.3f} ms, twin {plain_ms:.1f} ms, bound "
+            f"{bound:.3f} ms ({pipe}, {mhz:.0f} MHz) -> {bound / ms:.1%}")
+        stats[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": "operations",
+                        "pipe": pipe}
+    del pos, ref4, k, again, plain
+    torch.cuda.empty_cache()
+
+    log(f"  each @ {N_AP:,}: ms, effective pairs/s, FP32 and MUFU bounds, "
+        f"#4's {half['ms_1m']:.3f} ms (phase 8), peak scratch, the fold "
+        "kernels' device ms in one profiled call; full forms vs #4 <= 2e-5")
+    pos = _ap_state(dev, N_AP)
+    ref = half_1m * N_AP   # without phase 8's 1/N scale (a power of 2)
+    at_1m = {}
+    for label, fn, kw, _ in checks:
+        if kw["t"] != 512 and fn is not G.v7_accel:
+            continue
+        mode = kw.get("mode", "full")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, kernels = profiled(lambda: fn(pos, **kw))
+        scratch = torch.cuda.max_memory_allocated() - base
+        fold = sum(v for name, v in kernels.items() if "fold_kernel" in name)
+        busy = sum(kernels.values())
+        rel = None
+        if mode == "full":
+            rel = check_rel(f"{label} vs #4 @1M", out, ref, 2e-5) / float(
+                ref[:3].abs().max())
+        del out
+        ms, mhz = _time_and_clock(lambda: fn(pos, **kw), reps=1, warmup=0)
+        pipes = halfgen_pipe_ms(mode, N_AP, kw["t"], mhz)
+        fp32, mufu = pipes["fp32"], pipes["mufu"]
+        bound = max(fp32, mufu)
+        at_1m[label] = {"ms": ms, "pairs_per_s": N_AP * N_AP / ms * 1e3,
+                        "fp32_bound_ms": fp32, "mufu_bound_ms": mufu,
+                        "share": bound / ms, "mhz": mhz,
+                        "half_ms": half["ms_1m"], "scratch_bytes": scratch,
+                        "fold_ms": fold, "profiled_kernel_ms": busy,
+                        "rel_err_vs_half": rel}
+        log(f"    {label:28s}: {ms:9.3f} ms = "
+            f"{N_AP * N_AP / ms * 1e3:.4e} pairs/s ({ms / half['ms_1m']:.3f}x "
+            f"#4's {half['ms_1m']:.1f}); bound FP32 {fp32:.1f} / MUFU "
+            f"{mufu:.1f} ms ({mhz:.0f} MHz) -> {bound / ms:.1%}; scratch "
+            f"{scratch / 1e9:.3f} GB; folds {fold:.3f} of {busy:.3f} "
+            "profiled kernel ms")
+        if scratch > GEN_SCRATCH_LIMIT:
+            fail(f"{label}: {scratch / 1e9:.3f} GB of scratch at 1M > "
+                 f"{GEN_SCRATCH_LIMIT / 1e9} GB")
+    del pos, ref
+    torch.cuda.empty_cache()
+    entries = {name: {**stats[label], "launches": launches[name]}
+               for name, label, _ in GEN_ENTRIES}
+    return entries, stats, at_1m
+
+
 def sm_clock_mhz() -> float:
     """The SM clock now (nvidia-smi)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
@@ -2027,11 +2214,15 @@ def main() -> int:
     rect, rect_1m = phase_allpairs_rect(dev)
     half, half_1m = phase_allpairs_half(dev, rect_1m)
     phase_allpairs_exact(dev, rect_1m, half_1m)
-    del rect_1m, half_1m
+    del rect_1m
     torch.cuda.empty_cache()
     ap_launches, ap_path = phase_allpairs_main_path()
     torch.cuda.empty_cache()
     var_entries, var_check, var_1m = phase_allpairs_variants(dev)
+    torch.cuda.empty_cache()
+    gen_entries, gen_check, gen_1m = phase_halfpair_generations(dev, half,
+                                                                half_1m)
+    del half_1m
     torch.cuda.empty_cache()
     scene = phase_tree_check(dev)
     phase_tree_expansion(*scene)
@@ -2099,7 +2290,10 @@ def main() -> int:
               launches["gather_rows"], gather),
     ] + [entry(name, "allpairs_variants.cu", replaces,
                var_entries[name]["launches"], var_entries[name])
-         for name, _, replaces in VAR_ENTRIES]
+         for name, _, replaces in VAR_ENTRIES] + [
+        entry(name, "allpairs_halfpair.cu", replaces,
+              gen_entries[name]["launches"], gen_entries[name])
+        for name, _, replaces in GEN_ENTRIES]
     log(f"main path: {json.dumps(frame)}; composite @262K Q=64: kernel "
         f"{comp['ms_262k']:.4f} ms, plain {comp['plain_ms_262k']:.4f} ms")
     log(f"all-pairs @{N_AP:,}: rect kernel {rect['ms_1m']:.3f} ms, half "
@@ -2118,6 +2312,8 @@ def main() -> int:
     log(f"fused: {json.dumps(fused)}")
     log(f"all-pairs variants, kernel vs twin: {json.dumps(var_check)}; "
         f"@1M: {json.dumps(var_1m)}")
+    log(f"half-pair generations, kernel vs twin: {json.dumps(gen_check)}; "
+        f"@1M: {json.dumps(gen_1m)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,9 +66,21 @@ def initialize_particles_device(
     """Two clusters, born on `device`. pos.w starts 0 (`Compute.cpp:825-829`).
 
     `generator` must live on `device` (a CPU generator for a CPU device);
-    None = a fresh generator seeded with 0.
+    None = a fresh generator seeded with 0. With no `device`, the state is
+    born on the generator's device, or without a generator on the current
+    CUDA device, as the JAX init uses the default (accelerator) device; it
+    raises where there is no CUDA device. It never falls back to the CPU.
     """
-    device = torch.device("cpu" if device is None else device)
+    if device is None:
+        if generator is not None:
+            device = generator.device
+        elif torch.cuda.is_available():
+            device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            raise RuntimeError(
+                "initialize_particles_device: no CUDA device; pass "
+                "device='cpu' (or a CPU generator) to init on the CPU")
+    device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     n = int(num_particles)

@@ -124,7 +124,7 @@ def test_state_numpy_round_trip_and_layout():
 
 class TestDeviceInit:
     def test_shapes_and_padding(self):
-        st = tinit.initialize_particles_device(300)
+        st = tinit.initialize_particles_device(300, device="cpu")
         assert st.position.shape == (4, 384) and st.velocity.shape == (3, 384)
         pos = st.position.numpy()
         assert np.all(np.abs(pos[:3, 300:]) > 1e8)
@@ -134,7 +134,7 @@ class TestDeviceInit:
     def test_on_sphere_and_velocity_rule(self):
         n = 1024
         st = tinit.initialize_particles_device(
-            n, torch.Generator().manual_seed(1))
+            n, torch.Generator().manual_seed(1), device="cpu")
         pos = st.position.numpy()[:3, :n].T.astype(np.float64)
         c0 = np.array([C.CLUSTER_CENTER_X, 0, 0])
         np.testing.assert_allclose(np.linalg.norm(pos[: n // 2] - c0, axis=1),
@@ -152,7 +152,8 @@ class TestDeviceInit:
     def test_deterministic_per_seed(self):
         def run(seed):
             return tinit.initialize_particles_device(
-                128, torch.Generator().manual_seed(seed)).position
+                128, torch.Generator().manual_seed(seed),
+                device="cpu").position
 
         assert torch.equal(run(5), run(5))
         assert not torch.equal(run(5), run(6))
@@ -162,7 +163,8 @@ class TestDeviceInit:
         ~uniform on the sphere, with the same second moments."""
         n = 4096
         t = tinit.initialize_particles_device(
-            n, torch.Generator().manual_seed(3)).position.numpy()
+            n, torch.Generator().manual_seed(3),
+            device="cpu").position.numpy()
         j = np.asarray(jinit.initialize_particles_device(n, seed=3).position)
         c0 = np.array([C.CLUSTER_CENTER_X, 0, 0])[:, None]
         for pos in (t, j):
@@ -178,6 +180,17 @@ class TestDeviceInit:
             d = np.abs(np.searchsorted(a, both, "right")
                        - np.searchsorted(b, both, "right")).max() / a.size
             assert d < 0.061, (axis, d)
+
+    def test_no_device_follows_generator_or_raises(self, monkeypatch):
+        """With no device the state is born on the generator's device;
+        with neither a device nor a generator it needs CUDA and raises
+        without it (no fallback to the CPU)."""
+        st = tinit.initialize_particles_device(
+            128, torch.Generator().manual_seed(0))
+        assert st.position.device.type == "cpu"
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tinit.initialize_particles_device(128)
 
 
 def _cpu_only():
