@@ -22,13 +22,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    chunk of the 4M state (Q=256) and for 262,144 particles (Q=64)
 4a. sort kernel vs plain, bitwise on every output: the render keys and
    payloads of the 4M state's first chunk after one step (E = 2^22), its
-   dup 2x3 window (E = 6 x 2^20, padded), keys in [0, 37) and all-equal
-   keys at 2^20 (the identity), negative keys at 2^20 + 3; times beside
-   torch.sort + 4 gathers and the bytes bound
+   dup 2x3 window (E = 6 x 2^20), the 262,144-particle 1280x720 chunk
+   (E = 2^20), keys in [0, 37) and all-equal keys at 2^20 (the identity),
+   negative keys at 2^20 + 3, full-range keys at 2^22 (all four digit
+   passes), k << 24 keys (the top digit only) and full-range keys at E =
+   1, 2, tile - 1 and tile + 1, each with its live digits checked; the
+   render chunk twice, bitwise; the sort captured in a CUDA graph and
+   replayed on new keys, bitwise the eager call; times on render and
+   full-range keys beside torch.sort + 4 gathers, the bytes bound and the
+   bitonic network's time before; torch.profiler's device time of each
+   launch of one call
 4b. row gather kernel vs plain, bitwise: the render's packed payload rows
    of that chunk, the TPU prototype's shape ([2,097,152, 32] x 4,194,304),
    clamped out-of-range indices (16-byte and scalar paths); times beside
-   index_select (on indices clamped beforehand) and the bytes bound
+   index_select (on indices clamped beforehand) in 5 rounds in turns
+   (median and spread of each) and the bytes bound
 5. main path: `multi_adapter_particles_torch.app.main`, launch counters
    (composite, sort and gather at least 4 a frame)
 6. the final state's frame through the kernels vs through the plain twins
@@ -133,6 +141,10 @@ STEPS = 40
 # phase 5's frame on an H100 at 700 W before the sort and row-gather
 # kernels, logged beside the new one (no gate)
 MAIN_FRAME_MS_BEFORE = 39.92
+# phase 4a's sort on the 4M render chunk (E = 2^22) on an H100 at 700 W as
+# the bitonic network it replaced, logged beside the radix sort (no gate)
+SORT_MS_BEFORE = 1.6043
+GATHER_ROUNDS = 5   # phase 4b: kernel and index_select timed in turns
 WIDTH = HEIGHT = 1024
 N_AP = 1_048_576          # the all-pairs path (BASELINE.json's 1M)
 AP_SAMPLE = 4_096         # rectangle targets held against the plain twin
@@ -515,11 +527,11 @@ def phase_composite(dev):
             "ms_262k": times["262K"][0], "plain_ms_262k": times["262K"][1]}
 
 
-def _render_io(dev, dup_y=2, dup_x=2):
+def _render_io(dev, dup_y=2, dup_x=2, n=N_MAIN, width=WIDTH, height=HEIGHT):
     """The sort's (key, *payloads) and the row gather's (packed, idx)
-    arguments as the renderer makes them for the first 1M chunk of the 4M
-    device-init state (seed 0) after one central-well step, at
-    1024x1024 and the given dup window."""
+    arguments as the renderer makes them for the first 1M chunk (or all)
+    of the n-particle device-init state (seed 0) after one central-well
+    step, at width x height and the given dup window."""
     import torch
 
     from multi_adapter_particles_torch import constants as C
@@ -532,13 +544,13 @@ def _render_io(dev, dup_y=2, dup_x=2):
     from multi_adapter_particles_torch.render.camera import Camera
 
     st = pinit.initialize_particles_device(
-        N_MAIN, torch.Generator(device=dev).manual_seed(0), device=dev)
+        n, torch.Generator(device=dev).manual_seed(0), device=dev)
     pos, _ = central_well_step(st.position, st.velocity, dt=C.TIMESTEP,
                                damping=C.DAMPING, mass=C.PARTICLE_MASS,
                                softening_squared=C.SOFTENING_SQUARED)
     del st
-    chunk = 1_048_576
-    rend = R.Renderer(RenderConfig(width=WIDTH, height=HEIGHT))
+    chunk = min(n, 1_048_576)
+    rend = R.Renderer(RenderConfig(width=width, height=height))
     rend.dup_y, rend.dup_x = dup_y, dup_x
     seen = {}
 
@@ -551,17 +563,41 @@ def _render_io(dev, dup_y=2, dup_x=2):
         return gather_rows_plain(*args)
 
     args = rend._device_args(Camera(), 2.5, 0.15, dev)
-    R._render(pos[:, :chunk], *args, chunk, width=WIDTH, height=HEIGHT,
+    R._render(pos[:, :chunk], *args, chunk, width=width, height=height,
               seg_q=rend.resolve_seg_q(chunk), dup_y=dup_y, dup_x=dup_x,
               near=1.0, blend="over", return_trans=True, sort=sort,
               gather=gather)
     return seen["sort"], seen["gather"]
 
 
+def launch_profile(fn):
+    """(fn(), [(kernel or memset, device ms)] in launch order) of one call
+    under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    launches = []
+    for ev in prof.events():
+        if ev.device_type.name != "CUDA":
+            continue
+        us = getattr(ev, "device_time", None)
+        if us is None:
+            us = ev.cuda_time
+        name = ev.name.replace("(anonymous namespace)::", "").split("(")[0]
+        launches.append((name.removeprefix("void ").strip(), us / 1e3))
+    return out, launches
+
+
 def phase_sort(dev):
     import torch
 
     from multi_adapter_particles_torch.ops.sortkv import (
+        TILE,
+        live_digits,
         sort_kv_stable,
         sort_kv_stable_plain,
     )
@@ -570,6 +606,7 @@ def phase_sort(dev):
     (key, *pay), gather_args = _render_io(dev)
     e = key.shape[0]
     wide = _render_io(dev, 2, 3)[0]
+    small = _render_io(dev, n=262_144, width=1280, height=720)[0]
     gen = torch.Generator(device=dev).manual_seed(1)
     m = 1 << 20
 
@@ -578,21 +615,32 @@ def phase_sort(dev):
                 torch.randint(-2**31, 2**31 - 1, (n,), device=dev,
                               dtype=torch.int32, generator=gen)]
 
-    neg = torch.randint(-2**31, 2**31 - 1, (m + 3,), device=dev,
-                        dtype=torch.int32, generator=gen)
+    def full_range(n):
+        return torch.randint(-2**31, 2**31 - 1, (n,), device=dev,
+                             dtype=torch.int32, generator=gen)
+
+    neg = full_range(m + 3)
     neg[:4] = torch.tensor([-2**31, 2**31 - 1, -1, 0], dtype=torch.int32)
     ident = torch.arange(m, device=dev, dtype=torch.int32)
-    cases = (
-        ("render chunk, dup 2x2", (key, *pay)),
-        ("render chunk, dup 2x3 (padded)", wide),
+    full = (full_range(e), *pay)
+    top = torch.randint(-128, 128, (m,), device=dev, dtype=torch.int32,
+                        generator=gen) << 24
+    cases = [
+        ("render chunk, dup 2x2", (key, *pay), [0, 1]),
+        ("render chunk, dup 2x3", wide, [0, 1]),
         ("keys in [0, 37)", (torch.randint(0, 37, (m,), device=dev,
                                            dtype=torch.int32, generator=gen),
-                             *rand_pay(m))),
+                             *rand_pay(m)), [0]),
         ("all-equal keys", (torch.zeros(m, device=dev, dtype=torch.int32),
-                            ident, *rand_pay(m))),
-        ("negative keys, E = 2^20 + 3", (neg, *rand_pay(m + 3))),
-    )
-    for label, args in cases:
+                            ident, *rand_pay(m)), []),
+        ("negative keys, E = 2^20 + 3", (neg, *rand_pay(m + 3)),
+         [0, 1, 2, 3]),
+        ("full-range keys, E = 2^22", full, [0, 1, 2, 3]),
+        ("k << 24 keys", (top, *rand_pay(m)), [3]),
+        ("262,144 render chunk, 1280x720", small, [0, 1]),
+    ] + [(f"full-range keys, E = {n:,}", (full_range(n), *rand_pay(n)),
+          None) for n in (1, 2, TILE - 1, TILE + 1)]
+    for label, args, digits in cases:
         k = sort_kv_stable(*args)
         p = sort_kv_stable_plain(*args)
         torch.cuda.synchronize()
@@ -602,28 +650,73 @@ def phase_sort(dev):
                      f"({int((a != b).sum())} entries)")
         if label == "all-equal keys" and not torch.equal(k[1], ident):
             fail("sort of all-equal keys is not the identity")
-        log(f"  {label}: E = {args[0].shape[0]:,}, {len(args) - 1} payloads:"
-            " bitwise the twin")
-    del wide, cases
+        run = live_digits(args[0])
+        if digits is not None and run != digits:
+            fail(f"sort {label}: live digits {run}, expected {digits}")
+        log(f"  {label}: E = {args[0].shape[0]:,}, {len(args) - 1} payloads,"
+            f" digit passes {run}: bitwise the twin")
+    del wide, small, cases
 
-    def library():
-        sk, perm = torch.sort(key, stable=True)
-        return sk, *(q[perm] for q in pay)
+    first = sort_kv_stable(key, *pay)
+    again = sort_kv_stable(key, *pay)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail("sort: two runs on the 4M render chunk differ")
+    log("  render chunk sorted twice: bitwise run to run")
+    del first, again
+
+    # captured once on static inputs, replayed on full-range keys
+    static = [key.clone(), *(q.clone() for q in pay)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sort_kv_stable(*static)
+    for dst, src in zip(static, full):
+        dst.copy_(src)
+    graph.replay()
+    eager = sort_kv_stable(*static)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(captured, eager)):
+        fail("sort: the CUDA-graph replay on new keys differs from the "
+             "eager call")
+    log("  captured in a CUDA graph, replayed on full-range keys: bitwise "
+        "the eager call")
+    del static, graph, captured, eager
+
+    def library(k, q):
+        sk, perm = torch.sort(k, stable=True)
+        return sk, *(x[perm] for x in q)
 
     ms = time_ms(lambda: sort_kv_stable(key, *pay), reps=20)
     plain_ms = time_ms(lambda: sort_kv_stable_plain(key, *pay), reps=20)
-    lib_ms = time_ms(library, reps=20)
+    lib_ms = time_ms(lambda: library(key, pay), reps=20)
+    ms_full = time_ms(lambda: sort_kv_stable(*full), reps=20)
+    lib_full = time_ms(lambda: library(full[0], pay), reps=20)
     bound = bytes_bound_ms(e * (4 + 4 * len(pay)) * 2)
-    log(f"  E = {e:,}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.sort + {len(pay)} gathers {lib_ms:.4f} ms; bound "
-        f"{bound:.4f} ms (bytes) -> {bound / ms:.1%} of it")
+    log(f"  E = {e:,}, {len(pay)} payloads: render keys kernel {ms:.4f} ms "
+        f"(bitonic network before: {SORT_MS_BEFORE}), plain {plain_ms:.4f} "
+        f"ms, torch.sort + {len(pay)} gathers {lib_ms:.4f} ms; full-range "
+        f"keys kernel {ms_full:.4f} ms, torch.sort + gathers {lib_full:.4f} "
+        f"ms; bound {bound:.4f} ms (bytes) -> {bound / ms:.1%} of it")
+    log(f"  kernel faster than torch.sort + gathers on the render chunk: "
+        f"{ms < lib_ms} ({lib_ms / ms:.2f}x)")
+    profile = {}
+    for label, args in (("render", (key, *pay)), ("full_range", full)):
+        sort_kv_stable(*args)
+        _, launches = launch_profile(lambda: sort_kv_stable(*args))
+        profile[label] = launches
+        kernels = sum(1 for name, _ in launches if "Memset" not in name)
+        log(f"  one call on {label} keys, device ms a launch ({kernels} "
+            "kernels): " + ", ".join(f"{n} {t:.4f}" for n, t in launches))
     # every output bitwise the twin's (checked above)
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": lib_ms}, gather_args
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            "ms_full_range": ms_full, "library_ms_full_range": lib_full,
+            "profile": profile}, gather_args
 
 
 def phase_gather(dev, render_args):
+    import statistics
+
     import torch
 
     from multi_adapter_particles_torch.ops.rowgather import (
@@ -648,7 +741,7 @@ def phase_gather(dev, render_args):
         ("clamped, unaligned rows", flat[1:].view(4096, 36), wild),
         ("clamped, W = 7", flat[:4096 * 7].view(4096, 7), wild),
     )
-    timings = {}
+    timings, rounds_by = {}, {}
     for label, tab, ix in cases:
         k = gather_rows(tab, ix)
         p = gather_rows_plain(tab, ix)
@@ -657,20 +750,34 @@ def phase_gather(dev, render_args):
             fail(f"gather {label}: {int((k != p).sum())} words differ")
         log(f"  {label}: bitwise the twin")
         if label.startswith(("render", "prototype")):
-            ms = time_ms(lambda: gather_rows(tab, ix), reps=20)
             plain_ms = time_ms(lambda: gather_rows_plain(tab, ix), reps=20)
             # the library call on indices clamped once beforehand (the
             # render's dead rows point past the table)
             ixc = ix.clamp(0, tab.shape[0] - 1)
-            lib_ms = time_ms(lambda: torch.index_select(tab, 0, ixc), reps=20)
+            # kernel and index_select in turns, GATHER_ROUNDS rounds of 20
+            # calls each: the median and the spread of each
+            rounds = {"kernel": [], "index_select": []}
+            for _ in range(GATHER_ROUNDS):
+                rounds["kernel"].append(
+                    time_ms(lambda: gather_rows(tab, ix), reps=20))
+                rounds["index_select"].append(
+                    time_ms(lambda: torch.index_select(tab, 0, ixc), reps=20))
+            ms, lib_ms = (statistics.median(rounds[k]) for k in rounds)
             bound = bytes_bound_ms(2 * ix.shape[0] * tab.shape[1] * 4)
-            log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"index_select {lib_ms:.4f} ms; bound {bound:.4f} ms "
-                f"(bytes) -> {bound / ms:.1%} of it")
+            slower = min(rounds["kernel"]) > max(rounds["index_select"])
+            log(f"    kernel {ms:.4f} ms [{min(rounds['kernel']):.4f}, "
+                f"{max(rounds['kernel']):.4f}], index_select {lib_ms:.4f} ms "
+                f"[{min(rounds['index_select']):.4f}, "
+                f"{max(rounds['index_select']):.4f}] (median [min, max] of "
+                f"{GATHER_ROUNDS} rounds in turns), plain {plain_ms:.4f} ms; "
+                f"kernel slower beyond the spread: {slower}; bound "
+                f"{bound:.4f} ms (bytes) -> {bound / ms:.1%} of it")
             timings[label.split()[0]] = (ms, plain_ms, lib_ms, bound)
+            rounds_by[label.split()[0]] = rounds
     ms, plain_ms, lib_ms, bound = timings["render"]
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            "rounds": rounds_by["render"],
             "prototype_ms": timings["prototype"]}
 
 
@@ -1339,25 +1446,6 @@ def halfgen_pipe_ms(mode: str, n: int, t: int, mhz: float) -> dict:
             "mufu": issue_bound_ms(diag + off, mhz, "mufu")}
 
 
-def profiled(fn):
-    """(fn(), {kernel: device ms}) of one call under torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    times = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us > 0:
-            times[ev.key] = us / 1e3
-    return out, times
-
-
 def phase_halfpair_generations(dev, half, half_1m):
     """Phase 10c: the Newton-3rd half-pair generations. Their path is the
     harness (`tools/allpairs_halfpair.py`), each full form held against v0
@@ -1443,10 +1531,10 @@ def phase_halfpair_generations(dev, half, half_1m):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        out, kernels = profiled(lambda: fn(pos, **kw))
+        out, kernels = launch_profile(lambda: fn(pos, **kw))
         scratch = torch.cuda.max_memory_allocated() - base
-        fold = sum(v for name, v in kernels.items() if "fold_kernel" in name)
-        busy = sum(kernels.values())
+        fold = sum(ms for name, ms in kernels if "fold_kernel" in name)
+        busy = sum(ms for _, ms in kernels)
         rel = None
         if mode == "full":
             rel = check_rel(f"{label} vs #4 @1M", out, ref, 2e-5) / float(

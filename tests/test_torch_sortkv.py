@@ -4,11 +4,15 @@
 the wrapper runs for a CPU tensor) is held bitwise against the JAX
 package's `ops/sortkv.sort_kv_stable` — its Pallas bitonic network in
 interpret mode, as `tests/test_sortkv.py` runs it — and against stable
-`jax.lax.sort` at larger sizes. The kernel's host-side pieces (the packed
-(key, index) order, the power-of-two padding, the slice back) are pinned
-on the CPU, with the renderer's packed (cg, cb) word against the JAX
-package's bits. The CUDA kernel itself is held against the twin by
-chip_smoke.py on the card."""
+`jax.lax.sort` at larger sizes. `sort_kv_stable_model`, the host replay of
+the CUDA kernel's radix passes at its tile and digit constants, is held
+bitwise against the twin and against stable `jax.lax.sort` over the key
+kinds the renderer and general callers give it, with `live_digits` (the
+digit passes the kernel runs) pinned. The renderer's packed (cg, cb) word
+is pinned against the JAX package's bits. The CUDA kernel itself is held
+against the twin by chip_smoke.py on the card."""
+
+import re
 
 import numpy as np
 import pytest
@@ -27,6 +31,9 @@ from multi_adapter_particles_torch.render.renderer import pack_cgb, unpack_cgb
 torch.set_num_threads(1)
 
 I32 = np.iinfo(np.int32)
+RENDER_TILES = 8192   # gh * gw at 1024x1024: keys in [0, 8192]
+KINDS = ["duplicates", "all_equal", "sentinels", "negative", "render",
+         "top_digit_only", "full_range"]
 
 
 def _keys(kind: str, e: int, rng) -> np.ndarray:
@@ -41,8 +48,18 @@ def _keys(kind: str, e: int, rng) -> np.ndarray:
     if kind == "negative":
         k = rng.integers(I32.min, I32.max, e, dtype=np.int32,
                          endpoint=True)
-        k[:4] = (I32.min, I32.max, -1, 0)
+        corners = np.array((I32.min, I32.max, -1, 0), np.int32)
+        k[:4] = corners[:min(e, 4)]
         return k
+    if kind == "render":              # 1024x1024 tile ids, 1/3 "no tile"
+        k = rng.integers(0, RENDER_TILES, e, dtype=np.int32)
+        k[rng.random(e) < 1 / 3] = RENDER_TILES
+        return k
+    if kind == "top_digit_only":      # k << 24: digits 0-2 all zero
+        return rng.integers(-128, 128, e, dtype=np.int32) << 24
+    if kind == "full_range":
+        return rng.integers(0, 1 << 32, e, dtype=np.uint64).astype(
+            np.uint32).view(np.int32)
     raise ValueError(kind)
 
 
@@ -94,35 +111,68 @@ def test_plain_matches_stable_lax_sort(e, kind):
     _assert_all_equal(_torch_sort(key, *pay), want)
 
 
-@pytest.mark.parametrize("e,ep", [(0, 1), (1, 1), (2, 2), (3, 4), (1000, 1024),
-                                  (1024, 1024), (6 << 20, 8 << 20)])
-def test_padded_length(e, ep):
-    assert sortkv.padded_length(e) == ep
+def _model_sort(key, *payloads):
+    out, run = sortkv.sort_kv_stable_model(
+        torch.from_numpy(key), *(torch.from_numpy(p) for p in payloads))
+    return [o.numpy() for o in out], run
 
 
-@pytest.mark.parametrize("kind,e", [("duplicates", 1000), ("sentinels", 777),
-                                    ("negative", 1024), ("all_equal", 1)])
-def test_packed_words_order_pad_and_slice(kind, e):
-    """The kernel's packed words sort as (key, index): their order is the
-    stable sort, every pad (INT32_MAX, index >= E) lands after every real
-    entry — real INT32_MAX keys included — and the first E are the
-    result."""
-    rng = np.random.default_rng(e)
-    key = torch.from_numpy(_keys(kind, e, rng))
-    words = sortkv.packed_words(key)
-    ep = sortkv.padded_length(e)
-    assert words.shape == (ep,) and words.dtype == torch.int64
-    assert int(torch.unique(words).numel()) == ep          # a strict order
-    order = torch.sort(words).indices
-    assert bool((order[e:] >= e).all())                    # pads last
-    want = torch.sort(key, stable=True)
-    assert torch.equal(order[:e], want.indices)
-    assert torch.equal((words[order[:e]] >> 32).to(torch.int32),
-                       want.values)
-    # the kernel's unsigned words are these with the top bit flipped
-    top = (words >> 63) & 1
-    u_key = ((words >> 32) & 0xFFFFFFFF) ^ 0x80000000
-    assert torch.equal(u_key >> 31, 1 - top)
+@pytest.mark.parametrize("e", [1, sortkv.TILE + 904, 1 << 14])
+@pytest.mark.parametrize("kind", KINDS)
+def test_model_matches_plain(kind, e):
+    """The kernel's passes (per-tile bin counts, their scan in (bin, tile)
+    order, the warps' stable in-tile rank, the scatter) give the twin's
+    output bit for bit: at one entry, at a ragged last tile and at four
+    full tiles. The passes run are the live digits."""
+    rng = np.random.default_rng(e + len(kind))
+    key = _keys(kind, e, rng)
+    pay = _payloads(e, rng)
+    got, run = _model_sort(key, *pay)
+    _assert_all_equal(got, _torch_sort(key, *pay))
+    assert run == sortkv.live_digits(torch.from_numpy(key))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_model_matches_stable_lax_sort(kind):
+    """Bitwise against stable `jax.lax.sort`, the function the JAX
+    package's network reproduces, at three tiles and a ragged fourth."""
+    rng = np.random.default_rng(100 + len(kind))
+    e = 3 * sortkv.TILE + 1001
+    key = _keys(kind, e, rng)
+    pay = _payloads(e, rng)
+    want = jax.lax.sort((jnp.asarray(key), *map(jnp.asarray, pay)),
+                        dimension=0, num_keys=1, is_stable=True)
+    _assert_all_equal(_model_sort(key, *pay)[0], want)
+
+
+@pytest.mark.parametrize("kind,digits", [
+    ("render", [0, 1]), ("all_equal", []), ("negative", [0, 1, 2, 3]),
+    ("top_digit_only", [3])])
+def test_live_digits(kind, digits):
+    """The digit passes the kernel runs: the renderer's tile keys need two,
+    equal keys none (the identity), full-range keys all four, k << 24 only
+    the top one."""
+    rng = np.random.default_rng(7)
+    key = torch.from_numpy(_keys(kind, 1 << 14, rng))
+    assert sortkv.live_digits(key) == digits
+
+
+def test_model_constants_mirror_the_kernel():
+    """The model's tile and digit constants are csrc/sortkv.cu's."""
+    from multi_adapter_particles_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "sortkv.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kRadixBits") == sortkv.RADIX_BITS
+    assert const("kDigits") == sortkv.DIGITS
+    assert const("kThreads") == 32 * sortkv.WARPS
+    assert const("kItems") == sortkv.ITEMS
+    assert const("kMaxPayloads") == sortkv.MAX_PAYLOADS
+    assert "kMaxLength = (1LL << 30) - 1;" in src
+    assert sortkv.MAX_LENGTH == (1 << 30) - 1
 
 
 def test_wrapper_on_cpu_is_the_twin():
