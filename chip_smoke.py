@@ -18,8 +18,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    one line per kernel; the all-pairs variants' SASS opcode tally, and
    attr's modes checked to have dropped their rsqrt or multiplies)
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
-4. composite kernel vs plain on the rows the renderer builds for one 1M
-   chunk of the 4M state (Q=256) and for 262,144 particles (Q=64)
+4. composite_rows kernel (the depth-Q pass alone, off the render path) vs
+   plain on the rows the eager composite builds for one 1M chunk of the 4M
+   state (Q=256) and for 262,144 particles (Q=64); its launches counted
+   over its timed calls
 4a. sort kernel vs plain, bitwise on every output: the render keys and
    payloads of the 4M state's first chunk after one step (E = 2^22), its
    dup 2x3 window (E = 6 x 2^20), the 262,144-particle 1280x720 chunk
@@ -32,15 +34,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    full-range keys beside torch.sort + 4 gathers, the bytes bound and the
    bitonic network's time before; torch.profiler's device time of each
    launch of one call
-4b. row gather kernel vs plain, bitwise: the render's packed payload rows
-   of that chunk, the TPU prototype's shape ([2,097,152, 32] x 4,194,304),
-   clamped out-of-range indices (16-byte and scalar paths); times beside
-   index_select (on indices clamped beforehand) in 5 rounds in turns
-   (median and spread of each) and the bytes bound
+4b. row gather kernel (off the render path) vs plain, bitwise: the eager
+   composite's packed payload rows of that chunk, the TPU prototype's
+   shape ([2,097,152, 32] x 4,194,304), clamped out-of-range indices
+   (16-byte and scalar paths); times beside index_select (on indices
+   clamped beforehand) in 5 rounds in turns (median and spread of each,
+   the kernel's launches there counted) and the bytes bound
+4c. composite_tiles (the render's composite: row and fold kernels) vs
+   composite_tiles_plain, bitwise on C and T in both blends: the 1M chunk
+   of phase 4 (Q=256), 262,144 at 1280x720 (Q=64), 262,144 at Q=8 (hot
+   tiles of 9 or more rows), 16,384 at 1024x1024 (empty tiles); the 1M
+   chunk twice, bitwise; a render chunk captured in a CUDA graph with the
+   sort and replayed on new positions, bitwise the eager call; times of
+   the call (CUDA events) and of each launch (torch.profiler) beside the
+   plain version and the composite_rows kernel, the bound
 5. main path: `multi_adapter_particles_torch.app.main`, launch counters
-   (composite, sort and gather at least 4 a frame)
+   (composite_tiles and the sort at least 4 a frame, once a render chunk
+   each; gather_rows and composite_rows none)
 6. the final state's frame through the kernels vs through the plain twins
-   of all three render kernels
+   of the sort and composite_tiles, bitwise; the device launches of that
+   render (torch.profiler)
 7. all-pairs rectangle kernel vs plain: 4,096 targets spread over the
    1,048,576-particle state against all its sources (float32 twin and a
    float64 evaluation); kernel time at the full 1M
@@ -111,20 +124,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 22. fused main path: `app.main -fused` at 4,194,304 and 1024x1024, 40
     frames through captured CUDA graphs: positions bitwise the split run of
     phase 5, the last frame within 1e-5 of it, `fused_graph` true; frame,
-    render and simulate ms, replays, launches a frame, peak memory
+    render and simulate ms, replays, launches a frame (the wrappers'
+    counts, and one replayed frame's device launches by torch.profiler),
+    peak memory
 23. the same at 262,144 and 1280x720 against a split run of that shape
 24. `-fused -force p3m -p3mnear tree` at 262,144 runs uncaptured
     (`fused_graph` false) and agrees with split the same way; all_pairs
     (65,536) and pm_grid (262,144, G=64) capture and agree likewise
 
 The kernels line (before the last) has one entry per kernel with its
-launches on its main path, the error against its twin, kernel / twin times
-and the least time the card could take (`bound_ms`: bytes over 3.35 TB/s,
-or FP32-pipe instructions counted from the source over 132 SMs x 128 lanes
-at the SM clock sampled while the kernel ran; for the all-pairs variants
-the slowest of their FP32, MUFU and tensor-core work), and for the sort
-and the row gather the time of the one PyTorch call that computes the
-same function (`library_ms`); the last line is {"ok": true, "device": {...}}.
+launches on its main path (for composite_rows and the row gather, off the
+render path, on their phases' timed calls), the error against its twin,
+kernel / twin times and the least time the card could take (`bound_ms`:
+bytes over 3.35 TB/s, or FP32-pipe instructions counted from the source
+over 132 SMs x 128 lanes at the SM clock sampled while the kernel ran; for
+the all-pairs variants the slowest of their FP32, MUFU and tensor-core
+work), and for the sort and the row gather the time of the one PyTorch call
+that computes the same function (`library_ms`); the last line is {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -181,7 +198,7 @@ SMS, FP32_LANES = 132, 128
 INSTR = {"all_pairs_rect": 11, "all_pairs_half_round": 14,
          "all_pairs_half_diag": 11, "tree_sweep": 27, "tree_sweep_n3": 33,
          "tree_sweep_with_potential": 41, "tree_sweep_potential_only": 23,
-         "tree_sweep_half_pairs": 23, "composite": 28}
+         "tree_sweep_half_pairs": 23, "composite": 28, "tile_combine": 7}
 # Per pair and pipe, for the all-pairs variants (the tally in
 # csrc/allpairs_variants.cu's header): FP32 instructions, MUFU (rsqrt)
 # instructions and padded tensor-core flops (BF16 mma, dense)
@@ -312,14 +329,17 @@ def phase_build():
     )
 
     log("phase 2: build")
-    sources = (("central_well", central_well, ()),
-               ("composite", composite, composite._NVCC_FLAGS),
-               ("allpairs", allpairs, ()),
-               ("treeforce", treeforce, ()),
-               ("sortkv", sortkv, ()),
-               ("rowgather", rowgather, ()),
-               ("allpairs_variants", allpairs_variants, ()),
-               ("allpairs_halfpair", allpairs_halfpair, ()))
+    # (source, the loader that builds it, its extra nvcc flags)
+    sources = (("central_well", central_well._library, ()),
+               ("composite", composite._library, composite._NVCC_FLAGS),
+               ("composite_tiles", composite._tiles_library,
+                composite._NVCC_FLAGS),
+               ("allpairs", allpairs._library, ()),
+               ("treeforce", treeforce._library, ()),
+               ("sortkv", sortkv._library, ()),
+               ("rowgather", rowgather._library, ()),
+               ("allpairs_variants", allpairs_variants._library, ()),
+               ("allpairs_halfpair", allpairs_halfpair._library, ()))
 
     def ptxas_report(name, extra, tmp):
         """register / spill lines of one source (compile only, no library)"""
@@ -350,7 +370,7 @@ def phase_build():
     # one nvcc per source and per report, all started together
     with tempfile.TemporaryDirectory() as tmp, \
             ThreadPoolExecutor(2 * len(sources)) as pool:
-        libs = [pool.submit(mod._library) for _, mod, _ in sources]
+        libs = [pool.submit(load) for _, load, _ in sources]
         reports = [(name, pool.submit(ptxas_report, name, extra, tmp))
                    for name, _, extra in sources]
         for fut in libs:
@@ -450,32 +470,45 @@ def phase_central_well(dev):
             "bound_ms": bound, "bound_by": "bytes"}
 
 
-def _composite_inputs(dev, n, chunk):
-    """The (sp, bases, row_hi) the renderer builds for the first `chunk`
-    particles of an n-particle device-init state at 1024x1024."""
-    import torch
-
+def _tiles_inputs(pos, width, height, seg_q=None, blend="over"):
+    """(args, kw) of the `composite_tiles` call the renderer makes for the
+    particles `pos` [4, n] at width x height (seg_q None: the renderer's
+    adaptive Q), recorded from `_render` with the plain composite."""
     from multi_adapter_particles_torch.config import RenderConfig
-    from multi_adapter_particles_torch.models import init as pinit
-    from multi_adapter_particles_torch.ops.composite import composite_rows
+    from multi_adapter_particles_torch.ops.composite import (
+        composite_tiles_plain,
+    )
     from multi_adapter_particles_torch.render import renderer as R
     from multi_adapter_particles_torch.render.camera import Camera
 
-    st = pinit.initialize_particles_device(
-        n, torch.Generator(device=dev).manual_seed(0), device=dev)
-    rend = R.Renderer(RenderConfig(width=WIDTH, height=HEIGHT))
-    q = rend.resolve_seg_q(chunk)
-    captured = []
+    n = pos.shape[1]
+    rend = R.Renderer(RenderConfig(width=width, height=height))
+    seen = {}
 
-    def capture(sp, bases, tile_h, tile_w, blend="over", row_hi=None):
-        captured.append((sp, bases, row_hi))
-        return composite_rows(sp, bases, tile_h, tile_w, blend, row_hi)
+    def record(*args, **kw):
+        seen["call"] = (args, kw)
+        return composite_tiles_plain(*args, **kw)
 
-    args = rend._device_args(Camera(), 2.5, 0.15, dev)
-    R._render(st.position[:, :chunk], *args, chunk, width=WIDTH,
-              height=HEIGHT, seg_q=q, dup_y=2, dup_x=2, near=1.0,
-              blend="over", return_trans=True, composite=capture)
-    return q, captured[0]
+    args = rend._device_args(Camera(), 2.5, 0.15, pos.device)
+    R._render(pos, *args, n, width=width, height=height,
+              seg_q=seg_q or rend.resolve_seg_q(n), dup_y=2, dup_x=2,
+              near=1.0, blend=blend, return_trans=True, composite=record)
+    return seen["call"]
+
+
+def _rows_inputs(args, kw):
+    """`composite_rows`' (sp, bases, row_hi) for a `composite_tiles` call:
+    the [8, Q, V] planes the eager path builds."""
+    from multi_adapter_particles_torch.ops.composite import (
+        composite_rows_inputs,
+    )
+
+    (s_cx, s_cy, s_w, s_cgb, _, tile_v, j_v, lo_k, hi_k, _, _, inv_sx,
+     inv_sy, intensity) = args
+    sp, bases = composite_rows_inputs(
+        s_cx, s_cy, s_w, s_cgb, tile_v, j_v, lo_k, hi_k, inv_sx, inv_sy,
+        intensity, q=kw["q"], grid=kw["grid"], tile=kw["tile"])
+    return sp, bases, hi_k
 
 
 def phase_composite(dev):
@@ -487,12 +520,18 @@ def phase_composite(dev):
     )
     from multi_adapter_particles_torch.render.renderer import TILE_H, TILE_W
 
-    log("phase 4: composite kernel vs plain")
+    log("phase 4: composite_rows kernel (off the render path) vs plain")
     err = 0.0
     times = {}
+    calls = {}
+    launches = 0
     for label, n, chunk in (("1M chunk of 4M", N_MAIN, 1_048_576),
                             ("262K", 262_144, 262_144)):
-        q, (sp, bases, hi) = _composite_inputs(dev, n, chunk)
+        pos = _ap_state(dev, n)[:, :chunk].contiguous()
+        calls[label] = _tiles_inputs(pos, WIDTH, HEIGHT)
+        del pos
+        q = calls[label][1]["q"]
+        sp, bases, hi = _rows_inputs(*calls[label])
         live = int((hi > 0).sum())
         log(f"  {label}: sp {list(sp.shape)} (Q={q}), {live:,} live rows")
         for blend in ("over", "additive"):
@@ -503,7 +542,10 @@ def phase_composite(dev):
         def kernel():
             return composite_rows(sp, bases, TILE_H, TILE_W, "over", hi)
 
+        # off the render path, its path is these timed calls (counted)
+        composite_rows.launches = 0
         ms = time_ms(kernel, reps=20)
+        launches += composite_rows.launches
         plain_ms = time_ms(lambda: composite_rows_plain(
             sp, bases, TILE_H, TILE_W, "over", hi), reps=3, warmup=1)
         # the work these rows need: each live slot (q < row_hi) of each
@@ -523,22 +565,183 @@ def phase_composite(dev):
         del sp, bases, hi
     ms, plain_ms, bound, by = times["1M chunk of 4M"]
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by,
-            "ms_262k": times["262K"][0], "plain_ms_262k": times["262K"][1]}
+            "bound_ms": bound, "bound_by": by, "launches": launches,
+            "ms_262k": times["262K"][0],
+            "plain_ms_262k": times["262K"][1]}, calls["1M chunk of 4M"]
+
+
+def _equal_outputs(label, got, want):
+    """Fail unless the (C, T) pairs are bitwise equal."""
+    import torch
+
+    for name, a, b in zip(("C", "T"), got, want):
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad = int((a != b).sum()) if a.shape == b.shape else "shape"
+            fail(f"composite_tiles {label}: {name} differs from the plain "
+                 f"version ({bad} elements)")
+
+
+def _tiles_work(args, kw):
+    """(live slot-pixels, combine-pixels, bytes) one call needs: each live
+    slot blends into every pixel of its row's tile, a tile of s rows
+    combines s - 1 times; 16 B a sorted entry, the map, the live rows'
+    results written and read, the frame planes."""
+    (s_cx, _, _, _, starts, tile_v, _, lo_k, hi_k, row_start, row_end,
+     *_) = args
+    px = kw["tile"][0] * kw["tile"][1]
+    live = int(row_end[-1])
+    slots = float((hi_k[:live] - lo_k[:live]).clamp(min=0).sum())
+    combines = float((row_end - row_start - 1).sum())
+    nbytes = (16 * s_cx.shape[0] + 4 * starts.numel() + 16 * tile_v.numel()
+              + 8 * row_start.numel() + 2 * 16 * live * px
+              + 16 * row_start.numel() * px)
+    return slots * px, combines * px, nbytes
+
+
+def _time_tiles(label, args, kw):
+    """CUDA-event times of the call, its plain version and the old
+    composite_rows kernel on the same rows; torch.profiler's time of each
+    launch; the bound and its share."""
+    from multi_adapter_particles_torch.ops.composite import (
+        composite_rows,
+        composite_tiles,
+        composite_tiles_plain,
+    )
+
+    def kernel():
+        return composite_tiles(*args, **kw)
+
+    ms = time_ms(kernel, reps=20)
+    plain_ms = time_ms(lambda: composite_tiles_plain(*args, **kw), reps=3,
+                       warmup=1)
+    sp, bases, hi = _rows_inputs(args, kw)
+    th, tw = kw["tile"]
+    rows_ms = time_ms(lambda: composite_rows(sp, bases, th, tw, "over", hi),
+                      reps=20)
+    del sp, bases, hi
+    _, launches = launch_profile(kernel)
+    slot_px, comb_px, nbytes = _tiles_work(args, kw)
+    mhz = busy_clock_mhz(kernel, reps=max(20, int(300 / ms)))
+    ops = issue_bound_ms(slot_px * INSTR["composite"]
+                         + comb_px * INSTR["tile_combine"], mhz)
+    byt = bytes_bound_ms(nbytes)
+    bound, by = (ops, "operations") if ops >= byt else (byt, "bytes")
+    log(f"  {label}: composite_tiles {ms:.4f} ms (device ms a launch: "
+        + ", ".join(f"{n} {t:.4f}" for n, t in launches)
+        + f"), plain version {plain_ms:.4f} ms, composite_rows kernel on its "
+        f"rows {rows_ms:.4f} ms; {slot_px:.4e} slot-pixels, {comb_px:.4e} "
+        f"combine-pixels, {nbytes / 1e6:.1f} MB; bound {bound:.4f} ms ({by}, "
+        f"{mhz:.0f} MHz; bytes {byt:.4f}) -> {bound / ms:.1%} of it")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "composite_rows_ms": rows_ms,
+            "profile": launches}
+
+
+def phase_tiles(dev, main_call):
+    """composite_tiles' kernels vs composite_tiles_plain, bitwise, on the
+    1M render chunk of phase 4 and three more scenes; run to run; from a
+    CUDA graph; timed."""
+    import torch
+
+    from multi_adapter_particles_torch.config import RenderConfig
+    from multi_adapter_particles_torch.ops.composite import (
+        composite_tiles,
+        composite_tiles_plain,
+    )
+    from multi_adapter_particles_torch.render import renderer as R
+    from multi_adapter_particles_torch.render.camera import Camera
+
+    log("phase 4c: composite_tiles kernels vs composite_tiles_plain "
+        "(bitwise on C and T)")
+    small = _ap_state(dev, 262_144)
+    cases = (
+        ("1M chunk of 4M", main_call, None),
+        ("262,144 at 1280x720", None, (small, 1280, 720)),
+        ("clustered: 262,144 at 1024x1024, Q=8", None,
+         (small, WIDTH, HEIGHT, 8)),
+        ("empty tiles: 16,384 at 1024x1024", None,
+         (small[:, :16_384].contiguous(), WIDTH, HEIGHT)),
+    )
+    stats = {}
+    for label, call, make in cases:
+        args, kw = call if call is not None else _tiles_inputs(*make)
+        starts, row_start, row_end = args[4], args[9], args[10]
+        counts = starts[1:] - starts[:-1]
+        segs = int((row_end - row_start).max())
+        empty = int((counts == 0).sum())
+        if label.startswith("clustered") and segs < 9:
+            fail(f"composite_tiles {label}: hot tiles span {segs} rows (< 9)")
+        if label.startswith("empty") and empty == 0:
+            fail(f"composite_tiles {label}: no empty tile")
+        for blend in ("over", "additive"):
+            kb = {**kw, "blend": blend}
+            got = composite_tiles(*args, **kb)
+            want = composite_tiles_plain(*args, **kb)
+            torch.cuda.synchronize()
+            _equal_outputs(f"{label} {blend}", got, want)
+        log(f"  {label}: E = {args[0].shape[0]:,}, Q = {kw['q']}, "
+            f"{int(row_end[-1]):,} live rows of {args[5].shape[0]:,}, up to "
+            f"{segs} rows a tile, {empty:,} empty tiles of "
+            f"{counts.shape[0]:,}: over and additive bitwise the plain "
+            "version")
+        if label.startswith("1M"):
+            first = composite_tiles(*args, **kw)
+            again = composite_tiles(*args, **kw)
+            torch.cuda.synchronize()
+            _equal_outputs("run to run", first, again)
+            log("  1M chunk composited twice: bitwise run to run")
+            del first, again
+        if label.startswith(("1M", "262,144 at")):
+            stats[label] = _time_tiles(label, args, kw)
+        del args, kw
+    del small
+
+    # the render chunk (sort + composite_tiles) captured in a CUDA graph,
+    # replayed on the next chunk's positions
+    chunk = 1_048_576
+    state = _ap_state(dev, 2 * chunk)
+    rend = R.Renderer(RenderConfig(width=WIDTH, height=HEIGHT))
+    dargs = rend._device_args(Camera(), 2.5, 0.15, dev)
+    kw = dict(width=WIDTH, height=HEIGHT, seg_q=rend.resolve_seg_q(chunk),
+              dup_y=2, dup_x=2, near=1.0, blend="over", return_trans=True)
+    static = state[:, :chunk].clone()
+    R._render(static, *dargs, chunk, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = composite_tiles.launches
+    with torch.cuda.graph(graph):
+        captured = R._render(static, *dargs, chunk, **kw)
+    static.copy_(state[:, chunk:])
+    graph.replay()
+    eager = R._render(static, *dargs, chunk, **kw)
+    torch.cuda.synchronize()
+    composite_tiles.launches = before
+    _equal_outputs("graph replay", (captured.frame, captured.trans),
+                   (eager.frame, eager.trans))
+    log("  a render chunk (sort + composite_tiles) captured in a CUDA graph "
+        "and replayed on the next chunk's positions: bitwise the eager call")
+    out = stats["1M chunk of 4M"]
+    out["720p"] = stats["262,144 at 1280x720"]
+    return out
 
 
 def _render_io(dev, dup_y=2, dup_x=2, n=N_MAIN, width=WIDTH, height=HEIGHT):
-    """The sort's (key, *payloads) and the row gather's (packed, idx)
-    arguments as the renderer makes them for the first 1M chunk (or all)
-    of the n-particle device-init state (seed 0) after one central-well
-    step, at width x height and the given dup window."""
+    """The sort's (key, *payloads) as the renderer makes them for the
+    first 1M chunk (or all) of the n-particle device-init state (seed 0)
+    after one central-well step, at width x height and the given dup
+    window, and the row gather's (packed, idx) the eager composite builds
+    from the sorted streams (`packed_rows`, gathered at each virtual row's
+    data row)."""
     import torch
 
     from multi_adapter_particles_torch import constants as C
     from multi_adapter_particles_torch.config import RenderConfig
     from multi_adapter_particles_torch.models import init as pinit
     from multi_adapter_particles_torch.ops.central_well import central_well_step
-    from multi_adapter_particles_torch.ops.rowgather import gather_rows_plain
+    from multi_adapter_particles_torch.ops.composite import (
+        composite_tiles_plain,
+        packed_rows,
+    )
     from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable_plain
     from multi_adapter_particles_torch.render import renderer as R
     from multi_adapter_particles_torch.render.camera import Camera
@@ -558,15 +761,15 @@ def _render_io(dev, dup_y=2, dup_x=2, n=N_MAIN, width=WIDTH, height=HEIGHT):
         seen["sort"] = args
         return sort_kv_stable_plain(*args)
 
-    def gather(*args):
-        seen["gather"] = args
-        return gather_rows_plain(*args)
+    def composite(*args, **kw):
+        seen["gather"] = (packed_rows(*args[:4], kw["q"]), args[6])
+        return composite_tiles_plain(*args, **kw)
 
     args = rend._device_args(Camera(), 2.5, 0.15, dev)
     R._render(pos[:, :chunk], *args, chunk, width=width, height=height,
               seg_q=rend.resolve_seg_q(chunk), dup_y=dup_y, dup_x=dup_x,
               near=1.0, blend="over", return_trans=True, sort=sort,
-              gather=gather)
+              composite=composite)
     return seen["sort"], seen["gather"]
 
 
@@ -742,6 +945,7 @@ def phase_gather(dev, render_args):
         ("clamped, W = 7", flat[:4096 * 7].view(4096, 7), wild),
     )
     timings, rounds_by = {}, {}
+    launches = 0
     for label, tab, ix in cases:
         k = gather_rows(tab, ix)
         p = gather_rows_plain(tab, ix)
@@ -757,11 +961,13 @@ def phase_gather(dev, render_args):
             # kernel and index_select in turns, GATHER_ROUNDS rounds of 20
             # calls each: the median and the spread of each
             rounds = {"kernel": [], "index_select": []}
+            gather_rows.launches = 0    # its path: the timed rounds
             for _ in range(GATHER_ROUNDS):
                 rounds["kernel"].append(
                     time_ms(lambda: gather_rows(tab, ix), reps=20))
                 rounds["index_select"].append(
                     time_ms(lambda: torch.index_select(tab, 0, ixc), reps=20))
+            launches += gather_rows.launches
             ms, lib_ms = (statistics.median(rounds[k]) for k in rounds)
             bound = bytes_bound_ms(2 * ix.shape[0] * tab.shape[1] * 4)
             slower = min(rounds["kernel"]) > max(rounds["index_select"])
@@ -777,7 +983,8 @@ def phase_gather(dev, render_args):
     ms, plain_ms, lib_ms, bound = timings["render"]
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
-            "rounds": rounds_by["render"],
+            "rounds": rounds_by["render"], "launches": launches,
+            "rounds_prototype": rounds_by["prototype"],
             "prototype_ms": timings["prototype"]}
 
 
@@ -836,12 +1043,17 @@ def _counted():
         all_pairs_accel_halfpair,
     )
     from multi_adapter_particles_torch.ops.central_well import central_well_step
-    from multi_adapter_particles_torch.ops.composite import composite_rows
+    from multi_adapter_particles_torch.ops.composite import (
+        composite_rows,
+        composite_tiles,
+    )
     from multi_adapter_particles_torch.ops.rowgather import gather_rows
     from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
 
-    return {"central_well": central_well_step, "composite": composite_rows,
+    return {"central_well": central_well_step,
+            "composite_tiles": composite_tiles,
             "sort_kv_stable": sort_kv_stable, "gather_rows": gather_rows,
+            "composite_rows": composite_rows,
             "all_pairs_rect": all_pairs_accel,
             "all_pairs_half": all_pairs_accel_halfpair}
 
@@ -872,10 +1084,16 @@ def phase_main_path(dev):
     if launches["central_well"] < STEPS:
         fail(f"central-well kernel launched {launches['central_well']} times"
              f" in {STEPS} frames")
-    for name in ("composite", "sort_kv_stable", "gather_rows"):
+    for name in ("composite_tiles", "sort_kv_stable"):
         if launches[name] < 4 * STEPS:
             fail(f"{name} launched {launches[name]} times in {STEPS} frames "
                  "of 4 chunks")
+    if launches["composite_tiles"] != launches["sort_kv_stable"]:
+        fail(f"composite_tiles launched {launches['composite_tiles']} times "
+             f"for {launches['sort_kv_stable']} render chunks")
+    for name in ("gather_rows", "composite_rows"):
+        if launches[name]:
+            fail(f"{name} launched {launches[name]} times on the main path")
     dev_frames = metrics["gauges"].get("device_frame_ms", [])[-30:]
     if len(dev_frames) < 10:
         fail(f"only {len(dev_frames)} CUDA-event frame samples")
@@ -897,22 +1115,29 @@ def phase_main_path(dev):
 def phase_full_frame(seen):
     import torch
 
-    from multi_adapter_particles_torch.ops.composite import composite_rows_plain
-    from multi_adapter_particles_torch.ops.rowgather import gather_rows_plain
+    from multi_adapter_particles_torch.ops.composite import (
+        composite_tiles_plain,
+    )
     from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable_plain
 
-    log("phase 6: final state's frame, the composite, sort and row-gather "
-        "kernels vs their plain twins")
+    log("phase 6: final state's frame, the sort and composite_tiles kernels "
+        "vs their plain twins")
     rend = seen["renderer"]
     pos = seen["position"]
-    with_kernel = rend.render_arrays(pos, seen["camera"], 2.5, 0.15).frame
-    rend.composite = composite_rows_plain
+    out, launches = launch_profile(
+        lambda: rend.render_arrays(pos, seen["camera"], 2.5, 0.15))
+    with_kernel = out.frame
+    rend.composite = composite_tiles_plain
     rend.sort = sort_kv_stable_plain
-    rend.gather = gather_rows_plain
     with_plain = rend.render_arrays(pos, seen["camera"], 2.5, 0.15).frame
     torch.cuda.synchronize()
-    log(f"  bitwise equal: {torch.equal(with_kernel, with_plain)}")
-    return check_close("frame", with_kernel, with_plain, 0.0, 1e-5)
+    log(f"  one split-frame render through the kernels: {len(launches)} "
+        "device launches (torch.profiler; the step adds 1)")
+    err = check_close("frame", with_kernel, with_plain, 0.0, 1e-5)
+    if not torch.equal(with_kernel, with_plain):
+        fail("the frame through the kernels is not bitwise the twins'")
+    log("  bitwise equal: True")
+    return err, len(launches)
 
 
 def _fused_vs_split(label, argv, steps, graph, split=None):
@@ -948,9 +1173,15 @@ def _fused_vs_split(label, argv, steps, graph, split=None):
         f"{peak:.2f} GiB")
     if ran_graph is not graph:
         fail(f"{label}: fused_graph {ran_graph}, expected {graph}")
+    replayed = None
     if graph:
         if eng.replays != steps - 1:
             fail(f"{label}: {eng.replays} replays in {steps} frames")
+        g_render, _, g_step = eng._graphs[eng._cur]
+        replayed = len(launch_profile(
+            lambda: (g_render.replay(), g_step.replay()))[1])
+        log(f"  one replayed frame: {replayed} device launches "
+            "(torch.profiler)")
         for name, fn in _counted().items():
             want = eng.launches_per_frame.get(fn.__name__, 0) * steps
             if launches.get(name, 0) != want:
@@ -969,6 +1200,7 @@ def _fused_vs_split(label, argv, steps, graph, split=None):
            "split_frame_ms": split_ms, "render_ms": stages.get("render"),
            "simulate_ms": stages.get("simulate"), "replays": eng.replays,
            "launches_per_frame": eng.launches_per_frame,
+           "device_launches_per_frame": replayed,
            "peak_gib": peak, "frame_bitwise": bitwise,
            "frame_err": frame_err}
     log(f"  positions bitwise the split run's; last frame bitwise {bitwise};"
@@ -1177,7 +1409,7 @@ def phase_allpairs_main_path():
         all_pairs_accel,
         all_pairs_accel_halfpair,
     )
-    from multi_adapter_particles_torch.ops.composite import composite_rows
+    from multi_adapter_particles_torch.ops.composite import composite_tiles
 
     base = ["-force", "all_pairs", "-numparticles", str(N_AP), "-novsync",
             "-nogui", "-width", str(WIDTH), "-height", str(HEIGHT)]
@@ -1190,13 +1422,13 @@ def phase_allpairs_main_path():
             f"{' '.join(base + extra)} -steps {steps}")
         all_pairs_accel.launches = 0
         all_pairs_accel_halfpair.launches = 0
-        composite_rows.launches = 0
+        composite_tiles.launches = 0
         t0 = time.perf_counter()
         metrics, seen = _run_app(base + extra + ["-steps", str(steps)], steps)
         wall = time.perf_counter() - t0
         got = {"all_pairs_rect": all_pairs_accel.launches,
                "all_pairs_half": all_pairs_accel_halfpair.launches,
-               "composite": composite_rows.launches}
+               "composite": composite_tiles.launches}
         log(f"  rc 0, {steps} frames in {wall:.2f} s wall, launches {got}")
         if seen["config"].all_pairs_half != (label == "half"):
             fail(f"{label}: the run's config has all_pairs_half="
@@ -1205,7 +1437,7 @@ def phase_allpairs_main_path():
             fail(f"{label}: the all-pairs kernel launched "
                  f"{counter.launches} times in {steps} frames")
         if got["composite"] < steps:
-            fail(f"{label}: the composite kernel launched "
+            fail(f"{label}: composite_tiles launched "
                  f"{got['composite']} times in {steps} frames")
         launches[label] = got
         # frame intervals past the timer's warm-up frames
@@ -1877,7 +2109,7 @@ def phase_pm_main_path():
 def phase_tree_main_path():
     import statistics
 
-    from multi_adapter_particles_torch.ops.composite import composite_rows
+    from multi_adapter_particles_torch.ops.composite import composite_tiles
     from multi_adapter_particles_torch.ops.treeforce import (
         near_sweep,
         near_sweep_n3,
@@ -1895,14 +2127,14 @@ def phase_tree_main_path():
             f"{' '.join(base + extra)} -steps {steps}")
         near_sweep.launches = 0
         near_sweep_n3.launches = 0
-        composite_rows.launches = 0
+        composite_tiles.launches = 0
         t0 = time.perf_counter()
         metrics, seen = _run_app(base + extra + ["-steps", str(steps)],
                                  steps)
         wall = time.perf_counter() - t0
         got = {"tree_sweep": near_sweep.launches,
                "tree_sweep_n3": near_sweep_n3.launches,
-               "composite": composite_rows.launches}
+               "composite": composite_tiles.launches}
         cfg = seen["config"]
         log(f"  rc 0, {steps} frames in {wall:.2f} s wall, launches {got}; "
             f"G={cfg.pm_grid_size}, pair budget {cfg.p3m_pair_budget}, "
@@ -1914,7 +2146,7 @@ def phase_tree_main_path():
             fail(f"{label}: the sweep kernel launched {counter.launches} "
                  f"times in {steps} frames")
         if got["composite"] < steps:
-            fail(f"{label}: the composite kernel launched "
+            fail(f"{label}: composite_tiles launched "
                  f"{got['composite']} times in {steps} frames")
         dev_frames = metrics["gauges"].get("device_frame_ms", [])
         if len(dev_frames) < steps - 3:
@@ -2288,7 +2520,9 @@ def main() -> int:
     torch.cuda.set_device(dev)
     phase_build()
     cw = phase_central_well(dev)
-    comp = phase_composite(dev)
+    comp, main_call = phase_composite(dev)
+    tiles = phase_tiles(dev, main_call)
+    del main_call
     torch.cuda.empty_cache()
     sort, gather_args = phase_sort(dev)
     gather = phase_gather(dev, gather_args)
@@ -2296,7 +2530,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches, seen, frame = phase_main_path(dev)
     split_4m = {"position": seen["position"], "frame": seen["frame"]}
-    frame_err = phase_full_frame(seen)
+    frame_err, frame["render_launches"] = phase_full_frame(seen)
     del seen
     torch.cuda.empty_cache()
     rect, rect_1m = phase_allpairs_rect(dev)
@@ -2351,9 +2585,11 @@ def main() -> int:
     kernels = [
         entry("central_well", "central_well.cu", "central_well.py:32",
               launches["central_well"], cw),
+        entry("composite_tiles", "composite_tiles.cu", "composite.py:34",
+              launches["composite_tiles"], {**tiles, "max_abs_err": max(
+                  tiles["max_abs_err"], frame_err)}),
         entry("composite", "composite.cu", "composite.py:34",
-              launches["composite"],
-              {**comp, "max_abs_err": max(comp["max_abs_err"], frame_err)}),
+              comp["launches"], comp),
         entry("all_pairs_rect", "allpairs.cu", "allpairs.py:47",
               ap_launches["rect"]["all_pairs_rect"], rect),
         entry("all_pairs_half", "allpairs.cu", "allpairs.py:269",
@@ -2375,14 +2611,15 @@ def main() -> int:
               launches["sort_kv_stable"], sort),
         entry("gather_rows", "rowgather.cu",
               "experiments/rowgather_pallas.py:27",
-              launches["gather_rows"], gather),
+              gather["launches"], gather),
     ] + [entry(name, "allpairs_variants.cu", replaces,
                var_entries[name]["launches"], var_entries[name])
          for name, _, replaces in VAR_ENTRIES] + [
         entry(name, "allpairs_halfpair.cu", replaces,
               gen_entries[name]["launches"], gen_entries[name])
         for name, _, replaces in GEN_ENTRIES]
-    log(f"main path: {json.dumps(frame)}; composite @262K Q=64: kernel "
+    log(f"main path: {json.dumps(frame)}; composite_tiles: "
+        f"{json.dumps(tiles)}; composite_rows @262K Q=64: kernel "
         f"{comp['ms_262k']:.4f} ms, plain {comp['plain_ms_262k']:.4f} ms")
     log(f"all-pairs @{N_AP:,}: rect kernel {rect['ms_1m']:.3f} ms, half "
         f"kernel {half['ms_1m']:.3f} ms; main path {json.dumps(ap_path)}; "

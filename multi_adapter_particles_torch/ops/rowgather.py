@@ -2,11 +2,12 @@
 
 `gather_rows(table, idx)` is `table[idx]` with out-of-range indices clamped
 to [0, R - 1], the semantics of XLA's gather that the JAX renderer relies
-on for its dead virtual rows. The renderer gathers its packed payload rows
-through it (`render/renderer.py`). The kernel (`csrc/rowgather.cu`)
-replaces the JAX package's Pallas prototype
-`experiments/rowgather_pallas.py::pallas_gather`, a ring of single-row
-DMAs; its `tile` and `depth` are TPU tuning and are not ported.
+on for its dead virtual rows. The eager composite
+(`ops/composite.composite_rows_inputs`) gathers its packed payload rows
+with the plain version; the render path on the card runs no row gather.
+The kernel (`csrc/rowgather.cu`) replaces the JAX package's Pallas
+prototype `experiments/rowgather_pallas.py::pallas_gather`, a ring of
+single-row DMAs; its `tile` and `depth` are TPU tuning and are not ported.
 
 - CUDA tensors go to the kernel, or the wrapper raises.
 - CPU tensors go to `gather_rows_plain`, the indexing expression.

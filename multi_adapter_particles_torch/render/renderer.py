@@ -19,11 +19,11 @@ gather:
 3. **Composite** exactly at any depth: over-composition with a per-sprite
    source clamp is associative on (premultiplied color, transmittance), so
    the sorted stream splits into Q-aligned data rows; each (data row, tile)
-   intersection is a virtual row of one depth-Q pass — the hand-written
-   CUDA kernel `ops/composite.py` on CUDA tensors, its plain twin on CPU —
-   and consecutive rows of a tile tree-combine in O(log rows) passes. The
-   virtual rows' payloads come from ONE gather of the packed data rows
-   (`ops/rowgather.py`, a CUDA kernel likewise).
+   intersection is a virtual row of one depth-Q pass, and consecutive rows
+   of a tile combine pairwise in the order of O(log rows) tree passes —
+   `ops/composite.composite_tiles`, from the sorted streams and the
+   virtual-row map (eager [V] and [T] integers here) to the frame planes:
+   two hand-written CUDA kernels on CUDA tensors, the eager twin on CPU.
 
 What changed against the JAX package, and why it is the same result:
 - entry expansion: a broadcast-and-reshape of the key planes and payloads
@@ -50,8 +50,12 @@ import torch
 from multi_adapter_particles_torch import constants as C
 from multi_adapter_particles_torch.config import RenderConfig
 from multi_adapter_particles_torch.models.state import PAD_POSITION
-from multi_adapter_particles_torch.ops.composite import composite_rows
-from multi_adapter_particles_torch.ops.rowgather import gather_rows
+from multi_adapter_particles_torch.ops.composite import (  # noqa: F401
+    composite_tiles,
+    pack_cgb,
+    row_tiles,
+    unpack_cgb,   # the pair's decoder, public here as in the JAX package
+)
 from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
 from multi_adapter_particles_torch.render.camera import Camera
 
@@ -121,28 +125,6 @@ def _pixel_bound(edge: Tensor, limit: int) -> Tensor:
         torch.int32)
 
 
-def pack_cgb(cg: Tensor, cb: Tensor) -> Tensor:
-    """(cg, cb) f32 -> int32 (f16 bits of cg clamped to [0, 6e4]) << 16 |
-    f16 bits of cb: the JAX package's `pack_cgb` lane (`render/renderer.py`
-    there). Each half is masked to 16 bits before the shift, so a negative
-    f16 cannot sign-extend into the other; cg is clamped below f16-inf (the
-    blend clips source terms to [0, 1] anyway, and an inf would NaN-poison
-    dead slots through `inf * 0`)."""
-    def bits(x):
-        return x.to(torch.float16).view(torch.int16).to(torch.int32) & 0xFFFF
-
-    return (bits(torch.clamp(cg, 0.0, 6.0e4)) << 16) | bits(cb)
-
-
-def unpack_cgb(u: Tensor):
-    """int32 `pack_cgb` words -> (cg, cb) f32, each rounded through f16."""
-    def half(bits):
-        s16 = ((bits & 0xFFFF) ^ 0x8000) - 0x8000    # sign-extend 16 bits
-        return s16.to(torch.int16).view(torch.float16).to(torch.float32)
-
-    return half(u >> 16), half(u)
-
-
 def _chunk_draw(num_draw, start: int, width: int):
     """A chunk's slice [start, start + width) of the num_draw prefix, for a
     host int or a 0-dim device tensor (the fused engine's)."""
@@ -160,14 +142,9 @@ def virtual_rows(starts: Tensor, row_end: Tensor, row_start: Tensor,
     per-row values are the tile's own, and v past the last row maps to
     tile T with starts_v = ends_v = starts[T] and row_start_v =
     row_end[-1] — the integers of the JAX package's merge-sort map."""
-    num_tiles = row_end.shape[0]
     v = torch.arange(num_rows, dtype=torch.int32, device=row_end.device)
     tile_v = torch.searchsorted(row_end, v, right=True).to(torch.int32)
-    tv = tile_v.long()
-    starts_v = starts[tv]
-    ends_v = starts[torch.clamp(tv + 1, max=num_tiles)]
-    row_start_v = torch.cat([row_start, row_end[-1:]])[tv]
-    return tile_v, starts_v, ends_v, row_start_v
+    return (tile_v, *row_tiles(tile_v, starts, row_start, row_end))
 
 
 def _render(
@@ -189,16 +166,15 @@ def _render(
     blend: str,         # 'over' (exact) | 'additive' (order-free)
     frame_uint8: bool = False,
     return_trans: bool = False,
-    composite: Callable = composite_rows,
+    composite: Callable = composite_tiles,
     sort: Callable = sort_kv_stable,
-    gather: Callable = gather_rows,
 ) -> FrameOutput:
     """One frame of `position`'s first `num_draw` particles. `composite`
-    is the depth-Q pass (`ops/composite.composite_rows`), `sort` the stable
-    key + payload sort (`ops/sortkv.sort_kv_stable`), `gather` the row
-    gather (`ops/rowgather.gather_rows`); a caller may hand in their plain
-    twins to compare on the card. No host sync: a CUDA graph can capture
-    it (a device `num_draw` keeps the draw count out of the graph)."""
+    is the segmented composite (`ops/composite.composite_tiles`), `sort`
+    the stable key + payload sort (`ops/sortkv.sort_kv_stable`); a caller
+    may hand in their plain twins to compare on the card. No host sync: a
+    CUDA graph can capture it (a device `num_draw` keeps the draw count
+    out of the graph)."""
     dev = position.device
     n = position.shape[1]
     gh, gw = height // TILE_H, width // TILE_W
@@ -248,7 +224,7 @@ def _render(
     # Degenerate sprites never bin to a tile, but their params still ride
     # the sort as payloads of sentinel entries; NaN/Inf there would poison
     # composite pixels through `x * 0 == NaN`, so sanitize the geometry
-    # (the w-derived extents after the gather).
+    # (the w-derived extents in the composite).
     cx = torch.nan_to_num(cx, nan=0.0, posinf=0.0, neginf=0.0)
     cy = torch.nan_to_num(cy, nan=0.0, posinf=0.0, neginf=0.0)
 
@@ -271,12 +247,8 @@ def _render(
     counts = starts[1:] - starts[:-1]                     # [T]
 
     # ---- exact segmented composite -----------------------------------------
-    px_count = TILE_H * TILE_W
-    e_total = n * dup
     q = seg_q
-    data_rows = -(-e_total // q)           # ceil: sorted stream, Q-aligned
-    e_pad = data_rows * q - e_total        # tail padding (beyond all ends)
-    max_segs = data_rows + 1               # one tile could span everything
+    data_rows = -(-(n * dup) // q)         # ceil: sorted stream, Q-aligned
     num_rows = num_tiles + data_rows       # static bound on virtual rows
 
     ends = starts[1:]
@@ -290,7 +262,6 @@ def _render(
         starts, row_end, row_start, num_rows)
     v = torch.arange(num_rows, dtype=torch.int32, device=dev)
     valid_v = v < row_end[-1]
-    tile_vc = torch.clamp(tile_v, 0, num_tiles - 1)
     counts_v = ends_v - starts_v
     seg_v = v - row_start_v
     j_v = starts_v // q + seg_v                      # data row index [V]
@@ -298,81 +269,20 @@ def _render(
     hi_k = torch.clamp(ends_v - j_v * q, 0, q)
     hi_k = torch.where(valid_v & (counts_v > 0), hi_k, zero_i)
 
-    kk = torch.arange(q, dtype=torch.int32, device=dev)
-    valid_k = (kk[:, None] >= lo_k[None, :]) & (kk[:, None] < hi_k[None, :])
-    t_sa = torch.where(valid_k, intensity, 0.0)  # [Q, V]; dead slots blend 0
-
-    # ONE packed row gather: the 4 sorted payloads (as int32 bits) per
-    # Q-aligned data row, [data_rows, 4Q] with channel-major rows, gathered
-    # at each virtual row's data row, then viewed as [4, Q, V]. Rows past
-    # the stream (dead virtual rows only) read the last data row (the
-    # gather clamps, as XLA's does); their slots are dead either way.
-    payload = torch.stack([s_cx.view(torch.int32), s_cy.view(torch.int32),
-                           s_w.view(torch.int32), s_cgb], dim=1)   # [E, 4]
-    if e_pad:
-        # tail pad: beyond every tile's `ends`, never selected by masks
-        payload = torch.cat([payload, payload.new_zeros((e_pad, 4))])
-    packed = payload.reshape(data_rows, q, 4).transpose(1, 2).reshape(
-        data_rows, 4 * q)
-    spt = gather(packed, j_v).reshape(num_rows, 4, q).permute(1, 2, 0)
-    t_cx, t_cy, t_w = (spt[c].view(torch.float32) for c in range(3))
-    t_cg, t_cb = unpack_cgb(spt[3])
-    # post-gather derivations: 1/(2hx) is linear in w_clip
+    # 1/(2hx) is linear in w_clip: the composite derives it per slot
     inv_sx = 1.0 / (radius * p00 * float(width))
     inv_sy = 1.0 / (radius * p11 * float(height))
-    t_ihx = torch.nan_to_num(t_w * inv_sx, nan=0.0, posinf=0.0, neginf=0.0)
-    t_ihy = torch.nan_to_num(t_w * inv_sy, nan=0.0, posinf=0.0, neginf=0.0)
-    t_cr = 1.0 - t_cb
-    sp = torch.stack([t_cx, t_cy, t_ihx, t_ihy, t_cr, t_cg, t_cb, t_sa])
-
-    bases = torch.stack([
-        ((tile_vc % gw) * TILE_W).to(torch.float32),
-        ((tile_vc // gw) * TILE_H).to(torch.float32),
-    ])                                              # [2, V]
-    out4 = composite(sp.contiguous(), bases, TILE_H, TILE_W,
-                     blend=blend, row_hi=hi_k.contiguous())
-    chans = [out4[0].T, out4[1].T, out4[2].T]       # [V, px]
-    tv = out4[3].T
-
-    # tree-combine segment rows (consecutive rows share a tile); per-row
-    # segment count derived from the row's own starts/ends (invalid rows
-    # get 1, which disables partner takes — their contents are never read)
-    segs_v = torch.where(
-        counts_v > 0, (ends_v - 1) // q - starts_v // q + 1, 1)
-    passes = max(max_segs - 1, 0).bit_length()
-    for p in range(passes):
-        s = 1 << p
-        take = ((seg_v % (2 * s) == 0) & (seg_v + s < segs_v))[:, None]
-        part_t = torch.cat([tv[s:], tv.new_ones((s, px_count))])
-        for c in range(3):
-            part_c = torch.cat([chans[c][s:], tv.new_zeros((s, px_count))])
-            if blend == "over":
-                # this row = earlier segments, partner = later: later on top
-                chans[c] = torch.where(take, chans[c] * part_t + part_c,
-                                       chans[c])
-            else:
-                chans[c] = torch.where(take, chans[c] + part_c, chans[c])
-        if blend == "over":
-            tv = torch.where(take, tv * part_t, tv)
-
-    # segment-0 row holds each tile's composite
-    rs = row_start.long()
-    frame_t = torch.stack([c[rs] for c in chans], dim=1)  # [T, 3, px]
-
-    def assemble(t, ch):  # [T, ch, th*tw] -> [H, W, ch] (or [H, W])
-        t = t.reshape(gh, gw, ch, TILE_H, TILE_W)
-        t = t.permute(0, 3, 1, 4, 2).reshape(height, width, ch)
-        return t[..., 0] if ch == 1 else t
+    color, trans = composite(
+        s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k, hi_k, row_start,
+        row_end, inv_sx, inv_sy, intensity, q=q, grid=(gh, gw),
+        tile=(TILE_H, TILE_W), blend=blend)
 
     if return_trans:
         # chunked-composite mode: UNclipped premultiplied color + the
         # transmittance plane; the caller folds chunks associatively
-        return FrameOutput(
-            assemble(frame_t, 3), truncated, span_y, span_x,
-            assemble(tv[rs][:, None, :], 1),
-        )
+        return FrameOutput(color, truncated, span_y, span_x, trans)
 
-    frame = assemble(torch.clamp(frame_t, 0.0, 1.0), 3)
+    frame = torch.clamp(color, 0.0, 1.0)
     if frame_uint8:
         # the reference swap chain's R8G8B8A8_UNORM analog (`Render.cpp:292`)
         frame = (frame * 255.0 + 0.5).to(torch.uint8)
@@ -393,8 +303,8 @@ def _chunk_width(n: int, chunk_size: int):
 def _chunked_fold(
     position, wvp, p00, p11, size, intensity, num_draw,
     *, width, height, seg_q, dup_y, dup_x, near, blend,
-    chunk_size, frame_uint8, composite: Callable = composite_rows,
-    sort: Callable = sort_kv_stable, gather: Callable = gather_rows,
+    chunk_size, frame_uint8, composite: Callable = composite_tiles,
+    sort: Callable = sort_kv_stable,
 ) -> FrameOutput:
     """Fold id-ordered particle chunks through the associative composite:
     later ∘ earlier = (C_l + C_e T_l, T_e T_l). Each chunk renders with its
@@ -417,7 +327,7 @@ def _chunked_fold(
             _chunk_draw(nd_global, i * cn, cn), i * cn,
             width=width, height=height, seg_q=seg_q,
             dup_y=dup_y, dup_x=dup_x, near=near, blend=blend,
-            return_trans=True, composite=composite, sort=sort, gather=gather,
+            return_trans=True, composite=composite, sort=sort,
         )
         if cf is None:
             cf, tf = out.frame, out.trans
@@ -439,9 +349,9 @@ class Renderer:
 
     The composite is exact at any tile depth; `seg_q` is a pure performance
     knob (sprites per segment row). `last_truncated` reports sprites larger
-    than the dup_y x dup_x tile window (fix by raising those). The sort,
-    row-gather and composite kernels run on CUDA tensors; CPU tensors take
-    their twins.
+    than the dup_y x dup_x tile window (fix by raising those). The sort
+    and composite kernels run on CUDA tensors; CPU tensors take their
+    twins.
     """
 
     def __init__(
@@ -485,9 +395,8 @@ class Renderer:
         self.entry_budget = 64 * 1024 * 1024
         # The kernels' wrappers (their plain twins run for CPU tensors);
         # each replaceable by its twin to compare the two on the card.
-        self.composite = composite_rows
+        self.composite = composite_tiles
         self.sort = sort_kv_stable
-        self.gather = gather_rows
         self._last_n = 0
         # particles per sort of the LAST render: == _last_n for single-pass
         # frames, the chunk width for chunked ones (drives the budget)
@@ -540,7 +449,7 @@ class Renderer:
         kw = dict(width=cfg.width, height=cfg.height, dup_y=self.dup_y,
                   dup_x=self.dup_x, near=cfg.near, blend=self.blend,
                   frame_uint8=frame_uint8, composite=self.composite,
-                  sort=self.sort, gather=self.gather)
+                  sort=self.sort)
         if n > self.chunk_threshold:
             _, cn = _chunk_width(n, self.chunk_size)
             self._last_sort_n = cn

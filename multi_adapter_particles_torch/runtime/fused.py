@@ -52,8 +52,7 @@ from multi_adapter_particles_torch.ops.allpairs import (
     all_pairs_accel_halfpair,
 )
 from multi_adapter_particles_torch.ops.central_well import central_well_step
-from multi_adapter_particles_torch.ops.composite import composite_rows
-from multi_adapter_particles_torch.ops.rowgather import gather_rows
+from multi_adapter_particles_torch.ops.composite import composite_tiles
 from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
 from multi_adapter_particles_torch.render.camera import Camera
 from multi_adapter_particles_torch.render.renderer import FrameOutput, Renderer
@@ -74,7 +73,7 @@ CAPTURED = {
 # (ops/treeforce.py) and the list build uses torch.nonzero, which syncs.
 
 # The kernel wrappers a fused frame can launch (their `.launches` counters).
-COUNTED = (central_well_step, composite_rows, sort_kv_stable, gather_rows,
+COUNTED = (central_well_step, composite_tiles, sort_kv_stable,
            all_pairs_accel, all_pairs_accel_halfpair)
 
 
@@ -170,7 +169,7 @@ class FusedEngine:
         """What a captured frame bakes in besides the static tensors."""
         r = self.renderer
         return (r.dup_y, r.dup_x, r.seg_q, r.blend, r.chunk_threshold,
-                r.chunk_size, r.composite, r.sort, r.gather,
+                r.chunk_size, r.composite, r.sort,
                 integrator.live_count(num_sim, self.state.padded_count))
 
     def _capture(self, num_sim: Optional[int]) -> None:

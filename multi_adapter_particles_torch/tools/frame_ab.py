@@ -1,4 +1,4 @@
-"""A/B timing of the torch port's 4M main-path frame between checkouts, on
+"""A/B timing of the torch port's main-path frames between checkouts, on
 one CUDA GPU.
 
     python3 multi_adapter_particles_torch/tools/frame_ab.py ROOT [ROOT ...]
@@ -8,7 +8,8 @@ Each ROOT is a checkout of the repository (this one, or an unpacked
 order given, so list two as A B B A to cancel drift. For each it prints one
 JSON line for the reference's default scene (4,194,304 particles, central
 well, 1024x1024, device init, seed 0), split loop and, where the checkout
-has it, the fused frame (`-fused`):
+has it, the fused frame (`-fused`), and the fused frame of 262,144
+particles at 1280x720 (keys `fused720_*`):
 
 - `*_frame_ms`: the CLI's median CUDA-event device frame over `-steps 40`
   (`-novsync -nogui -metrics`), with the render / simulate stage EMAs;
@@ -30,13 +31,16 @@ import sys
 import tempfile
 
 N, SIDE, STEPS, WINDOW = 4_194_304, 1024, 40, 10
+# (label, particles, width, height, fused)
+SCENES = (("split", N, SIDE, SIDE, False), ("fused", N, SIDE, SIDE, True),
+          ("fused720", 262_144, 1280, 720, True))
 
 
-def _cli(app, fused: bool) -> dict:
+def _cli(app, n, width, height, fused: bool) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "m.json")
-        rc = app.main(["-numparticles", str(N), "-width", str(SIDE),
-                       "-height", str(SIDE), "-steps", str(STEPS),
+        rc = app.main(["-numparticles", str(n), "-width", str(width),
+                       "-height", str(height), "-steps", str(STEPS),
                        "-novsync", "-nogui", "-metrics", path]
                       + (["-fused"] if fused else []))
         if rc != 0:
@@ -48,7 +52,7 @@ def _cli(app, fused: bool) -> dict:
             "simulate_ms": m["stages_ms"]["simulate"]}
 
 
-def _profile(fused: bool) -> dict:
+def _profile(n, width, height, fused: bool) -> dict:
     """Busy share and kernels a frame over WINDOW steady frames."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -61,9 +65,9 @@ def _profile(fused: bool) -> dict:
     from multi_adapter_particles_torch.runtime.orchestrator import ParticlesApp
 
     kw = {"fused": True} if fused else {}
-    p = ParticlesApp(AppConfig(num_particles=N, vsync=False, gui=False),
-                     SimConfig(num_particles=N),
-                     RenderConfig(width=SIDE, height=SIDE), **kw)
+    p = ParticlesApp(AppConfig(num_particles=n, vsync=False, gui=False),
+                     SimConfig(num_particles=n),
+                     RenderConfig(width=width, height=height), **kw)
     for _ in range(5):
         p.draw()
     torch.cuda.synchronize()
@@ -100,11 +104,12 @@ def measure(root: str) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("frame_ab.py needs a CUDA GPU")
     out = {"root": root, "device": torch.cuda.get_device_name(0)}
-    modes = [("split", False)]
-    if "fused" not in getattr(app, "_LATER_FLAGS", {}):
-        modes.append(("fused", True))
-    for label, fused in modes:
-        for k, v in {**_cli(app, fused), **_profile(fused)}.items():
+    has_fused = "fused" not in getattr(app, "_LATER_FLAGS", {})
+    for label, n, width, height, fused in SCENES:
+        if fused and not has_fused:
+            continue
+        scene = (n, width, height, fused)
+        for k, v in {**_cli(app, *scene), **_profile(*scene)}.items():
             out[f"{label}_{k}"] = v
     return out
 

@@ -3,10 +3,10 @@
 `gather_rows_plain` (what the wrapper runs for a CPU tensor) is held
 bitwise against the JAX package's `ops/rowgather.gather_rows` and against
 `table[idx]`, with out-of-range indices clamped as XLA's gather clamps
-them; and the renderer's packed payload layout — [E, 4] payloads into
-[data_rows, 4Q] rows, gathered and viewed as [4, Q, V] — against the JAX
-renderer's expression. The CUDA kernel is held against the twin by
-chip_smoke.py on the card."""
+them; and the eager composite's packed payload layout (`packed_rows`:
+[E, 4] payloads into [data_rows, 4Q] rows, gathered and viewed as
+[4, Q, V]) against the JAX renderer's expression. The CUDA kernel is
+held against the twin by chip_smoke.py on the card."""
 
 import numpy as np
 import pytest
@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from multi_adapter_particles_tpu.ops.rowgather import gather_rows as jax_gather
 
 from multi_adapter_particles_torch.ops import rowgather
+from multi_adapter_particles_torch.ops.composite import packed_rows
 
 # The suite runs one xdist worker per core; torch's own thread pool on top
 # only oversubscribes them.
@@ -87,9 +88,10 @@ def test_wrapper_refuses_other_devices():
 
 @pytest.mark.parametrize("q,e_pad", [(8, 0), (16, 5)])
 def test_renderer_packed_layout_matches_jax(q, e_pad):
-    """The renderer's one packed gather gives the JAX renderer's
-    [4, Q, V] payload planes (`render/renderer.py` there: stack, pad,
-    [data_rows, 4Q] channel-major rows, gather, transpose)."""
+    """The eager composite's one packed gather (`packed_rows`, then the
+    row gather) gives the JAX renderer's [4, Q, V] payload planes
+    (`render/renderer.py` there: stack, pad, [data_rows, 4Q]
+    channel-major rows, gather, transpose)."""
     rng = np.random.default_rng(q)
     e = 40 * q - e_pad
     data_rows = -(-e // q)
@@ -100,9 +102,10 @@ def test_renderer_packed_layout_matches_jax(q, e_pad):
         0, 2, 1).reshape(data_rows, 4 * q)
     want = np.asarray(packed_j[jnp.asarray(j_v)].reshape(57, 4, q)
                       .transpose(1, 2, 0))
-    p = torch.from_numpy(padded)
-    packed = p.reshape(data_rows, q, 4).transpose(1, 2).reshape(data_rows,
-                                                                4 * q)
+    p = torch.from_numpy(payload)
+    packed = packed_rows(p[:, 0].view(torch.float32),
+                         p[:, 1].view(torch.float32),
+                         p[:, 2].view(torch.float32), p[:, 3].contiguous(), q)
     got = rowgather.gather_rows(packed, torch.from_numpy(j_v)).reshape(
         57, 4, q).permute(1, 2, 0)
     np.testing.assert_array_equal(got.numpy(), want)
