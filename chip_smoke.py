@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 1. device check + the card's name and power limit (nvidia-smi)
 2. kernel build (nvcc, seconds printed; ptxas register and spill report,
    one line per kernel; the all-pairs variants' SASS opcode tally, and
-   attr's modes checked to have dropped their rsqrt or multiplies)
+   attr's modes checked to have dropped their rsqrt or multiplies; the
+   instruction mix a pair of every rsqrt loop of the three all-pairs
+   sources (`tools/sass.py`), the half-pair item kernel's held to 15 FP32
+   and 1 MUFU a pair with the j-side (12 without), no rsqrt guard, and at
+   most 17 issue slots a pair)
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
 4. composite_rows kernel (the depth-Q pass alone, off the render path) vs
    plain on the rows the eager composite builds for one 1M chunk of the 4M
@@ -58,7 +62,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    1,048,576-particle state against all its sources (float32 twin and a
    float64 evaluation); kernel time at the full 1M
 8. all-pairs half-pair kernel vs plain at 131,072 and vs the rectangle
-   kernel at 1,048,576; kernel times at 1M
+   kernel at 1,048,576; its RMS error against phase 7's float64 sum on
+   the 4,096 sampled targets at most 2x the float32 twin's; kernel times
+   at 1M beside the round schedule's before (no gate); the device
+   launches of one call at 1M and at 65,536 (torch.profiler, at most 32),
+   the folds' share of the call and the peak scratch at 1M
 9. half-pair fallback at an untileable N (100,096) is bitwise the rectangle
    kernel; both kernels run twice at 1M give equal results
 10. all-pairs main path: `app.main -force all_pairs` at 1,048,576, 8 frames
@@ -79,7 +87,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     runs bitwise; the full forms vs phase 8's half-pair kernel at 131,072
     and at 1,048,576; the t = 512 cases and the v7 cases timed at
     1,048,576 with pairs/s, their FP32 and MUFU bounds, phase 8's time,
-    the peak scratch and the fold kernels' device time (torch.profiler)
+    the peak scratch and the fold kernels' device time (torch.profiler);
+    v6 beside phase 8's kernel
 11. tree sweeps vs their twins at 262,144 (device init, auto grid G=128,
     B=256, probed budget, dropped == 0): directed and Newton-3rd kernels
     on the same lists, <= 1e-5 of max|a_near|; kernel (on lists prepared
@@ -146,9 +155,9 @@ true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
-import re
 import subprocess
 import tempfile
 import time
@@ -167,6 +176,12 @@ N_AP = 1_048_576          # the all-pairs path (BASELINE.json's 1M)
 AP_SAMPLE = 4_096         # rectangle targets held against the plain twin
 N_HALF_CHECK = 131_072    # 256 tiles of 512: half-pair kernel vs plain
 N_UNTILEABLE = 100_096    # padded 100,000: not a multiple of 512
+N_HALF_CAPTURE = 65_536   # the fused all-pairs scene (phase 24)
+HALF_LAUNCH_LIMIT = 32    # device launches a half-pair call may take
+# phase 8's half-pair call at 1M on an H100 at 700 W as the round schedule
+# it replaced (tools/halfpair_profile.py on its commit; an earlier phase 8
+# read 496.6 ms), logged beside the new one (no gate)
+HALF_1M_MS_BEFORE = 490.94
 AP_STEPS_HALF = 8
 AP_STEPS_RECT = 6
 N_TREE_CHECK = 262_144    # tree kernels vs twins (G=128, B=256); exact gauge
@@ -194,21 +209,23 @@ BOX, CUTOFF = 2048.0, 6.75   # SimConfig's pm_box and p3m_cutoff_cells
 HBM_BYTES_PER_S = 3.35e12
 SMS, FP32_LANES = 132, 128
 # FP32-pipe instructions per pair or pixel-slot, counted from the sources
-# (each source's header comment gives the tally)
-INSTR = {"all_pairs_rect": 11, "all_pairs_half_round": 14,
-         "all_pairs_half_diag": 11, "tree_sweep": 27, "tree_sweep_n3": 33,
+# (each source's header comment gives the tally; the all-pairs ones agree
+# with phase 2's SASS of their loops)
+INSTR = {"all_pairs_rect": 12, "all_pairs_half": 15,
+         "all_pairs_half_diag": 12, "tree_sweep": 27, "tree_sweep_n3": 33,
          "tree_sweep_with_potential": 41, "tree_sweep_potential_only": 23,
          "tree_sweep_half_pairs": 23, "composite": 28, "tile_combine": 7}
 # Per pair and pipe, for the all-pairs variants (the tally in
-# csrc/allpairs_variants.cu's header): FP32 instructions, MUFU (rsqrt)
-# instructions and padded tensor-core flops (BF16 mma, dense)
+# csrc/allpairs_variants.cu's header, which phase 2's SASS of their loops
+# bears out): FP32 instructions, MUFU (rsqrt) instructions and padded
+# tensor-core flops (BF16 mma, dense)
 PIPES = {
-    "attr full": (11, 1, 0), "attr norsqrt": (10, 0, 0),
-    "attr noaccum": (9, 1, 0), "unroll": (11, 1, 0), "v4": (11, 1, 0),
+    "attr full": (12, 1, 0), "attr norsqrt": (11, 0, 0),
+    "attr noaccum": (9, 1, 0), "unroll": (12, 1, 0), "v4": (12, 1, 0),
     "v1b highest": (5, 1, 128), "v1b default": (3, 1, 48),
     "v1 highest": (6, 1, 128), "v1 default": (4, 1, 48),
     "v3 vpu": (8, 1, 32), "v3 mm_split": (5, 1, 64), "v3 mm_bf16": (4, 1, 48),
-    "hybrid": (9, 1, 128 / 3),
+    "hybrid": (29 / 3, 1, 128 / 3),
 }
 # issue rates a clock per SM: FP32 lanes, MUFU lanes, BF16 dense tensor
 # flops (989 TFLOP/s = 132 x 4,096 x 1,830 MHz, the data sheet's clock)
@@ -296,23 +313,6 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _kernel_name(mangled: str) -> str:
-    """A kernel's name and its template arguments (ints or bools) from its
-    Itanium-mangled symbol: `_ZN12_GLOBAL__N_120sweep_n3_pair_kernelILi4E
-    ...` -> `sweep_n3_pair_kernel<4>`, `..._kernelILb1ELb0ELb0EE...` ->
-    `..._kernel<1,0,0>`."""
-    s = mangled[2:].lstrip("N") if mangled.startswith("_Z") else mangled
-    name = s
-    while (m := re.match(r"\d+", s)):
-        n, start = int(m.group()), m.end()
-        name, s = s[start:start + n], s[start + n:]
-    t = re.match(r"I((?:L[a-z]+-?\d+E)+)", s)
-    if not t:
-        return name
-    return name + "<" + ",".join(re.findall(r"L[a-z]+(-?\d+)E",
-                                           t.group(1))) + ">"
-
-
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -327,6 +327,7 @@ def phase_build():
         sortkv,
         treeforce,
     )
+    from multi_adapter_particles_torch.tools import sass
 
     log("phase 2: build")
     # (source, the loader that builds it, its extra nvcc flags)
@@ -342,29 +343,14 @@ def phase_build():
                ("allpairs_halfpair", allpairs_halfpair._library, ()))
 
     def ptxas_report(name, extra, tmp):
-        """register / spill lines of one source (compile only, no library)"""
-        cmd = [_build.nvcc_path(), "-gencode",
-               "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               *extra, "-Xptxas", "-v", "-cubin",
-               "-o", os.path.join(tmp, f"{name}.cubin"),
-               str(_build.CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=300)
-        if proc.returncode != 0:
-            fail(f"ptxas report for {name}: {proc.stderr}")
-        # one line per kernel: its name, then its spill and register lines
-        out, kernel, parts = [], "?", []
-        for line in (proc.stdout + proc.stderr).splitlines():
-            entry = re.search(r"Compiling entry function '(\w+)'", line)
-            if entry:
-                kernel = _kernel_name(entry.group(1))
-            elif "spill" in line:
-                parts = [line.strip()]
-            elif "registers" in line:
-                out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}; "
-                           + "; ".join(parts))
-                parts = []
-        return out
+        """register / spill lines of one source (compile only, no
+        library), its cubin kept in `tmp` for the SASS tallies"""
+        try:
+            return sass.compile_cubin(_build.CSRC_DIR / f"{name}.cu",
+                                      os.path.join(tmp, f"{name}.cubin"),
+                                      extra)
+        except RuntimeError as e:
+            fail(f"ptxas report for {name}: {e}")
 
     t0 = time.perf_counter()
     # one nvcc per source and per report, all started together
@@ -385,6 +371,8 @@ def phase_build():
                         not in line):
                     fail(f"{name} spills: {line}")
         sass_tally(os.path.join(tmp, "allpairs_variants.cubin"))
+        for name in ("allpairs", "allpairs_variants", "allpairs_halfpair"):
+            loop_tally(name, os.path.join(tmp, f"{name}.cubin"))
 
 
 # SASS opcodes tallied per kernel of csrc/allpairs_variants.cu
@@ -396,24 +384,12 @@ def sass_tally(cubin):
     fail unless attr's modes removed what they remove: no rsqrt in the
     source loop of "norsqrt" (only |a|'s sqrt is left), fewer multiplies
     in "noaccum" than in "full"."""
-    from multi_adapter_particles_torch.ops import _build
+    from multi_adapter_particles_torch.tools import sass
 
-    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    proc = subprocess.run([tool, "-sass", cubin], capture_output=True,
-                          text=True, timeout=120)
-    if proc.returncode != 0:
-        fail(f"cuobjdump: {proc.stderr}")
-    counts, kernel = {}, None
-    for line in proc.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            kernel = _kernel_name(m.group(1))
-            counts[kernel] = dict.fromkeys(SASS_OPS, 0)
-            continue
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
-                      line)
-        if m and kernel and m.group(1) in SASS_OPS:
-            counts[kernel][m.group(1)] += 1
+    counts = {}
+    for kernel, instrs in sass.disassemble(cubin).items():
+        ops = collections.Counter(op.split(".")[0] for _, _, op, _ in instrs)
+        counts[kernel] = {k: ops[k] for k in SASS_OPS}
     for kernel, c in counts.items():
         log(f"  SASS {kernel}: " + ", ".join(f"{k} {v}" for k, v in
                                               c.items()))
@@ -426,6 +402,40 @@ def sass_tally(cubin):
              f"{full['MUFU']})")
     if not noaccum["FMUL"] + noaccum["FFMA"] < full["FMUL"] + full["FFMA"]:
         fail("attr noaccum keeps full's multiplies")
+
+
+def loop_tally(name, cubin):
+    """Log the instruction mix a pair of every rsqrt loop in `cubin`
+    (`tools/sass.py`); for csrc/allpairs.cu, fail unless the half-pair
+    item kernel's j-side loop takes 15 FP32 and 1 MUFU a pair in at most
+    17 issue slots, its i-side loop 12 FP32, neither with the rsqrt
+    guard."""
+    from multi_adapter_particles_torch.tools import sass
+
+    loops = {k: [sass.loop_mix(b) for b in sass.rsqrt_loops(v)]
+             for k, v in sass.disassemble(cubin).items()}
+    for kernel, mixes in loops.items():
+        for mix in mixes:
+            log(f"  SASS loop {name} {kernel}: {sass.format_mix(mix)}")
+    if name != "allpairs":
+        return
+    mixes = [m for m in loops.get("half_item_kernel", [])
+             if not m["collective"]]
+    both = [m for m in mixes if m["SHFL"] > 0]
+    iside = [m for m in mixes if m["SHFL"] == 0]
+    if len(both) != 1 or len(iside) != 1:
+        fail(f"half_item_kernel: {len(both)} j-side and {len(iside)} i-side "
+             "rsqrt loops, expected one each")
+    for label, mix, fp32 in (("j-side", both[0], INSTR["all_pairs_half"]),
+                             ("i-side", iside[0],
+                              INSTR["all_pairs_half_diag"])):
+        if mix["fp32"] != fp32 or mix["MUFU"] != 1 or mix["FSETP"]:
+            fail(f"half_item_kernel {label} loop: FP32 {mix['fp32']}, MUFU "
+                 f"{mix['MUFU']}, FSETP {mix['FSETP']} a pair (want {fp32}, "
+                 "1, 0)")
+    if both[0]["slots"] > 17:
+        fail(f"half_item_kernel j-side loop: {both[0]['slots']:.3f} issue "
+             "slots a pair > 17")
 
 
 def phase_central_well(dev):
@@ -1319,15 +1329,18 @@ def phase_allpairs_rect(dev):
         fail("the sampled targets' rows differ from the full 1M result")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
-            "ms_1m": ms_1m}, full
+            "ms_1m": ms_1m}, full, (idx, rms_p, p64)
 
 
-def phase_allpairs_half(dev, rect_1m):
+def phase_allpairs_half(dev, rect_1m, sample):
+    """Phase 8. `sample`: phase 7's sampled target indices, its float32
+    twin's RMS error against the float64 sum, and that sum."""
     import torch
 
     from multi_adapter_particles_torch.ops.allpairs import (
         all_pairs_accel_halfpair,
         all_pairs_accel_halfpair_plain,
+        half_items,
     )
 
     log(f"phase 8: all-pairs half-pair kernel vs plain @ {N_HALF_CHECK:,}, "
@@ -1349,26 +1362,65 @@ def phase_allpairs_half(dev, rect_1m):
         nt, t2 = n // 512, 512 * 512
         return issue_bound_ms(
             nt * t2 * INSTR["all_pairs_half_diag"]
-            + nt * (nt - 1) // 2 * t2 * INSTR["all_pairs_half_round"], mhz)
+            + nt * (nt - 1) // 2 * t2 * INSTR["all_pairs_half"], mhz)
 
     bound = half_bound_ms(N_HALF_CHECK)
     del pos, k, p
+    # the device launches of a call, its item table built beforehand (by
+    # the first call of a run)
+    launches = {}
+    pos = _ap_state(dev, N_HALF_CAPTURE)
+    half_items(N_HALF_CAPTURE, pos.device)
+    _, kernels = launch_profile(
+        lambda: all_pairs_accel_halfpair(pos, **_ap_phys(N_HALF_CAPTURE)))
+    launches[N_HALF_CAPTURE] = len(kernels)
+    del pos
     pos = _ap_state(dev, N_AP)
     phys = _ap_phys(N_AP)
-    half = all_pairs_accel_halfpair(pos, **phys)
+    half_items(N_AP, pos.device)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    half, kernels = launch_profile(
+        lambda: all_pairs_accel_halfpair(pos, **phys))
+    # above what the process held before, less the [4, N] result
+    scratch = torch.cuda.max_memory_allocated() - base - half.numel() * 4
+    launches[N_AP] = len(kernels)
+    fold = sum(t for name, t in kernels if "fold" in name)
+    busy = sum(t for _, t in kernels)
+    log(f"  device launches a call (torch.profiler): {launches}; at "
+        f"{N_AP:,}: {dict(collections.Counter(n for n, _ in kernels))}, "
+        f"folds {fold:.3f} of {busy:.3f} profiled kernel ms "
+        f"({fold / busy:.2%}); peak scratch {scratch / 1e9:.3f} GB")
+    for n, count in launches.items():
+        if count > HALF_LAUNCH_LIMIT:
+            fail(f"half-pair kernel at {n:,}: {count} device launches > "
+                 f"{HALF_LAUNCH_LIMIT}")
     # two schedules of the same sum (the JAX test: 5e-6 at 2048)
     check_rel("half vs rect @1M", half, rect_1m, 2e-5)
-    ms_1m = time_ms(lambda: all_pairs_accel_halfpair(pos, **phys), reps=2,
-                    warmup=0)
+    idx, rms_twin, p64 = sample
+    rms = float(((half[:3, idx].double() - p64[:3]) ** 2).mean().sqrt())
+    log(f"  RMS error vs float64 on phase 7's {idx.numel():,} targets: "
+        f"kernel {rms:.3e}, phase 7's float32 twin {rms_twin:.3e}")
+    if not rms <= 2.0 * rms_twin:
+        fail(f"half kernel RMS error {rms:.3e} > 2x the twin's "
+             f"{rms_twin:.3e}")
+    ms_1m, mhz_1m = _time_and_clock(
+        lambda: all_pairs_accel_halfpair(pos, **phys), reps=2, warmup=0)
+    bound_1m = half_bound_ms(N_AP) * mhz / mhz_1m
     log(f"  {N_HALF_CHECK:,}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
         f"{N_AP:,}: kernel {ms_1m:.3f} ms = "
-        f"{N_AP * N_AP / (ms_1m * 1e-3):.4e} effective pairs/s")
-    log(f"  {N_HALF_CHECK:,} bound {bound:.3f} ms, {N_AP:,} bound "
-        f"{half_bound_ms(N_AP):.3f} ms ({mhz:.0f} MHz)")
+        f"{N_AP * N_AP / (ms_1m * 1e-3):.4e} effective pairs/s (the round "
+        f"schedule before: {HALF_1M_MS_BEFORE} ms)")
+    log(f"  {N_HALF_CHECK:,} bound {bound:.3f} ms ({mhz:.0f} MHz) -> "
+        f"{bound / ms:.1%}; {N_AP:,} bound {bound_1m:.3f} ms ({mhz_1m:.0f} "
+        f"MHz) -> {bound_1m / ms_1m:.1%}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
-            "ms_1m": ms_1m}, half
+            "ms_1m": ms_1m, "bound_ms_1m": bound_1m, "rms_1m": rms,
+            "rms_twin": rms_twin, "launches_a_call": launches,
+            "fold_ms": fold, "profiled_kernel_ms": busy,
+            "scratch_bytes_1m": scratch}, half
 
 
 def phase_allpairs_exact(dev, rect_1m, half_1m):
@@ -1791,6 +1843,9 @@ def phase_halfpair_generations(dev, half, half_1m):
         if scratch > GEN_SCRATCH_LIMIT:
             fail(f"{label}: {scratch / 1e9:.3f} GB of scratch at 1M > "
                  f"{GEN_SCRATCH_LIMIT / 1e9} GB")
+    v6 = at_1m["v6 prefetch t=512"]
+    log(f"  v6 {v6['ms']:.3f} ms against #4's {half['ms_1m']:.3f} ms "
+        f"(phase 8): #4 takes {half['ms_1m'] / v6['ms']:.3f}x v6's time")
     del pos, ref
     torch.cuda.empty_cache()
     entries = {name: {**stats[label], "launches": launches[name]}
@@ -2533,8 +2588,9 @@ def main() -> int:
     frame_err, frame["render_launches"] = phase_full_frame(seen)
     del seen
     torch.cuda.empty_cache()
-    rect, rect_1m = phase_allpairs_rect(dev)
-    half, half_1m = phase_allpairs_half(dev, rect_1m)
+    rect, rect_1m, sample = phase_allpairs_rect(dev)
+    half, half_1m = phase_allpairs_half(dev, rect_1m, sample)
+    del sample
     phase_allpairs_exact(dev, rect_1m, half_1m)
     del rect_1m
     torch.cuda.empty_cache()

@@ -3,7 +3,7 @@
 //
 // Replaces two TPU kernels of `multi_adapter_particles_tpu/ops/allpairs.py`:
 // `_allpairs_kernel` (launcher `all_pairs_accel_pallas`) and
-// `_halfpair_kernel` (launcher `all_pairs_accel_halfpair`).
+// `_halfpair_kernel` (:269, launcher `all_pairs_accel_halfpair` :338).
 //
 // Both compute, for each target i,
 //   a_i = mass_scale * sum_j d_ij / (|d_ij|^2 + eps2)^{3/2},  d_ij = p_j - p_i,
@@ -14,11 +14,15 @@
 // and contribute 0, real-to-pad pairs contribute ~1e-18, and self pairs
 // contribute 0 through eps2.
 //
-// Bound on the H100: arithmetic. A pair costs 11 fp32 instructions in the
-// rectangle (3 sub, 3 FMA for d2, 2 mul, 3 FMA into the sums) and 14 in the
-// half-pair kernel (3 more FMA for the j-side) plus one MUFU rsqrt, and
-// reads nothing from device memory in the inner loop. At 132 SMs x 128
-// fp32 lanes that caps the rectangle near 3e12 pairs/s at boost clock.
+// Bound on the H100: arithmetic, the FP32 issue slot (an SM issues one warp
+// instruction a clock on each of its four schedulers, and its 128 FP32
+// lanes need every slot). A pair costs 12 FP32 instructions in the
+// rectangle (3 FADD for d, FMUL + 2 FFMA + FADD for d2, 2 FMUL for s, 3
+// FFMA into the sums) and 15 in the half-pair kernel (3 more FFMA for the
+// j-side; 12 on diagonal tiles), plus one MUFU rsqrt, which takes an issue
+// slot too. The inner loops read nothing from device memory. At 1,980 MHz
+// the half-pair schedule's 1M call is bound at 246.6 ms by FP32 issue and
+// 131.5 ms by the MUFU pipe (16 lanes an SM).
 //
 // Rectangle: one thread per target; 256-source tiles of (x, y, z) are
 // staged through shared memory as float4 (coalesced plane loads, then every
@@ -26,36 +30,65 @@
 // (the split form of the multi-device ring).
 //
 // Float32 error of a 1M-term sum: a plain running sum loses ~sqrt(N) ulps
-// where torch's blocked tree sum loses a few. So each tile is summed in
-// four interleaved chains of 64 terms (which also gives the scheduler four
-// independent FMA chains), and the tile sums go into the running sum with
-// Kahan compensation; the half-pair kernel keeps a compensation plane
-// beside its accumulators in device memory for the same reason.
+// where torch's blocked tree sum loses a few. So each rectangle tile is
+// summed in four interleaved chains of 64 terms (which also gives the
+// scheduler four independent FMA chains), and the tile sums go into the
+// running sum with Kahan compensation; the half-pair kernel sums each
+// 512-source tile in registers and folds its per-item sums with Kahan.
 //
-// Half-pair: the same tile pairs as the TPU schedule (tiles of T = 512; each
+// Half-pair: the TPU schedule's pair set on tiles of T = 512 (each
 // unordered pair of tiles once, the i-side taking row sums and the j-side
-// negated column sums; diagonal tiles take the i-side over the whole tile).
-// The TPU kernel carries the j-side sums in VMEM across a sequential grid;
-// Hopper blocks run in parallel and in no order, and the port promises
-// results that are the same from run to run, so there are no float atomics.
-// Instead a round-robin ("circle method") schedule: nt tiles (one idle
-// tile added when nt is odd) meet in nt-1 rounds, one launch each, in which
-// every tile is in exactly one pair. The block of a pair (p, q) is then the
-// only writer of both accumulators in its round, and adds its i-side sums
-// to tile p and its j-side sums to tile q with plain read-modify-writes.
-// A first launch writes the diagonal tiles' sums; a last one scales and
-// takes |a|. The order of every sum is fixed by the round, the block and
-// the lane, so the result is bitwise the same from run to run.
+// negated column sums; a diagonal tile takes the i-side over the whole
+// tile, self pairs included). The TPU kernel carries the j-side sums in
+// VMEM across a sequential grid; Hopper blocks run in parallel and in no
+// order, and the port promises results that are the same from run to run,
+// so there are no atomics.
 //
-// Inside a round block (4 warps, 4 targets per lane held in registers): the
-// j-side column sums need a sum across lanes for every j. A warp takes 32
-// sources at a time, one per lane, with a j-side accumulator beside each;
-// at each of 32 steps every lane pairs its 4 targets with the source it
-// holds, and then the source and its accumulator move one lane down
-// (6 shuffles). After 32 steps each source has met the warp's 128 targets
-// and is back in its own lane, and the accumulator goes to the warp's slot
-// in shared memory. The 4 warps' slots are then summed in warp order. The
-// shuffles run beside the fp32 pipe (6 per 128 pairs).
+// What the round schedule it replaces lost at 1M (tools/halfpair_profile.py
+// on an H100 at 700 W: 490.9 ms against the 246.6 ms bound): 2,047
+// dependent launches of 1,024 CTAs, one partial wave each at 8 CTAs an
+// SM; an inner loop of 21.25 issue slots a pair (FP32 17: the non-ftz
+// rsqrtf wraps MUFU.RSQ in an FSETP and two predicated FMULs; SHFL 1.5:
+// the source and its three j-side sums moved one lane a ring step of 4
+// pairs); and a Kahan read-modify-write of [3, N] sums and compensations
+// at the end of every CTA. The issue mix alone costs 103 ms; tails, gaps
+// and the read-modify-write about 49 ms.
+//
+// The design, against each of those:
+// - One pass over the triangle of super-tiles of G = 4 tiles (2,048
+//   targets; the last one short when nt % 4 != 0): a work item is a
+//   super-tile pair (A, B >= A) from the wrapper's i-major item table, one
+//   CTA each, launched in chunks of whole waves (2 CTAs an SM) whose slots
+//   fit the wrapper's 1 GiB (at 1M: 7 chunks, 14 launches); no chain of
+//   rounds, no grid barrier.
+// - Each item writes its i-side sums [3, 2048] and j-side sums [3, 2048]
+//   into slots of its own. A fold kernel after each chunk Kahan-adds every
+//   column's slots in item-table order into out and comp; the last one
+//   applies the mass and writes |a|. Every sum has a fixed order, so the
+//   result is bitwise the same from run to run. A chunk's slots are
+//   written once and read once (12 floats a column an item, 48 KB).
+// - Inside an item, 8 warps hold the 2,048 targets of A, R = 8 a lane in
+//   registers (strided by 32: warp loads are 128-byte rows). B's sources
+//   are staged a 512-tile at a time in shared memory, each 32-source chunk
+//   stored twice in a row, so that ring step s reads lane + s as one
+//   LDS.128 at an immediate offset. Only the three j-side sums travel, one
+//   lane a step: 3 SHFL and 1 LDS a step of 8 pairs (0.5 a pair, against
+//   1.5). After 32 steps each source's sums are back in its lane; the
+//   warps' column sums of the tile are added in warp order in shared
+//   memory, and written as the item's j-side slot.
+// - The i-side sums run in registers over one 512-source tile and are
+//   then added into a per-target item sum in shared memory.
+// - rsqrt.approx.ftz (inline PTX): d2 >= eps2 > 0 is never denormal, so
+//   the result is the non-ftz rsqrtf's bit for bit, without its guard.
+// - The ring's branches are warp-uniform; __all_sync votes say so, or the
+//   compiler adds a divergent-shuffle fallback around the loop.
+// - 8 ring steps a loop body. The j-side loop's SASS: 15 FP32, 1 MUFU, 0.375 SHFL, 0.125 LDS and
+//   0.19 others, 16.69 issue slots a pair (the i-side loop 13.20; chip_smoke
+//   phase 2 holds them at 15 / 12 FP32 and at most 17 slots): 274 ms of
+//   issue at 1M. 120 registers, 2 CTAs (16 warps) an SM.
+// - On a diagonal item, warps of tile a take source tiles b >= a (the
+//   i-side alone on b == a), and idle on b < a: 6 of 16 tile pairs, on
+//   512 of the 131,328 items at 1M.
 
 #include <cuda_runtime.h>
 
@@ -63,12 +96,6 @@ namespace {
 
 constexpr int RECT_THREADS = 256;  // targets per block, one per thread
 constexpr int RECT_TJ = 256;       // sources per shared-memory tile
-
-constexpr int HALF_T = 512;  // tile width of the half-pair schedule
-constexpr int HALF_WARPS = 4;
-constexpr int HALF_THREADS = HALF_WARPS * 32;
-constexpr int HALF_R = HALF_T / HALF_THREADS;  // targets per lane
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ void pair_acc(float xi, float yi, float zi,
                                          float xj, float yj, float zj,
@@ -147,165 +174,232 @@ rect_kernel(const float* __restrict__ pos, long long ni,
   }
 }
 
-// Target k of lane `lane` in warp `warp` of a tile: strided by 32 so each
-// load and store of the warp is one contiguous 128-byte row.
-__device__ __forceinline__ int half_target(int warp, int lane, int r) {
-  return warp * 32 * HALF_R + r * 32 + lane;
+// The half-pair schedule. Target q of a super-tile lives in warp q / 256,
+// lane q % 32, register (q / 32) % 8; warp w holds 512-tile w / 2.
+constexpr int HALF_T = 512;                      // tile width
+constexpr int HALF_G = 4;                        // tiles a super-tile
+constexpr int HALF_SUPER = HALF_T * HALF_G;      // targets a super-tile
+constexpr int HALF_R = 8;                        // targets a lane
+constexpr int HALF_WARPS = HALF_SUPER / (32 * HALF_R);
+constexpr int HALF_THREADS = HALF_WARPS * 32;
+constexpr int HALF_CHUNKS = HALF_T / 32;         // ring chunks a tile
+constexpr int HALF_UNROLL = 8;                   // ring steps a loop body
+constexpr int HALF_SLOT = 2 * 3 * HALF_SUPER;    // floats of an item's slots
+// dynamic shared memory: the staged tile (each chunk twice), the warps'
+// column sums of a tile, the item's i-side sums
+constexpr int HALF_SMEM = 2 * HALF_T * 16 + HALF_WARPS * 3 * HALF_T * 4 +
+                          3 * HALF_SUPER * 4;
+constexpr int HALF_FOLD_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Diagonal tiles: every target of tile blockIdx.x against the whole tile
-// (the i-side only), written to acc [3, n] (unscaled), with comp [3, n],
-// the Kahan compensation of acc, set to 0.
-__global__ void __launch_bounds__(HALF_THREADS)
-half_diag_kernel(const float* __restrict__ pos, long long n,
-                 float* __restrict__ acc, float* __restrict__ comp,
-                 float eps2) {
-  __shared__ float4 tile[HALF_T];
-  const long long base = (long long)blockIdx.x * HALF_T;
-  for (int k = threadIdx.x; k < HALF_T; k += HALF_THREADS) {
-    tile[k] = make_float4(pos[base + k], pos[n + base + k],
-                          pos[2 * n + base + k], 0.f);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float xi[HALF_R], yi[HALF_R], zi[HALF_R];
-  float ax[2][HALF_R], ay[2][HALF_R], az[2][HALF_R];  // chains: k even / odd
-#pragma unroll
-  for (int r = 0; r < HALF_R; ++r) {
-    const long long i = base + half_target(warp, lane, r);
-    xi[r] = pos[i];
-    yi[r] = pos[n + i];
-    zi[r] = pos[2 * n + i];
-    ax[0][r] = ay[0][r] = az[0][r] = 0.f;
-    ax[1][r] = ay[1][r] = az[1][r] = 0.f;
-  }
-  __syncthreads();
-#pragma unroll 2
-  for (int k = 0; k < HALF_T; k += 2) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const float4 p = tile[k + u];
-#pragma unroll
-      for (int r = 0; r < HALF_R; ++r) {
-        pair_acc(xi[r], yi[r], zi[r], p.x, p.y, p.z, eps2, ax[u][r],
-                 ay[u][r], az[u][r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < HALF_R; ++r) {
-    const long long i = base + half_target(warp, lane, r);
-    acc[i] = ax[0][r] + ax[1][r];
-    acc[n + i] = ay[0][r] + ay[1][r];
-    acc[2 * n + i] = az[0][r] + az[1][r];
-    comp[i] = comp[n + i] = comp[2 * n + i] = 0.f;
-  }
-}
-
-// acc[k] += x with the Kahan compensation kept in comp[k].
-__device__ __forceinline__ void kahan_add_global(float* acc, float* comp,
-                                                 long long k, float x) {
-  float s = acc[k], c = comp[k];
-  kahan_add(s, c, x);
-  acc[k] = s;
-  comp[k] = c;
-}
-
-// One round of the circle method over nt_even tiles (tile nt_even-1 stays
-// put, the others rotate): block 0 pairs (round, nt_even-1), block b > 0
-// pairs ((round+b) % m, (round-b) % m) with m = nt_even-1. Tiles >= nt are
-// the idle tile of an odd count: that pair is skipped.
-__global__ void __launch_bounds__(HALF_THREADS, 8)
-half_round_kernel(const float* __restrict__ pos, long long n, int nt,
-                  int nt_even, int round, float* __restrict__ acc,
-                  float* __restrict__ comp, float eps2) {
-  const int m = nt_even - 1;
-  const int b = blockIdx.x;
-  const int p = b == 0 ? round : (round + b) % m;
-  const int q = b == 0 ? m : (round - b + m) % m;  // b < m
-  if (p >= nt || q >= nt) return;  // uniform across the block
-
-  __shared__ float jpart[HALF_WARPS][3][HALF_T];
-  const long long ibase = (long long)p * HALF_T;
-  const long long jbase = (long long)q * HALF_T;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// One warp against one staged 512-source tile: the row sums of its R
+// targets a lane into (ax, ay, az), set here; with kJ, the warp's negated
+// column sums into jp[3][T]. `src` holds chunk c at [64 c, 64 c + 64): its
+// 32 sources, twice.
+template <bool kJ>
+__device__ __forceinline__ void half_ring(
+    const float4* __restrict__ src, float* __restrict__ jp,
+    const float (&xi)[HALF_R], const float (&yi)[HALF_R],
+    const float (&zi)[HALF_R], float (&ax)[HALF_R], float (&ay)[HALF_R],
+    float (&az)[HALF_R], float eps2, int lane) {
   const int next = (lane + 1) & 31;
+#pragma unroll
+  for (int r = 0; r < HALF_R; ++r) ax[r] = ay[r] = az[r] = 0.f;
+  for (int c = 0; c < HALF_CHUNKS; ++c) {
+    // step s: this lane meets source (lane + s) % 32 and holds its sums
+    const float4* sp = src + c * 64 + lane;
+    float jx = 0.f, jy = 0.f, jz = 0.f;
+    for (int s0 = 0; s0 < 32; s0 += HALF_UNROLL) {
+#pragma unroll
+      for (int u = 0; u < HALF_UNROLL; ++u) {
+        const float4 p = sp[s0 + u];
+#pragma unroll
+        for (int r = 0; r < HALF_R; ++r) {
+          const float dx = p.x - xi[r];
+          const float dy = p.y - yi[r];
+          const float dz = p.z - zi[r];
+          const float d2 = dx * dx + dy * dy + dz * dz + eps2;
+          const float inv = rsqrt_ftz(d2);
+          const float w = inv * inv * inv;
+          ax[r] += dx * w;
+          ay[r] += dy * w;
+          az[r] += dz * w;
+          if (kJ) {
+            jx -= dx * w;
+            jy -= dy * w;
+            jz -= dz * w;
+          }
+        }
+        if (kJ) {  // the sums move on with their source, one lane down
+          jx = __shfl_sync(FULL, jx, next);
+          jy = __shfl_sync(FULL, jy, next);
+          jz = __shfl_sync(FULL, jz, next);
+        }
+      }
+    }
+    if (kJ) {  // 32 moves later each source's sums are in its own lane
+      jp[c * 32 + lane] = jx;
+      jp[HALF_T + c * 32 + lane] = jy;
+      jp[2 * HALF_T + c * 32 + lane] = jz;
+    }
+  }
+}
+
+// Item k0 + blockIdx.x of the table: super-tiles (A, B) = (ia[k], ib[k]),
+// B >= A. Writes slot[blockIdx.x] = [i-side [3][SUPER], j-side [3][SUPER]]
+// (unscaled; columns of missing tiles of a short super-tile untouched).
+__global__ void __launch_bounds__(HALF_THREADS, 2)
+half_item_kernel(const float* __restrict__ pos, long long n, int nt,
+                 const int* __restrict__ ia, const int* __restrict__ ib,
+                 long long k0, float* __restrict__ slot, float eps2) {
+  extern __shared__ float4 smem[];
+  float4* src = smem;                                   // [2 T]
+  float* jpart = reinterpret_cast<float*>(smem + 2 * HALF_T);  // [W][3][T]
+  float* isum = jpart + HALF_WARPS * 3 * HALF_T;        // [3][SUPER]
+  const long long k = k0 + blockIdx.x;
+  const int A = ia[k], B = ib[k];
+  const bool diag = A == B;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wt = warp / 2;  // this warp's tile in A
+  const bool live = A * HALF_G + wt < nt;
+  const long long ibase = (long long)A * HALF_SUPER;
   float xi[HALF_R], yi[HALF_R], zi[HALF_R];
-  float ax[HALF_R], ay[HALF_R], az[HALF_R];
 #pragma unroll
   for (int r = 0; r < HALF_R; ++r) {
-    const long long i = ibase + half_target(warp, lane, r);
-    xi[r] = pos[i];
-    yi[r] = pos[n + i];
-    zi[r] = pos[2 * n + i];
-    ax[r] = ay[r] = az[r] = 0.f;
+    const int q = warp * 32 * HALF_R + r * 32 + lane;
+    const long long i = ibase + q;
+    xi[r] = live ? pos[i] : 0.f;
+    yi[r] = live ? pos[n + i] : 0.f;
+    zi[r] = live ? pos[2 * n + i] : 0.f;
+    isum[q] = isum[HALF_SUPER + q] = isum[2 * HALF_SUPER + q] = 0.f;
   }
-  for (int c = 0; c < HALF_T / 32; ++c) {
-    const long long j = jbase + c * 32 + lane;
-    float xj = pos[j], yj = pos[n + j], zj = pos[2 * n + j];
-    float jx = 0.f, jy = 0.f, jz = 0.f;
-#pragma unroll 2
-    for (int step = 0; step < 32; ++step) {
+  float* si = slot + (long long)blockIdx.x * HALF_SLOT;
+  float* sj = si + 3 * HALF_SUPER;
+  const int tiles_b = min(HALF_G, nt - B * HALF_G);
+  for (int bt = 0; bt < tiles_b; ++bt) {
+    const long long jbase = ((long long)B * HALF_G + bt) * HALF_T;
+    __syncthreads();  // the previous tile's sources and sums are consumed
+    for (int s = threadIdx.x; s < HALF_T; s += HALF_THREADS) {
+      const float4 p = make_float4(pos[jbase + s], pos[n + jbase + s],
+                                   pos[2 * n + jbase + s], 0.f);
+      const int at = (s >> 5) * 64 + (s & 31);
+      src[at] = p;
+      src[at + 32] = p;
+    }
+    __syncthreads();
+    // a diagonal item pairs tile wt with tiles bt >= wt only (both tests
+    // are the same for the whole warp: the votes tell the compiler so,
+    // and it drops its divergent-shuffle fallback)
+    if (__all_sync(FULL, live && (!diag || wt <= bt))) {
+      float ax[HALF_R], ay[HALF_R], az[HALF_R];
+      if (__all_sync(FULL, !diag || wt < bt)) {
+        half_ring<true>(src, jpart + warp * 3 * HALF_T, xi, yi, zi, ax, ay,
+                        az, eps2, lane);
+      } else {
+        half_ring<false>(src, jpart, xi, yi, zi, ax, ay, az, eps2, lane);
+      }
 #pragma unroll
       for (int r = 0; r < HALF_R; ++r) {
-        const float dx = xj - xi[r];
-        const float dy = yj - yi[r];
-        const float dz = zj - zi[r];
-        const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-        const float inv = rsqrtf(d2);
-        const float s = inv * inv * inv;
-        ax[r] += dx * s;
-        ay[r] += dy * s;
-        az[r] += dz * s;
-        jx -= dx * s;
-        jy -= dy * s;
-        jz -= dz * s;
+        const int q = warp * 32 * HALF_R + r * 32 + lane;
+        isum[q] += ax[r];
+        isum[HALF_SUPER + q] += ay[r];
+        isum[2 * HALF_SUPER + q] += az[r];
       }
-      // the source and its j-side sums move one lane down
-      xj = __shfl_sync(FULL, xj, next);
-      yj = __shfl_sync(FULL, yj, next);
-      zj = __shfl_sync(FULL, zj, next);
-      jx = __shfl_sync(FULL, jx, next);
-      jy = __shfl_sync(FULL, jy, next);
-      jz = __shfl_sync(FULL, jz, next);
     }
-    // 32 moves later each source is back in its own lane
-    jpart[warp][0][c * 32 + lane] = jx;
-    jpart[warp][1][c * 32 + lane] = jy;
-    jpart[warp][2][c * 32 + lane] = jz;
-  }
+    __syncthreads();
+    // the tile's column sums: the j-side warps' sums in warp order
+    const int w_end = diag ? 2 * bt : HALF_WARPS;
+    const int w_live = 2 * (nt - A * HALF_G);
+    const int w_last = min(w_end, w_live);
+    for (int s = threadIdx.x; s < HALF_T; s += HALF_THREADS) {
 #pragma unroll
-  for (int r = 0; r < HALF_R; ++r) {
-    const long long i = ibase + half_target(warp, lane, r);
-    kahan_add_global(acc, comp, i, ax[r]);
-    kahan_add_global(acc, comp, n + i, ay[r]);
-    kahan_add_global(acc, comp, 2 * n + i, az[r]);
+      for (int d = 0; d < 3; ++d) {
+        float v = 0.f;
+        for (int w = 0; w < w_last; ++w) v += jpart[(w * 3 + d) * HALF_T + s];
+        sj[d * HALF_SUPER + bt * HALF_T + s] = v;
+      }
+    }
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < HALF_T; k += HALF_THREADS) {
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < HALF_R; ++r) {
+      const int q = warp * 32 * HALF_R + r * 32 + lane;
+      si[q] = isum[q];
+      si[HALF_SUPER + q] = isum[HALF_SUPER + q];
+      si[2 * HALF_SUPER + q] = isum[2 * HALF_SUPER + q];
+    }
+  }
+}
+
+// First item of row a in the i-major table of ns super-tiles.
+__host__ __device__ inline long long half_row_start(long long a,
+                                                    long long ns) {
+  return a * ns - a * (a - 1) / 2;
+}
+
+// Fold the slots of items [k0, k1) (rows a0 .. a1 of the table) into out
+// [0:3] (sums) and comp [3, n] (their Kahan compensation), column g of
+// super-tile S in table order: the j-sides of items (A, S), A < S; then
+// item (S, S), i-side then j-side; then the i-sides of items (S, B > S).
+// `first` starts from 0; `last` writes out = (sum - comp) * mass and |a|.
+__global__ void __launch_bounds__(HALF_FOLD_THREADS)
+half_fold_kernel(const float* __restrict__ slot, long long k0, long long k1,
+                 int a0, int a1, int ns, long long n, float* __restrict__ out,
+                 float* __restrict__ comp, float mass_scale, int first,
+                 int last) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n) return;
+  const int S = (int)(g / HALF_SUPER);
+  const int c = (int)(g - (long long)S * HALF_SUPER);
+  float s[3], e[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    s[d] = first ? 0.f : out[d * n + g];
+    e[d] = first ? 0.f : comp[d * n + g];
+  }
+  const int a_hi = min(a1, S);
+  for (int a = a0; a <= a_hi; ++a) {
+    const long long k = half_row_start(a, ns) + (S - a);
+    if (k < k0 || k >= k1) continue;
+    const float* p = slot + (k - k0) * HALF_SLOT + c;
+    if (a == S) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) kahan_add(s[d], e[d], p[d * HALF_SUPER]);
+    }
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      float s = jpart[0][d][k];
-#pragma unroll
-      for (int w = 1; w < HALF_WARPS; ++w) s += jpart[w][d][k];
-      kahan_add_global(acc, comp, d * n + jbase + k, s);
+      kahan_add(s[d], e[d], p[(3 + d) * HALF_SUPER]);
     }
   }
-}
-
-// out[0:3] = (out[0:3] - comp) * mass_scale; out[3] = |out[0:3]|.
-__global__ void finish_kernel(float* __restrict__ out,
-                              const float* __restrict__ comp, long long n,
-                              float mass_scale) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float ax = (out[i] - comp[i]) * mass_scale;
-    const float ay = (out[n + i] - comp[n + i]) * mass_scale;
-    const float az = (out[2 * n + i] - comp[2 * n + i]) * mass_scale;
-    out[i] = ax;
-    out[n + i] = ay;
-    out[2 * n + i] = az;
-    out[3 * n + i] = sqrtf(ax * ax + ay * ay + az * az);
+  if (S >= a0 && S <= a1) {
+    const long long kb = max(half_row_start(S, ns) + 1, k0);
+    const long long ke = min(half_row_start(S + 1, ns), k1);
+    for (long long k = kb; k < ke; ++k) {
+      const float* p = slot + (k - k0) * HALF_SLOT + c;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) kahan_add(s[d], e[d], p[d * HALF_SUPER]);
+    }
+  }
+  if (last) {
+    const float ax = (s[0] - e[0]) * mass_scale;
+    const float ay = (s[1] - e[1]) * mass_scale;
+    const float az = (s[2] - e[2]) * mass_scale;
+    out[g] = ax;
+    out[n + g] = ay;
+    out[2 * n + g] = az;
+    out[3 * n + g] = sqrtf(ax * ax + ay * ay + az * az);
+  } else {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      out[d * n + g] = s[d];
+      comp[d * n + g] = e[d];
+    }
   }
 }
 
@@ -326,37 +420,71 @@ extern "C" int allpairs_rect(const void* pos, long long ni, const void* src,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile width of the half-pair schedule (the wrapper's fallback rule).
+// The tile width and the super-tile width of the half-pair schedule (the
+// wrapper's fallback rule and item table).
 extern "C" int allpairs_half_tile() { return HALF_T; }
+extern "C" int allpairs_half_super() { return HALF_SUPER; }
 
-// pos [4, n] -> out [4, n] by the half-pair schedule, with scratch comp
-// [3, n]; n must be a multiple of 512 with at least two tiles. Launches
-// 1 + (nt-1 or nt) + 1 kernels.
-extern "C" int allpairs_half(const void* pos, long long n, void* out,
-                             void* comp, float mass_scale, float eps2,
-                             void* stream) {
-  if (n % HALF_T != 0 || n / HALF_T < 2) {
+// Sets the item kernel's shared memory limit and writes the CTAs of the
+// item kernel the current device runs at once (SMs x CTAs an SM) to *wave.
+extern "C" int allpairs_half_wave(int* wave) {
+  cudaError_t err = cudaFuncSetAttribute(
+      half_item_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      HALF_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, half_item_kernel, HALF_THREADS, HALF_SMEM);
+  }
+  *wave = sms * per_sm;
+  return static_cast<int>(err);
+}
+
+// pos [4, n] -> out [4, n] by the half-pair schedule; n a multiple of 512
+// with at least two tiles. (ia, ib): the item table, the `items` =
+// ns (ns + 1) / 2 super-tile pairs (A, B >= A) in i-major order, ns =
+// ceil(n / 2048). slot: scratch for `chunk` items' slots, comp: scratch
+// [3, n]. Launches the item kernel and a fold a chunk: 2 ceil(items /
+// chunk) kernels. allpairs_half_wave must have run on the device.
+extern "C" int allpairs_half(const void* pos, long long n, const void* ia,
+                             const void* ib, long long items, long long chunk,
+                             void* slot, void* out, void* comp,
+                             float mass_scale, float eps2, void* stream) {
+  const long long nt = n / HALF_T;
+  const long long ns = (nt + HALF_G - 1) / HALF_G;
+  if (n % HALF_T != 0 || nt < 2 || items != ns * (ns + 1) / 2 ||
+      chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(pos);
-  float* acc = static_cast<float*>(out);
-  float* cmp = static_cast<float*>(comp);
-  const int nt = (int)(n / HALF_T);
-  const int nt_even = nt + (nt & 1);
-  half_diag_kernel<<<nt, HALF_THREADS, 0, st>>>(p, n, acc, cmp, eps2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  for (int round = 0; round < nt_even - 1; ++round) {
-    half_round_kernel<<<nt_even / 2, HALF_THREADS, 0, st>>>(
-        p, n, nt, nt_even, round, acc, cmp, eps2);
-    if (round == 0) {
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+  float* sl = static_cast<float*>(slot);
+  float* o = static_cast<float*>(out);
+  float* cm = static_cast<float*>(comp);
+  const unsigned fold_blocks =
+      (unsigned)((n + HALF_FOLD_THREADS - 1) / HALF_FOLD_THREADS);
+  int a0 = 0;
+  for (long long k0 = 0; k0 < items; k0 += chunk) {
+    const long long k1 = k0 + chunk < items ? k0 + chunk : items;
+    half_item_kernel<<<(unsigned)(k1 - k0), HALF_THREADS, HALF_SMEM, st>>>(
+        p, n, (int)nt, static_cast<const int*>(ia),
+        static_cast<const int*>(ib), k0, sl, eps2);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // rows a0 .. a1 of the table hold items k0 .. k1 - 1
+    while (half_row_start(a0 + 1, ns) <= k0) ++a0;
+    int a1 = a0;
+    while (half_row_start(a1 + 1, ns) <= k1 - 1) ++a1;
+    half_fold_kernel<<<fold_blocks, HALF_FOLD_THREADS, 0, st>>>(
+        sl, k0, k1, a0, a1, (int)ns, n, o, cm, mass_scale, k0 == 0,
+        k1 == items);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  long long blocks = (n + 255) / 256;
-  if (blocks > 132LL * 16) blocks = 132LL * 16;
-  finish_kernel<<<(unsigned)blocks, 256, 0, st>>>(acc, cmp, n, mass_scale);
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }

@@ -53,11 +53,11 @@
 //
 // Inside a CTA: a team of t/128 warps holds the tile's t targets, 4 to a
 // lane (strided by 32 so each warp load is one 128-byte row); the j-side
-// column sums of a tile pair come from the lane-rotation ring of
-// csrc/allpairs.cu's half-pair kernel: a warp takes 32 sources at a time, one a lane, with
-// a j-side accumulator beside each; after every step the source and its
-// accumulator move one lane down, so after 32 steps each source has met the
-// warp's 128 targets and is back in its lane. The team's warps' column sums
+// column sums of a tile pair come from a lane-rotation ring: a warp takes
+// 32 sources at a time, one a lane, with a j-side accumulator beside each;
+// after every step the source and its accumulator move one lane down, so
+// after 32 steps each source has met the warp's 128 targets and is back in
+// its lane. The team's warps' column sums
 // are then added in warp order in shared memory (named barrier per team).
 // v5, v5s and v7 run S = min(8, 2048/t) teams a CTA (512 threads at t =
 // 256 .. 1024), each on every S-th j-tile; their i-side tile sums go into

@@ -17,11 +17,14 @@
 //
 // Issue tally per pair, by pipe (what bounds each on the H100: the FP32
 // pipe retires 128 lanes a clock per SM, MUFU 16, the tensor cores 4,096
-// dense BF16 flops, i.e. one m16n8k16 mma a clock per SM):
-//   elementwise (attr full, unroll, v4, hybrid's tiles 0-1): 11 FP32
-//     (3 sub, 3 for d², 2 mul for s = inv³, 3 FMA into the sums), 1 MUFU
-//     (rsqrt); attr norsqrt 10 FP32 and no MUFU (s = d² · 1e-9); attr
-//     noaccum 9 FP32 (one sum of s), 1 MUFU.
+// dense BF16 flops, i.e. one m16n8k16 mma a clock per SM), as the SASS of
+// each kernel's rsqrt loop shows it (chip_smoke phase 2, beside the
+// rsqrtf guard's FSETP and two predicated FMULs, not counted here):
+//   elementwise (attr full, unroll, v4, hybrid's tiles 0-1): 12 FP32
+//     (3 sub, 4 for d² = dx·dx + dy·dy + dz·dz + eps2, 2 mul for s = inv³,
+//     3 FMA into the sums), 1 MUFU (rsqrt); attr norsqrt 11 FP32 and no
+//     MUFU (s = d² · 1e-9); attr noaccum 9 FP32 (inv² · inv goes into the
+//     one sum as an FMA), 1 MUFU.
 //   v1b: 3 FP32 (d² = dot + r_i², 2 mul) at "default", 5 at "highest"
 //     (+2 sub for the mid and lo pieces of s), 1 MUFU; mma a 16x16 block
 //     of pairs: 2 + 1 at "default", 4 + 4 at "highest", i.e. 48 or 128
@@ -31,10 +34,10 @@
 //   v3: 4 FP32 (d² = (r_i² - 2 dot) + r_j², 2 mul), 1 MUFU, mma 2 a block
 //     (K = 12 padded to 16: 32 flops a pair); + 4 FMA (vpu), or + 1 sub and
 //     2 mma (mm_split, 64 flops), or + 1 mma (mm_bf16, 48 flops).
-//   hybrid: two thirds elementwise, one third v1b "highest": 9 FP32,
+//   hybrid: two thirds elementwise, one third v1b "highest": 9.67 FP32,
 //     1 MUFU, 42.7 tensor flops a pair.
-// At 1,048,576 and 1,980 MHz one MUFU a pair alone takes 263 ms and 11
-// FP32 361.5 ms: the expansion forms move FP32 work onto the tensor cores
+// At 1,048,576 and 1,980 MHz one MUFU a pair alone takes 263 ms and 12
+// FP32 394.4 ms: the expansion forms move FP32 work onto the tensor cores
 // and should end MUFU-bound.
 //
 // Expansion layout (v1, v1b, hybrid, v3): a warp owns 32 targets as two

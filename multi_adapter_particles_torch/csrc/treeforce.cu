@@ -70,11 +70,11 @@
 //      (i, j), j >= i). Each pair's plane is computed once: its lane sums
 //      are added to the target's register accumulators in list order; for
 //      j > i the negated column sums over the B targets go to a scratch row
-//      [3, B] indexed by the pair's list position. The column sums use the
-//      warp lane-rotation ring of `allpairs.cu::half_round_kernel` (a warp
-//      holds 32 sources, one per lane, with a j-side sum beside each, and
-//      shifts both one lane down after each step) and then add the warps'
-//      partials through shared memory in warp order. Diagonal pairs
+//      [3, B] indexed by the pair's list position. The column sums use a
+//      warp lane-rotation ring (a warp holds 32 sources, one per lane,
+//      with a j-side sum beside each, and shifts both one lane down after
+//      each step) and then add the warps' partials through shared memory
+//      in warp order. Diagonal pairs
 //      (j == i) take the lane sums only: their dense plane already holds
 //      both in-block orders.
 //   2. A fold: for each source block j, its scratch rows in the order of a

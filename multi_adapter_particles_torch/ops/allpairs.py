@@ -14,7 +14,10 @@ JAX package's two schedules (`multi_adapter_particles_tpu/ops/allpairs.py`):
 
 Both return [4, Ni] (ax, ay, az, |a|) with mass * interaction_scale applied
 once after the sum. Both kernels are in `csrc/allpairs.cu`, which says how
-the half-pair's j-side stays deterministic without atomics.
+the half-pair's j-side stays deterministic without atomics. The half-pair
+kernel walks super-tiles of `HALF_G` tiles: its work items are the pairs
+(A, B >= A) of `half_items`, launched `half_chunk` items at a time, each
+launch followed by a fold of their slots in table order.
 
 - CUDA tensors go to the kernels, or the wrappers raise.
 - CPU tensors go to the `*_plain` twins: the kernels' arithmetic as torch
@@ -39,6 +42,15 @@ Tensor = torch.Tensor
 # Tile width of the half-pair schedule: which tile pairs exist, and the
 # fallback rule, are the JAX function's semantics (`_HALF_T`).
 HALF_T = 512
+# The half-pair kernel's work item is a pair of super-tiles of HALF_G tiles
+# (the last one short when the tile count is not a multiple of HALF_G).
+HALF_G = 4
+HALF_SUPER = HALF_T * HALF_G
+# Bytes of one item's slots: i-side and j-side sums, [2, 3, HALF_SUPER].
+HALF_ITEM_BYTES = 2 * 3 * HALF_SUPER * 4
+# Most bytes of item slots a call allocates; items beyond it run in
+# further launches, each followed by its fold.
+HALF_SCRATCH_BYTES = 1 << 30
 
 # elements of one [Ni, tj] pair plane in the twins (bounds their memory)
 _PLANE_ELEMS = 1 << 24
@@ -125,6 +137,39 @@ def all_pairs_accel_halfpair_plain(
     return _finish(acc, float(mass) * float(interaction_scale))
 
 
+@functools.lru_cache(maxsize=8)
+def half_items(n: int, device) -> Tensor:
+    """The half-pair kernel's item table [2, K] int32 on `device`: the
+    super-tile pairs (A, B >= A) of n particles in i-major order, K = ns
+    (ns + 1) / 2 with ns = ceil(n / 512 / HALF_G). Built once per (n,
+    device), on the first (eager) call, so a captured frame does no host
+    work."""
+    ns = -(-(n // HALF_T) // HALF_G)
+    return torch.triu_indices(ns, ns, device=device).to(
+        torch.int32).contiguous()
+
+
+def half_chunk(items: int, wave: int) -> int:
+    """Items a launch of the half-pair kernel takes: whole waves of `wave`
+    CTAs, as many as HALF_SCRATCH_BYTES of slots hold (at least one wave),
+    and no more than there are."""
+    waves = max(1, HALF_SCRATCH_BYTES // HALF_ITEM_BYTES // wave)
+    return min(items, waves * wave)
+
+
+@functools.cache
+def _half_wave(index: int) -> int:
+    """CTAs of the half-pair item kernel that device `index` runs at
+    once."""
+    wave = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(_library().allpairs_half_wave(ctypes.byref(wave)),
+                     "allpairs_half_wave")
+    if wave.value < 1:
+        raise RuntimeError("the half-pair item kernel does not fit an SM")
+    return wave.value
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("allpairs")
@@ -136,13 +181,20 @@ def _library() -> ctypes.CDLL:
     lib.allpairs_rect.restype = ctypes.c_int
     lib.allpairs_half.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p,
     ]
     lib.allpairs_half.restype = ctypes.c_int
-    lib.allpairs_half_tile.argtypes = []
-    lib.allpairs_half_tile.restype = ctypes.c_int
-    if lib.allpairs_half_tile() != HALF_T:
-        raise RuntimeError("csrc/allpairs.cu's tile width is not HALF_T")
+    lib.allpairs_half_wave.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.allpairs_half_wave.restype = ctypes.c_int
+    for fn in (lib.allpairs_half_tile, lib.allpairs_half_super):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    if (lib.allpairs_half_tile(), lib.allpairs_half_super()) != (
+            HALF_T, HALF_SUPER):
+        raise RuntimeError("csrc/allpairs.cu's tile widths are not HALF_T "
+                           "and HALF_SUPER")
     return lib
 
 
@@ -199,8 +251,9 @@ def all_pairs_accel_halfpair(
     """Half-pair (Newton-3rd) acceleration: position [4, N] -> [4, N].
     Falls back to `all_pairs_accel` when N does not tile into 512-wide
     tiles (at least two). A CPU tensor runs the plain twin; a CUDA tensor
-    launches the half-pair kernels (one count in
-    `all_pairs_accel_halfpair.launches` per call)."""
+    launches the half-pair kernels (2 ceil(K / half_chunk) of them for the
+    K items of `half_items`; one count in `all_pairs_accel_halfpair.launches`
+    per call)."""
     kw = dict(mass=mass, softening_squared=softening_squared,
               interaction_scale=interaction_scale)
     n = position.shape[-1]
@@ -211,12 +264,19 @@ def all_pairs_accel_halfpair(
     _require_cuda(position, "all_pairs_accel_halfpair")
     dev = position.device
     _build.check_arg(position, torch.float32, (4, n), dev, "position")
+    table = half_items(n, dev)
+    items = table.shape[1]
+    chunk = half_chunk(items, _half_wave(dev.index))
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
-    comp = torch.empty((3, n), dtype=torch.float32, device=dev)  # scratch
+    # scratch: the item slots of a launch, the fold's Kahan compensation
+    slot = torch.empty((chunk, 2, 3, HALF_SUPER), dtype=torch.float32,
+                       device=dev)
+    comp = torch.empty((3, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().allpairs_half(
-            position.data_ptr(), n, out.data_ptr(), comp.data_ptr(),
+            position.data_ptr(), n, table[0].data_ptr(), table[1].data_ptr(),
+            items, chunk, slot.data_ptr(), out.data_ptr(), comp.data_ptr(),
             float(mass) * float(interaction_scale), float(softening_squared),
             stream,
         )

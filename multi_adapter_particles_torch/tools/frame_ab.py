@@ -8,11 +8,14 @@ Each ROOT is a checkout of the repository (this one, or an unpacked
 order given, so list two as A B B A to cancel drift. For each it prints one
 JSON line for the reference's default scene (4,194,304 particles, central
 well, 1024x1024, device init, seed 0), split loop and, where the checkout
-has it, the fused frame (`-fused`), and the fused frame of 262,144
-particles at 1280x720 (keys `fused720_*`):
+has it, the fused frame (`-fused`), the fused frame of 262,144 particles
+at 1280x720 (keys `fused720_*`), and the split all-pairs frame of
+1,048,576 particles at 1024x1024 (`-force all_pairs`, the half-pair
+schedule; keys `allpairs1m_*`):
 
 - `*_frame_ms`: the CLI's median CUDA-event device frame over `-steps 40`
-  (`-novsync -nogui -metrics`), with the render / simulate stage EMAs;
+  (all-pairs: 8, the frames past the timer's first 3) (`-novsync -nogui
+  -metrics`), with the render / simulate stage EMAs;
 - `*_busy`: the device's busy share over 10 steady frames of
   `ParticlesApp.draw()` under `torch.profiler` (kernel time over the
   CUDA-event time of the window), and `*_kernels_per_frame`, the device
@@ -31,18 +34,20 @@ import sys
 import tempfile
 
 N, SIDE, STEPS, WINDOW = 4_194_304, 1024, 40, 10
-# (label, particles, width, height, fused)
-SCENES = (("split", N, SIDE, SIDE, False), ("fused", N, SIDE, SIDE, True),
-          ("fused720", 262_144, 1280, 720, True))
+# (label, particles, width, height, fused, force model, steps)
+SCENES = (("split", N, SIDE, SIDE, False, "central_well", STEPS),
+          ("fused", N, SIDE, SIDE, True, "central_well", STEPS),
+          ("fused720", 262_144, 1280, 720, True, "central_well", STEPS),
+          ("allpairs1m", 1_048_576, SIDE, SIDE, False, "all_pairs", 8))
 
 
-def _cli(app, n, width, height, fused: bool) -> dict:
+def _cli(app, n, width, height, fused: bool, force: str, steps: int) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "m.json")
         rc = app.main(["-numparticles", str(n), "-width", str(width),
-                       "-height", str(height), "-steps", str(STEPS),
-                       "-novsync", "-nogui", "-metrics", path]
-                      + (["-fused"] if fused else []))
+                       "-height", str(height), "-steps", str(steps),
+                       "-force", force, "-novsync", "-nogui", "-metrics",
+                       path] + (["-fused"] if fused else []))
         if rc != 0:
             raise SystemExit(f"app.main returned {rc}")
         with open(path) as f:
@@ -52,7 +57,7 @@ def _cli(app, n, width, height, fused: bool) -> dict:
             "simulate_ms": m["stages_ms"]["simulate"]}
 
 
-def _profile(n, width, height, fused: bool) -> dict:
+def _profile(n, width, height, fused: bool, force: str) -> dict:
     """Busy share and kernels a frame over WINDOW steady frames."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -66,7 +71,7 @@ def _profile(n, width, height, fused: bool) -> dict:
 
     kw = {"fused": True} if fused else {}
     p = ParticlesApp(AppConfig(num_particles=n, vsync=False, gui=False),
-                     SimConfig(num_particles=n),
+                     SimConfig(num_particles=n, force_model=force),
                      RenderConfig(width=width, height=height), **kw)
     for _ in range(5):
         p.draw()
@@ -105,11 +110,10 @@ def measure(root: str) -> dict:
         raise SystemExit("frame_ab.py needs a CUDA GPU")
     out = {"root": root, "device": torch.cuda.get_device_name(0)}
     has_fused = "fused" not in getattr(app, "_LATER_FLAGS", {})
-    for label, n, width, height, fused in SCENES:
-        if fused and not has_fused:
+    for label, *scene in SCENES:
+        if scene[3] and not has_fused:
             continue
-        scene = (n, width, height, fused)
-        for k, v in {**_cli(app, *scene), **_profile(*scene)}.items():
+        for k, v in {**_cli(app, *scene), **_profile(*scene[:5])}.items():
             out[f"{label}_{k}"] = v
     return out
 
