@@ -18,9 +18,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    one line per kernel; the all-pairs variants' SASS opcode tally, and
    attr's modes checked to have dropped their rsqrt or multiplies; the
    instruction mix a pair of every rsqrt loop of the three all-pairs
-   sources (`tools/sass.py`), the half-pair item kernel's held to 15 FP32
-   and 1 MUFU a pair with the j-side (12 without), no rsqrt guard, and at
-   most 17 issue slots a pair)
+   sources and of csrc/treeforce.cu (`tools/sass.py`), the half-pair item
+   kernel's held to 15 FP32 and 1 MUFU a pair with the j-side (12
+   without), no rsqrt guard, and at most 17 issue slots a pair; every
+   tree sweep item kernel's to its FP32 count a pair (INSTR: 27, 41, 23,
+   23; the halved one 30 with the j-side, 27 without), 1 MUFU, no rsqrt
+   guard and no divergent-shuffle fallback)
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
 4. composite_rows kernel (the depth-Q pass alone, off the render path) vs
    plain on the rows the eager composite builds for one 1M chunk of the 4M
@@ -93,13 +96,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     B=256, probed budget, dropped == 0): directed and Newton-3rd kernels
     on the same lists, <= 1e-5 of max|a_near|; kernel (on lists prepared
     once), wrapper and twin times, each kernel's issue bound at the sampled
-    SM clock
+    SM clock; the work items (count, longest) and the SASS issue slots a
+    pair. Then adversarial lists at B = 32, 128 and 512: a clustered scene
+    whose dense blocks list 128 or more source blocks (segments split into
+    8 or more items) and the same list with every third target block's
+    segment removed; every directed variant and the Newton-3rd sweep vs
+    their twins (1e-5 of max|a| or max|u|), and run in chunks of 3 table
+    entries bitwise the same as in one
 12. sub-block expansion at 262,144: blocks of 1024 swept at 512 against
     blocks of 256, <= 1e-5 of max|a_near|
 13. tree sweeps at 1,048,576 (G=192, B=512): each kernel vs its twin, the
-    Newton-3rd vs the directed kernel, each run twice bitwise; kernel,
-    wrapper, list-build and far-field (deposit, FFT solve, interpolation) times;
-    each kernel's issue bound at the sampled SM clock
+    Newton-3rd vs the directed kernel, each run twice bitwise and in three
+    chunks bitwise; kernel, wrapper, list-build and far-field (deposit, FFT
+    solve, interpolation) times; each kernel's issue bound at the sampled
+    SM clock, its work items and SASS issue slots a pair
 14. physics at 1,048,576: the full tree-P3M accel on 4,096 targets against
     the exact all-pairs sum (rectangle kernel), RMS < 1% of max|a|
 15. long-range solve memory at G=192 and G=256 (max_memory_allocated per
@@ -113,7 +123,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     B=256, probed budget): u within 1e-5 of max|u_near| over the live
     lanes, the fused force rows bitwise the force-only kernel's,
     potential-only bitwise the fused potential row, the halved total
-    within rel 1e-5 of the directed one; times and bounds
+    within rel 1e-5 of the directed one; times and bounds, work items and
+    SASS issue slots a pair
 19. the gauge sweeps at their paths' shapes: the 4M pm_grid gauge (G=256,
     blocks of 2048 expanded to 512, halved potential-only) and the 1M
     tree-P3M gauge (G=192, B=512: fused, and potential-only), each kernel
@@ -209,12 +220,20 @@ BOX, CUTOFF = 2048.0, 6.75   # SimConfig's pm_box and p3m_cutoff_cells
 HBM_BYTES_PER_S = 3.35e12
 SMS, FP32_LANES = 132, 128
 # FP32-pipe instructions per pair or pixel-slot, counted from the sources
-# (each source's header comment gives the tally; the all-pairs ones agree
-# with phase 2's SASS of their loops)
+# (each source's header comment gives the tally; the all-pairs and tree
+# sweep ones agree with phase 2's SASS of their loops, which holds the
+# tree sweeps' to them)
 INSTR = {"all_pairs_rect": 12, "all_pairs_half": 15,
-         "all_pairs_half_diag": 12, "tree_sweep": 27, "tree_sweep_n3": 33,
-         "tree_sweep_with_potential": 41, "tree_sweep_potential_only": 23,
-         "tree_sweep_half_pairs": 23, "composite": 28, "tile_combine": 7}
+         "all_pairs_half_diag": 12, "tree_sweep": 27, "tree_sweep_n3": 30,
+         "tree_sweep_n3_diag": 27, "tree_sweep_with_potential": 41,
+         "tree_sweep_potential_only": 23, "tree_sweep_half_pairs": 23,
+         "composite": 28, "tile_combine": 7}
+# the tree sweep item kernels' template flags -> INSTR name; their SASS
+# issue slots a pair at B = 512, filled by phase 2
+TREE_FLAGS = {"1,0,0": "tree_sweep", "1,1,0": "tree_sweep_with_potential",
+              "0,1,0": "tree_sweep_potential_only",
+              "0,1,1": "tree_sweep_half_pairs"}
+TREE_SLOTS = {}
 # Per pair and pipe, for the all-pairs variants (the tally in
 # csrc/allpairs_variants.cu's header, which phase 2's SASS of their loops
 # bears out): FP32 instructions, MUFU (rsqrt) instructions and padded
@@ -371,7 +390,8 @@ def phase_build():
                         not in line):
                     fail(f"{name} spills: {line}")
         sass_tally(os.path.join(tmp, "allpairs_variants.cubin"))
-        for name in ("allpairs", "allpairs_variants", "allpairs_halfpair"):
+        for name in ("allpairs", "allpairs_variants", "allpairs_halfpair",
+                     "treeforce"):
             loop_tally(name, os.path.join(tmp, f"{name}.cubin"))
 
 
@@ -417,6 +437,8 @@ def loop_tally(name, cubin):
     for kernel, mixes in loops.items():
         for mix in mixes:
             log(f"  SASS loop {name} {kernel}: {sass.format_mix(mix)}")
+    if name == "treeforce":
+        tree_loop_check(loops)
     if name != "allpairs":
         return
     mixes = [m for m in loops.get("half_item_kernel", [])
@@ -436,6 +458,42 @@ def loop_tally(name, cubin):
     if both[0]["slots"] > 17:
         fail(f"half_item_kernel j-side loop: {both[0]['slots']:.3f} issue "
              "slots a pair > 17")
+
+
+def tree_loop_check(loops):
+    """Fail unless every tree sweep item kernel's rsqrt loops take their
+    FP32 count a pair (INSTR), 1 MUFU, no rsqrt guard and no
+    divergent-shuffle fallback; the halved kernel one loop with the j-side
+    (SHFL) and one without. Keeps the issue slots a pair of the instances
+    B = 512 runs (the loop of most pairs a body) in TREE_SLOTS."""
+    for kernel, mixes in loops.items():
+        if kernel.startswith("sweep_item_kernel<"):
+            flags, r = kernel[len("sweep_item_kernel<"):-1].rsplit(",", 1)
+            names = [TREE_FLAGS[flags]] * len(mixes)
+            main = r == "2"
+        elif kernel.startswith("sweep_n3_item_kernel<"):
+            names = ["tree_sweep_n3" if m["SHFL"] else "tree_sweep_n3_diag"
+                     for m in mixes]
+            if sorted(names) != ["tree_sweep_n3", "tree_sweep_n3_diag"]:
+                fail(f"{kernel}: rsqrt loops {names}, want one with the "
+                     "j-side and one without")
+            main = kernel == "sweep_n3_item_kernel<8,4>"
+        else:
+            continue
+        for name, mix in zip(names, mixes):
+            if (mix["fp32"] != INSTR[name] or mix["MUFU"] != 1
+                    or mix["guarded"] or mix["collective"]):
+                fail(f"{kernel} loop: FP32 {mix['fp32']}, MUFU "
+                     f"{mix['MUFU']}, guarded {mix['guarded']}, fallback "
+                     f"{mix['collective']} (want {INSTR[name]}, 1, no, no)")
+            if main and mix["pairs"] >= TREE_SLOTS.get(name, (0, 0))[0]:
+                TREE_SLOTS[name] = (mix["pairs"], mix["slots"])
+    if len(TREE_SLOTS) != 6:
+        fail(f"tree sweep item kernels in the SASS: {sorted(TREE_SLOTS)}")
+    for name, (_, slots) in TREE_SLOTS.items():
+        TREE_SLOTS[name] = slots
+    log(f"  tree sweep loops at their FP32 counts (INSTR), no guard, no "
+        f"fallback; issue slots a pair {json.dumps(TREE_SLOTS)}")
 
 
 def phase_central_well(dev):
@@ -1921,7 +1979,8 @@ def _sweeps(lists, r_c, **flags):
     `flags` pick a potential variant of the directed sweep. The wrapper
     checks the list (one host sync) and, halved, builds the fold index
     each call; the bare call launches the kernels on int32 lists built
-    here once, so its time is the kernels' alone."""
+    here once (its time is the item table's device build and the kernels'
+    alone), in chunks of `chunk` table entries if given."""
     import torch
 
     from multi_adapter_particles_torch import constants as C
@@ -1934,8 +1993,8 @@ def _sweeps(lists, r_c, **flags):
         kw = dict(nb=L.nb, block=L.block, eps2=eps2, sigma=sigma)
         prep = treeforce._n3_prepare(*args, L.nb, L.block)
         return (lambda: treeforce.near_sweep_n3(*args, **kw),
-                lambda: treeforce._launch_sweep_n3(L.spos, *prep, eps2,
-                                                   sigma),
+                lambda chunk=None: treeforce._launch_sweep_n3(
+                    L.spos, *prep, eps2, sigma, chunk=chunk),
                 lambda: treeforce.near_sweep_n3_plain(*args, **kw))
     variant = treeforce._variant(flags.get("with_potential", False),
                                  flags.get("potential_only", False),
@@ -1944,13 +2003,131 @@ def _sweeps(lists, r_c, **flags):
     kw = dict(block=L.sweep_block, eps2=eps2, sigma=sigma, **flags)
     b32, j32 = L.bounds.to(torch.int32), L.sweep_j.to(torch.int32)
     return (lambda: treeforce.near_sweep(*args, **kw),
-            lambda: treeforce._launch_sweep(L.spos, L.sweep_nb,
-                                            L.sweep_block, b32, j32, eps2,
-                                            sigma, variant),
+            lambda chunk=None: treeforce._launch_sweep(
+                L.spos, L.sweep_nb, L.sweep_block, b32, j32, eps2, sigma,
+                variant, chunk=chunk),
             lambda: treeforce.near_sweep_plain(*args, **kw))
 
 
 TREE_KERNELS = (("tree_sweep", False), ("tree_sweep_n3", True))
+
+
+def tree_bound_ms(name, lists, mhz):
+    """Least time of sweep `name` over `lists` at `mhz`: its FP32
+    instructions a pair (INSTR; the halved sweep's diagonal pairs at
+    tree_sweep_n3_diag) over 132 SMs x 128 lanes."""
+    if name == "tree_sweep_n3":
+        diag = int((lists.sweep_i == lists.sweep_j).sum())
+        fp32 = ((lists.pairs - diag) * INSTR[name]
+                + diag * INSTR["tree_sweep_n3_diag"])
+    else:
+        fp32 = lists.pairs * INSTR[name]
+    return issue_bound_ms(fp32 * lists.sweep_block ** 2, mhz)
+
+
+def item_log(name, lists):
+    """Log the work items of sweep `name` over `lists`: their count, the
+    longest, the longest segment, and the SASS issue slots a pair."""
+    from multi_adapter_particles_torch.ops import treeforce
+
+    bounds = (treeforce._n3_lists(lists.sweep_i, lists.sweep_j, lists.nb)[0]
+              if lists.n3 else lists.bounds)
+    items = treeforce.sweep_items(bounds, lists.sweep_j.numel())
+    slots = f"{TREE_SLOTS[name]:.3f}"
+    if lists.n3:
+        slots += f" (diagonal {TREE_SLOTS['tree_sweep_n3_diag']:.3f})"
+    log(f"  {name}: {int(items.istart[-1]):,} work items (table "
+        f"{items.table.shape[1]:,}), the longest "
+        f"{int((items.q1 - items.q0).max())} listed source blocks, the "
+        f"longest segment {int((bounds[1:] - bounds[:-1]).max())}; SASS "
+        f"issue slots a pair at B = 512: {slots}")
+
+
+def _without_segments(i_idx, j_idx, nb, halved):
+    """The list without the segments of target blocks i % 3 == 1:
+    (bounds, j_idx) directed, (sweep_i, sweep_j) halved."""
+    from multi_adapter_particles_torch.ops import pm
+
+    keep = i_idx % 3 != 1
+    if halved:
+        return i_idx[keep], j_idx[keep]
+    return pm._segment_bounds(i_idx[keep], nb), j_idx[keep]
+
+
+def phase_tree_adversarial(dev, block):
+    """Phase 11's adversarial lists at `block`: 256 blocks, half of them a
+    dense blob (each lists every blob block: segments of 128+ source
+    blocks, 8+ items), half spread over the box; and the same lists with
+    every third target block's segment removed. Every directed variant and
+    the halved sweep vs their twins, and in chunks of 3 table entries
+    bitwise the same as in one."""
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.ops import p3m, treeforce
+
+    n = 256 * block
+    g = torch.Generator(device=dev).manual_seed(11)
+    pos = torch.zeros((4, n), device=dev)
+    pos[:3, :n // 2] = torch.randn((3, n // 2), generator=g,
+                                   device=dev) * 12.0
+    pos[:3, n // 2:] = (torch.rand((3, n - n // 2), generator=g,
+                                   device=dev) - 0.5) * 1600.0
+    r_c, gn = p3m.near_grid_for(128, BOX, CUTOFF)
+    eps2, sigma = C.SOFTENING_SQUARED, r_c * p3m._SIGMA_PER_CUTOFF
+    lists = {
+        half: treeforce.tree_lists(pos, BOX, r_c, gn, block=block,
+                                   pair_budget=256 * 256,
+                                   half_force=half == "n3",
+                                   half_pairs=half == "gauge")
+        for half in ("directed", "gauge", "n3")}
+    seg = [int((L.bounds if L.bounds is not None else
+                treeforce._n3_lists(L.sweep_i, L.sweep_j, L.nb)[0])
+               .diff().max()) for L in lists.values()]
+    if any(L.dropped for L in lists.values()) or min(seg) < 8 * \
+            treeforce.ITEM_LEN:
+        fail(f"adversarial lists at B={block}: dropped "
+             f"{[L.dropped for L in lists.values()]}, longest segments {seg}")
+    log(f"  adversarial lists, B={block}: {n:,} particles, directed / "
+        f"halved gauge / halved force {[L.pairs for L in lists.values()]} "
+        f"block pairs, longest segments {seg}")
+    for empty in (False, True):
+        for variant, flags in enumerate(({},) + tuple(
+                f for _, f in POT_VARIANTS)):
+            L = lists["gauge" if flags.get("half_pairs") else "directed"]
+            if empty:
+                bounds, j_idx = _without_segments(L.sweep_i, L.sweep_j,
+                                                  L.nb, False)
+            else:
+                bounds, j_idx = L.bounds, L.sweep_j
+            kw = dict(block=block, eps2=eps2, sigma=sigma, **flags)
+            k = treeforce.near_sweep(L.spos, bounds, j_idx, **kw)
+            p = treeforce.near_sweep_plain(L.spos, bounds, j_idx, **kw)
+            parts = treeforce._launch_sweep(
+                L.spos, L.nb, block, bounds.to(torch.int32),
+                j_idx.to(torch.int32), eps2, sigma, variant, chunk=3)
+            name = f"B={block} variant {variant}" + (
+                ", empty segments" if empty else "")
+            if not torch.equal(k, parts):
+                fail(f"{name}: 3-entry chunks differ from one chunk")
+            if not flags.get("potential_only"):
+                check_rel(f"{name} force vs plain", k[:3], p[:3], 1e-5)
+            if flags:
+                check_u(f"{name} u vs plain", k[3], p[3], L.live, 1e-5)
+        L = lists["n3"]
+        si, sj = L.sweep_i, L.sweep_j
+        if empty:
+            si, sj = _without_segments(si, sj, L.nb, True)
+        kw = dict(nb=L.nb, block=block, eps2=eps2, sigma=sigma)
+        k = treeforce.near_sweep_n3(L.spos, si, sj, **kw)
+        p = treeforce.near_sweep_n3_plain(L.spos, si, sj, **kw)
+        parts = treeforce._launch_sweep_n3(
+            L.spos, *treeforce._n3_prepare(L.spos, si, sj, L.nb, block),
+            eps2, sigma, chunk=3)
+        name = f"B={block} n3" + (", empty segments" if empty else "")
+        if not torch.equal(k, parts):
+            fail(f"{name}: 3-entry chunks differ from one chunk")
+        check_rel(f"{name} vs plain", k, p, 1e-5)
 
 
 def phase_tree_check(dev):
@@ -1977,12 +2154,15 @@ def phase_tree_check(dev):
         plain_ms = time_ms(twin, reps=1, warmup=0)
         mhz = busy_clock_mhz(kernel, reps=20)
         pairs = L.pairs * L.sweep_block ** 2
-        bound = issue_bound_ms(pairs * INSTR[name], mhz)
+        bound = tree_bound_ms(name, L, mhz)
         log(f"  {name}: {L.pairs:,} listed block pairs of {L.sweep_block} "
             f"= {pairs:.4e} pair interactions, dropped 0; kernel {ms:.3f} "
             f"ms (wrapper {wrapper_ms:.3f} ms), plain {plain_ms:.1f} ms; "
             f"bound {bound:.3f} ms at {mhz:.0f} MHz -> {bound / ms:.1%} of "
             "it")
+        item_log(name, L)
+    for block in (32, 128, 512):
+        phase_tree_adversarial(dev, block)
     return pos, host, r_c, gn, budget
 
 
@@ -2035,9 +2215,11 @@ def phase_tree_1m(dev):
             fail(f"{name}: {L.dropped} block pairs dropped")
         wrapper, kernel, twin = _sweeps(L, r_c)
         k, again = wrapper(), kernel()
+        chunk = treeforce.items_len(L.sweep_nb, L.sweep_j.numel()) // 3 + 1
+        if not (torch.equal(k, again) and torch.equal(k, kernel(chunk))):
+            fail(f"{name}: two runs at {N_TREE:,}, or three chunks of "
+                 f"{chunk} items, differ")
         p, plain_ms = timed(twin)
-        if not torch.equal(k, again):
-            fail(f"{name}: two runs at {N_TREE:,} differ")
         err = check_rel(f"{name} vs plain", k, p, 1e-5)
         del again, p
         ms = time_ms(kernel, reps=5)
@@ -2045,7 +2227,7 @@ def phase_tree_1m(dev):
         plain_ms = time_ms(twin, reps=1, warmup=0)
         mhz = busy_clock_mhz(kernel, reps=8)
         pairs = L.pairs * L.sweep_block ** 2
-        bound = issue_bound_ms(pairs * INSTR[name], mhz)
+        bound = tree_bound_ms(name, L, mhz)
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": "operations",
                      "wrapper_ms": wrapper_ms, "list_ms": build_ms,
@@ -2056,7 +2238,8 @@ def phase_tree_1m(dev):
             f"{wrapper_ms:.3f} ms), plain {plain_ms:.1f} ms; list build "
             f"{build_ms:.3f} ms; bound {bound:.3f} ms ({INSTR[name]} FP32 "
             f"instructions a pair at {mhz:.0f} MHz) -> {bound / ms:.1%} of "
-            "it")
+            "it; runs and chunkings bitwise equal")
+        item_log(name, L)
         accel[name] = treeforce.unsort(L, k, 1.0)
         del L, k
     check_rel("tree_sweep_n3 vs tree_sweep @1M", accel["tree_sweep_n3"],
@@ -2259,12 +2442,13 @@ def _time_variant(name, lists, kernel, plain_ms, reps):
     ms = time_ms(kernel, reps=reps)
     mhz = busy_clock_mhz(kernel, reps=max(8, reps))
     pairs = lists.pairs * lists.sweep_block ** 2
-    bound = issue_bound_ms(pairs * INSTR[name], mhz)
+    bound = tree_bound_ms(name, lists, mhz)
     log(f"  {name}: {lists.pairs:,} listed block pairs of "
         f"{lists.sweep_block} = {pairs:.4e} pair interactions; kernel "
         f"{ms:.3f} ms, plain {plain_ms:.1f} ms; bound {bound:.3f} ms "
         f"({INSTR[name]} FP32 instructions a pair at {mhz:.0f} MHz) -> "
         f"{bound / ms:.1%} of it")
+    item_log(name, lists)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations", "pairs": pairs, "mhz": mhz}
 

@@ -27,7 +27,10 @@ a probed `sub_pair_budget`.
 The kernels are in `csrc/treeforce.cu`. Each wrapper takes a CUDA tensor
 to its kernel (or raises) and a CPU tensor to its `*_plain` twin: the same
 pair math as torch ops over the same list, summed per target block in list
-order.
+order. The kernels sweep balanced work items (`sweep_items`: each target
+block's segment cut into items of at most `ITEM_LEN` listed source
+blocks, one CTA each, their sums folded in list order), built on the
+device from the list's static length, so no host sync.
 
 Against the JAX package:
 
@@ -322,21 +325,107 @@ def near_sweep_n3_plain(spos: Tensor, sweep_i: Tensor, sweep_j: Tensor, *,
     return out
 
 
+# -- the sweeps: the kernels' work items --------------------------------------
+# Listed source blocks a work item of the kernels takes at most (L); the
+# kernels' `kItemLen`.
+ITEM_LEN = 16
+# Bytes of item slots a launch of the sweep kernels may fill: more items
+# than fit run in chunks, each folded before the next.
+SWEEP_SCRATCH_BYTES = 1 << 30
+
+
+@dataclasses.dataclass
+class SweepItems:
+    """The kernels' work items over an i-major list (`sweep_items`).
+
+    table [4, K] int32: each item's target block (nb on the padding past
+    the live items), its list range [q0, q1), and the launch order (the
+    table index CTA b of the chunk takes); istart [nb+1] int32: the first
+    table index of each target block's items (istart[nb], the live count);
+    chunk: table entries a launch takes."""
+
+    table: Tensor
+    istart: Tensor
+    chunk: int
+
+    @property
+    def target(self) -> Tensor:
+        return self.table[0]
+
+    @property
+    def q0(self) -> Tensor:
+        return self.table[1]
+
+    @property
+    def q1(self) -> Tensor:
+        return self.table[2]
+
+    @property
+    def order(self) -> Tensor:
+        return self.table[3]
+
+
+def items_len(nb: int, list_len: int) -> int:
+    """The item table's static size: nb + ceil(list_len / ITEM_LEN) bounds
+    the live items of any segmentation of a list `list_len` long over nb
+    target blocks (a segment of s entries takes ceil(s / L) < 1 + s / L)."""
+    return nb + -(-int(list_len) // ITEM_LEN)
+
+
+def sweep_items(bounds: Tensor, list_len: int,
+                chunk: Optional[int] = None) -> SweepItems:
+    """The work items of a sweep over an i-major list `list_len` long whose
+    target block i lists entries bounds[i]..bounds[i+1]: each segment cut
+    into items of at most ITEM_LEN consecutive entries, in list order.
+    Device ops only (the table's size is static: `items_len`), so building
+    it never waits for the device. Within each `chunk` of table entries
+    (default: all), launch longest items first: scheduling only, since each
+    item writes its own slot and the fold adds them in table order."""
+    nb = bounds.numel() - 1
+    kall = items_len(nb, list_len)
+    chunk = kall if chunk is None else max(1, min(int(chunk), kall))
+    b = bounds.long()
+    count = (b[1:] - b[:-1] + (ITEM_LEN - 1)) // ITEM_LEN
+    iend = torch.cumsum(count, 0)
+    istart = torch.cat([iend.new_zeros(1), iend])
+    k = torch.arange(kall, device=bounds.device)
+    target = torch.searchsorted(iend, k, right=True)  # nb on padding
+    live = target < nb
+    ti = target.clamp(max=nb - 1)
+    q0 = torch.where(live, b[ti] + (k - istart[ti]) * ITEM_LEN, 0)
+    q1 = torch.where(live, torch.minimum(q0 + ITEM_LEN, b[ti + 1]), 0)
+    key = (k // chunk) * (ITEM_LEN + 1) + (ITEM_LEN - (q1 - q0))
+    order = torch.argsort(key, stable=True)
+    table = torch.stack([target, q0, q1, order]).to(torch.int32)
+    return SweepItems(table, istart.to(torch.int32), chunk)
+
+
+def _sweep_chunk(kall: int, item_bytes: int) -> int:
+    """Table entries a launch takes: as many as SWEEP_SCRATCH_BYTES of
+    slots hold (at least one)."""
+    return max(1, min(kall, SWEEP_SCRATCH_BYTES // item_bytes))
+
+
 # -- the sweeps: kernels -------------------------------------------------------
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("treeforce")
     f, i, p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+    ll = ctypes.c_longlong
     coef = ctypes.POINTER(ctypes.c_float)
-    lib.tree_sweep.argtypes = [p, i, i, p, p, p, coef, coef, f, f, f, f,
-                               f, f, i, p]
+    lib.tree_sweep.argtypes = [p, i, i, p, p, ll, p, ll, p, p, coef, coef,
+                               f, f, f, f, f, f, i, p]
     lib.tree_sweep.restype = ctypes.c_int
     lib.tree_potential_at.argtypes = [p, p, coef, f, f, f, f, f, p]
     lib.tree_potential_at.restype = ctypes.c_int
-    lib.tree_sweep_n3.argtypes = [p, i, i, p, p, p, p, p, p, coef,
-                                  f, f, f, f, f, p]
+    lib.tree_sweep_n3.argtypes = [p, i, i, p, p, ll, p, ll, p, p, p, p, p,
+                                  coef, f, f, f, f, f, p]
     lib.tree_sweep_n3.restype = ctypes.c_int
-    for name in ("tree_sweep_max_block", "tree_sweep_poly_terms"):
+    intp = ctypes.POINTER(ctypes.c_int)
+    lib.tree_sweep_occupancy.argtypes = [i, i, intp, intp]
+    lib.tree_sweep_occupancy.restype = ctypes.c_int
+    for name in ("tree_sweep_max_block", "tree_sweep_poly_terms",
+                 "tree_sweep_item_len"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     if lib.tree_sweep_max_block() != _SWEEP_MAX_BLOCK:
@@ -345,6 +434,8 @@ def _library() -> ctypes.CDLL:
     if not lib.tree_sweep_poly_terms() == len(_H_POLY) == len(_E_POLY):
         raise RuntimeError("csrc/treeforce.cu takes another number of "
                            "Horner coefficients than _H_POLY or _E_POLY has")
+    if lib.tree_sweep_item_len() != ITEM_LEN:
+        raise RuntimeError("csrc/treeforce.cu's item length is not ITEM_LEN")
     return lib
 
 
@@ -426,18 +517,33 @@ for _name in LAUNCH_COUNTERS:
     setattr(near_sweep, _name, 0)
 
 
+# slot rows of each directed variant's items: force, force + potential,
+# potential only (twice)
+_SLOT_ROWS = (3, 4, 1, 1)
+
+
 def _launch_sweep(spos: Tensor, nb: int, block: int, bounds: Tensor,
                   j_idx: Tensor, eps2: float, sigma: float,
-                  variant: int = 0) -> Tensor:
+                  variant: int = 0, chunk: Optional[int] = None) -> Tensor:
     """The directed kernel's `variant` (`_VARIANTS`) on lists `near_sweep`
-    has checked (int32)."""
+    has checked (int32): the item table, then the item kernel and its fold
+    a chunk of `chunk` table entries (default: as SWEEP_SCRATCH_BYTES
+    allows)."""
     out = torch.empty_like(spos)
+    rows = _SLOT_ROWS[variant]
+    kall = items_len(nb, j_idx.numel())
+    if chunk is None:
+        chunk = _sweep_chunk(kall, rows * block * 4)
+    items = sweep_items(bounds, j_idx.numel(), chunk)
+    slot = torch.empty((items.chunk, rows, block), dtype=torch.float32,
+                       device=spos.device)
     with torch.cuda.device(spos.device):
         stream = torch.cuda.current_stream(spos.device).cuda_stream
         rc = _library().tree_sweep(
-            spos.data_ptr(), nb, block, bounds.data_ptr(), j_idx.data_ptr(),
-            out.data_ptr(), _POLY_C, _E_POLY_C, *_sweep_consts(eps2, sigma),
-            variant, stream)
+            spos.data_ptr(), nb, block, j_idx.data_ptr(),
+            items.table.data_ptr(), kall, items.istart.data_ptr(),
+            items.chunk, slot.data_ptr(), out.data_ptr(), _POLY_C,
+            _E_POLY_C, *_sweep_consts(eps2, sigma), variant, stream)
     _build.check(rc, "tree_sweep")
     name = LAUNCH_COUNTERS[variant]
     setattr(near_sweep, name, getattr(near_sweep, name) + 1)
@@ -478,8 +584,8 @@ def near_sweep_n3(spos: Tensor, sweep_i: Tensor, sweep_j: Tensor, *,
                   nb: int, block: int, eps2: float, sigma: float) -> Tensor:
     """Newton-3rd halved sweep over the halved i-major list (sweep_i,
     sweep_j), j >= i, live entries only -> [4, nb*B], unscaled. A CPU
-    tensor runs the plain twin; a CUDA tensor launches the two kernels
-    (one count in `near_sweep_n3.launches` per call)."""
+    tensor runs the plain twin; a CUDA tensor launches the kernels (one
+    count in `near_sweep_n3.launches` per call)."""
     if spos.device.type == "cpu":
         return near_sweep_n3_plain(spos, sweep_i, sweep_j, nb=nb,
                                    block=block, eps2=eps2, sigma=sigma)
@@ -506,18 +612,30 @@ def _n3_prepare(spos: Tensor, sweep_i: Tensor, sweep_j: Tensor, nb: int,
 
 def _launch_sweep_n3(spos: Tensor, nb: int, block: int, bounds: Tensor,
                      j_idx: Tensor, jorder: Tensor, jbounds: Tensor,
-                     eps2: float, sigma: float) -> Tensor:
-    """The halved sweep's two kernels on lists `_n3_prepare` built."""
+                     eps2: float, sigma: float,
+                     chunk: Optional[int] = None) -> Tensor:
+    """The halved sweep's kernels on lists `_n3_prepare` built: the item
+    table, then the item kernel and its i-side fold a chunk of `chunk`
+    table entries (default: as SWEEP_SCRATCH_BYTES allows), then the
+    j-fold."""
     out = torch.empty_like(spos)
-    rows = torch.empty((max(j_idx.shape[0], 1), 3, block),
-                       dtype=torch.float32, device=spos.device)
+    list_len = j_idx.shape[0]
+    kall = items_len(nb, list_len)
+    if chunk is None:
+        chunk = _sweep_chunk(kall, 3 * block * 4)
+    items = sweep_items(bounds, list_len, chunk)
+    islot = torch.empty((items.chunk, 3, block), dtype=torch.float32,
+                        device=spos.device)
+    rows = torch.empty((max(list_len, 1), 3, block), dtype=torch.float32,
+                       device=spos.device)
     with torch.cuda.device(spos.device):
         stream = torch.cuda.current_stream(spos.device).cuda_stream
         rc = _library().tree_sweep_n3(
-            spos.data_ptr(), nb, block, bounds.data_ptr(), j_idx.data_ptr(),
-            out.data_ptr(), rows.data_ptr(), jorder.data_ptr(),
-            jbounds.data_ptr(), _POLY_C, *_factor_consts(eps2, sigma),
-            stream)
+            spos.data_ptr(), nb, block, j_idx.data_ptr(),
+            items.table.data_ptr(), kall, items.istart.data_ptr(),
+            items.chunk, islot.data_ptr(), rows.data_ptr(),
+            jorder.data_ptr(), jbounds.data_ptr(), out.data_ptr(), _POLY_C,
+            *_factor_consts(eps2, sigma), stream)
     _build.check(rc, "tree_sweep_n3")
     near_sweep_n3.launches += 1
     return out

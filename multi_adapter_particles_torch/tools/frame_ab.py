@@ -57,8 +57,9 @@ def _cli(app, n, width, height, fused: bool, force: str, steps: int) -> dict:
             "simulate_ms": m["stages_ms"]["simulate"]}
 
 
-def _profile(n, width, height, fused: bool, force: str) -> dict:
-    """Busy share and kernels a frame over WINDOW steady frames."""
+def _profile(n, width, height, fused: bool, force: str, **sim) -> dict:
+    """Busy share and kernels a frame over WINDOW steady frames (`sim`:
+    more SimConfig fields)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -71,7 +72,7 @@ def _profile(n, width, height, fused: bool, force: str) -> dict:
 
     kw = {"fused": True} if fused else {}
     p = ParticlesApp(AppConfig(num_particles=n, vsync=False, gui=False),
-                     SimConfig(num_particles=n, force_model=force),
+                     SimConfig(num_particles=n, force_model=force, **sim),
                      RenderConfig(width=width, height=height), **kw)
     for _ in range(5):
         p.draw()

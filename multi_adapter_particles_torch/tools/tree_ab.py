@@ -10,18 +10,22 @@ JSON line: the directed and Newton-3rd sweep kernels at 1,048,576
 particles (device init, seed 0; G=192, B=512, the probed pair budget; CUDA
 events over 10 launches on lists built once), and the CLI's tree-P3M frame
 time (median CUDA-event device frame of `-steps 10`, the Newton-3rd sweep
-then `-treedirected`). Kernels build into each checkout's own
-`build/torch_kernels/`.
+then `-treedirected`), and the busy share of each (kernel time over the
+CUDA-event time of 10 steady frames of `ParticlesApp.draw()` at the same
+grid and budget, torch.profiler; `frame_ab.py`'s measure). Kernels build
+into each checkout's own `build/torch_kernels/`.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+from pathlib import Path
 
 N, GRID, BOX, CUTOFF = 1_048_576, 192, 2048.0, 6.75
 
@@ -78,6 +82,15 @@ def measure(root: str) -> dict:
                                                 L.sweep_block, b32, j32,
                                                 eps2, sigma))
     del pos
+    spec = importlib.util.spec_from_file_location(
+        "frame_ab", Path(__file__).with_name("frame_ab.py"))
+    frame_ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(frame_ab)
+    for half, label in ((True, "n3"), (False, "directed")):
+        busy = frame_ab._profile(
+            N, 1024, 1024, False, "p3m", p3m_near_mode="tree",
+            pm_grid_size=GRID, p3m_pair_budget=budget, tree_half_force=half)
+        out.update({f"{label}_{k}": v for k, v in busy.items()})
     for label, extra in (("n3", []), ("directed", ["-treedirected"])):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "m.json")
