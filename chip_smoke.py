@@ -23,7 +23,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    without), no rsqrt guard, and at most 17 issue slots a pair; every
    tree sweep item kernel's to its FP32 count a pair (INSTR: 27, 41, 23,
    23; the halved one 30 with the j-side, 27 without), 1 MUFU, no rsqrt
-   guard and no divergent-shuffle fallback)
+   guard and no divergent-shuffle fallback; the half-pair generations'
+   ring loops (csrc/allpairs_halfpair.cu: every tri_kernel mode and
+   pair_kernel) to 15 FP32 with the j-side and 12 without, 1 MUFU, no
+   rsqrt guard, no divergent-shuffle fallback, at most the 3 j-side sums'
+   SHFL a ring step of 4 pairs (no source shuffle) and no spills)
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
 4. composite_rows kernel (the depth-Q pass alone, off the render path) vs
    plain on the rows the eager composite builds for one 1M chunk of the 4M
@@ -90,8 +94,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     runs bitwise; the full forms vs phase 8's half-pair kernel at 131,072
     and at 1,048,576; the t = 512 cases and the v7 cases timed at
     1,048,576 with pairs/s, their FP32 and MUFU bounds, phase 8's time,
-    the peak scratch and the fold kernels' device time (torch.profiler);
-    v6 beside phase 8's kernel
+    the peak scratch and the fold kernels' device time (torch.profiler),
+    for v7 beside the fold's byte bound and its share of it; v6 beside
+    phase 8's kernel
 11. tree sweeps vs their twins at 262,144 (device init, auto grid G=128,
     B=256, probed budget, dropped == 0): directed and Newton-3rd kernels
     on the same lists, <= 1e-5 of max|a_near|; kernel (on lists prepared
@@ -439,6 +444,8 @@ def loop_tally(name, cubin):
             log(f"  SASS loop {name} {kernel}: {sass.format_mix(mix)}")
     if name == "treeforce":
         tree_loop_check(loops)
+    if name == "allpairs_halfpair":
+        gen_loop_check(loops)
     if name != "allpairs":
         return
     mixes = [m for m in loops.get("half_item_kernel", [])
@@ -458,6 +465,45 @@ def loop_tally(name, cubin):
     if both[0]["slots"] > 17:
         fail(f"half_item_kernel j-side loop: {both[0]['slots']:.3f} issue "
              "slots a pair > 17")
+
+
+# the generations' ring loops expected in each kernel of
+# csrc/allpairs_halfpair.cu: "both" sides (the j-side sums shuffle) and the
+# i-side alone
+GEN_LOOPS = {"tri_kernel<0,0>": ["both", "iside"],
+             "tri_kernel<0,1>": ["both", "iside"],
+             "tri_kernel<1,0>": ["both"], "tri_kernel<2,0>": ["iside"],
+             "pair_kernel": ["both", "iside"]}
+
+
+def gen_loop_check(loops):
+    """Fail unless each generation kernel's ring loops (GEN_LOOPS) take
+    their FP32 count a pair (GEN_INSTR), 1 MUFU, no rsqrt guard (no FSETP,
+    no predicated FP32), no source shuffle (at most the 3 j-side sums a
+    ring step of R pairs; none on the i-side alone) and no
+    divergent-shuffle copy; logs their issue slots a pair."""
+    from multi_adapter_particles_torch.ops import allpairs_halfpair
+
+    shfl = 3 / (allpairs_halfpair.TILE // 32)   # a ring step: R pairs
+    slots = {}
+    for kernel, want in GEN_LOOPS.items():
+        mixes = loops.get(kernel, [])
+        sides = sorted("both" if m["SHFL"] else "iside" for m in mixes)
+        if sides != sorted(want):
+            fail(f"{kernel}: rsqrt loops {sides}, want {want}")
+        for mix in mixes:
+            side = "both" if mix["SHFL"] else "iside"
+            if (mix["fp32"] != GEN_INSTR[side] or mix["MUFU"] != 1
+                    or mix["FSETP"] or mix["guarded"] or mix["collective"]
+                    or mix["SHFL"] > (shfl if side == "both" else 0)):
+                fail(f"{kernel} {side} loop: FP32 {mix['fp32']}, MUFU "
+                     f"{mix['MUFU']}, FSETP {mix['FSETP']}, SHFL "
+                     f"{mix['SHFL']:.3f}, fallback {mix['collective']} a "
+                     f"pair (want {GEN_INSTR[side]}, 1, 0, <= "
+                     f"{shfl if side == 'both' else 0}, no)")
+            slots[f"{kernel} {side}"] = mix["slots"]
+    log("  generation ring loops at their FP32 counts, no guard, no source "
+        f"shuffle, no fallback; issue slots a pair {json.dumps(slots)}")
 
 
 def tree_loop_check(loops):
@@ -844,23 +890,11 @@ def _render_io(dev, dup_y=2, dup_x=2, n=N_MAIN, width=WIDTH, height=HEIGHT):
 def launch_profile(fn):
     """(fn(), [(kernel or memset, device ms)] in launch order) of one call
     under torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from multi_adapter_particles_torch.tools.allpairs_halfpair import (
+        profile_call,
+    )
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    launches = []
-    for ev in prof.events():
-        if ev.device_type.name != "CUDA":
-            continue
-        us = getattr(ev, "device_time", None)
-        if us is None:
-            us = ev.cuda_time
-        name = ev.name.replace("(anonymous namespace)::", "").split("(")[0]
-        launches.append((name.removeprefix("void ").strip(), us / 1e3))
-    return out, launches
+    return profile_call(fn)
 
 
 def phase_sort(dev):
@@ -1875,7 +1909,7 @@ def phase_halfpair_generations(dev, half, half_1m):
         base = torch.cuda.memory_allocated()
         out, kernels = launch_profile(lambda: fn(pos, **kw))
         scratch = torch.cuda.max_memory_allocated() - base
-        fold = sum(ms for name, ms in kernels if "fold_kernel" in name)
+        fold = HH.split_kernels(kernels)["folds"][0]
         busy = sum(ms for _, ms in kernels)
         rel = None
         if mode == "full":
@@ -1892,12 +1926,20 @@ def phase_halfpair_generations(dev, half, half_1m):
                         "half_ms": half["ms_1m"], "scratch_bytes": scratch,
                         "fold_ms": fold, "profiled_kernel_ms": busy,
                         "rel_err_vs_half": rel}
+        fold_line = ""
+        if fn is G.v7_accel:
+            fold_bytes = G.v7_fold_bytes(N_AP, kw["t"], kw["kb"])
+            fold_bound = bytes_bound_ms(fold_bytes)
+            at_1m[label]["fold_bound_ms"] = fold_bound
+            fold_line = (f" (byte bound {fold_bound:.3f} ms, "
+                         f"{fold_bytes / 1e9:.3f} GB -> "
+                         f"{fold_bound / fold:.1%})")
         log(f"    {label:28s}: {ms:9.3f} ms = "
             f"{N_AP * N_AP / ms * 1e3:.4e} pairs/s ({ms / half['ms_1m']:.3f}x "
             f"#4's {half['ms_1m']:.1f}); bound FP32 {fp32:.1f} / MUFU "
             f"{mufu:.1f} ms ({mhz:.0f} MHz) -> {bound / ms:.1%}; scratch "
-            f"{scratch / 1e9:.3f} GB; folds {fold:.3f} of {busy:.3f} "
-            "profiled kernel ms")
+            f"{scratch / 1e9:.3f} GB; folds {fold:.3f}{fold_line} of "
+            f"{busy:.3f} profiled kernel ms")
         if scratch > GEN_SCRATCH_LIMIT:
             fail(f"{label}: {scratch / 1e9:.3f} GB of scratch at 1M > "
                  f"{GEN_SCRATCH_LIMIT / 1e9} GB")

@@ -27,10 +27,12 @@
 // slots in table order). So every sum has a fixed order, and the result is
 // bitwise the same from run to run. The alternative, an ordered
 // read-modify-write into one [3, N] accumulator behind integer flags, was
-// not taken: at 1M the fold kernels take 7.2 ms of v5's 477 ms, 17.8 of
-// v6's 433 and 11.5-41.7 of v7's 528-583 (chip_smoke phase 10c,
-// torch.profiler; H100 80GB HBM3 at 700 W). v7's share grows as its band
-// narrows: one thread a column walks all the band's rows.
+// not taken: at 1M the fold kernels take 5.0 ms of v5's 385.7 ms (t =
+// 512), 17.8 of v6's 366.2 and 4.7-10.5 of v7's 357.4-372.2, 73-83% of
+// v7's byte bound (`tools/allpairs_halfpair.py --profile`; NVIDIA H100
+// 80GB HBM3, 700.00 W). Before the fold kept its loads in flight, one
+// thread a column walked the band's rows one dependent load at a time:
+// 11.6-42.3 ms of v7's call, 9-33% of its bound.
 //
 // Schedules, each the Hopper reading of its JAX body:
 // - v5: one CTA per i-tile walking j = i .. nt-1 (the dynamic lower
@@ -52,27 +54,39 @@
 //   order.
 //
 // Inside a CTA: a team of t/128 warps holds the tile's t targets, 4 to a
-// lane (strided by 32 so each warp load is one 128-byte row); the j-side
-// column sums of a tile pair come from a lane-rotation ring: a warp takes
-// 32 sources at a time, one a lane, with a j-side accumulator beside each;
-// after every step the source and its accumulator move one lane down, so
-// after 32 steps each source has met the warp's 128 targets and is back in
-// its lane. The team's warps' column sums
-// are then added in warp order in shared memory (named barrier per team).
-// v5, v5s and v7 run S = min(8, 2048/t) teams a CTA (512 threads at t =
-// 256 .. 1024), each on every S-th j-tile; their i-side tile sums go into
-// Kahan-compensated running sums and the teams' totals are added in team
-// order at the end. v6 runs one team a CTA.
+// lane (strided by 32 so each warp load is one 128-byte row), and stages
+// its j-tile in shared memory, each 32-source chunk stored twice, so that
+// ring step s reads source lane + s of the chunk as one LDS.128 at an
+// immediate offset (`ring`, the one ring of the file: every tri_kernel
+// mode and pair_kernel). Only the three j-side sums travel, one lane down
+// a step; after 32 steps each source's sums are back in its lane. The
+// team's warps' column sums are then added in warp order in shared memory
+// (named barrier per team). The ring's branches are warp-uniform, and
+// __all_sync votes say so (the j-side choice, the static loop's skip), or
+// the compiler keeps a divergent-shuffle copy of the loop.
+// rsqrt.approx.ftz: d2 >= eps2 > 0 is never denormal, so it is the non-ftz
+// rsqrtf bit for bit, without the guard (an FSETP and two predicated
+// FMULs a pair). v5, v5s and v7 run S = min(8, 2048/t) teams a CTA (512
+// threads at t = 256 and 512), within the 227 KB of shared memory a CTA
+// may take (`teams_for`: one team at t = 1024), each on every S-th
+// j-tile; their i-side tile sums go into Kahan-compensated running sums
+// and the teams' totals are added in team order at the end. v6 runs one
+// team a CTA.
 //
 // Tally per unique pair (bound on the H100: arithmetic; the inner loop
 // reads nothing from device memory): one MUFU rsqrt per computed pair;
 // FP32 (FADD/FMUL/FFMA) 15 on pairs that take both sides (3 subtractions,
 // 4 for d2, 2 for s, 3 i-side and 3 j-side FFMA) and 12 on pairs that take
 // the i-side only (the diagonal tile in "full"; every pair in "tri_only").
-// Plus 1.5 SHFL a pair (6 a ring step of 4 pairs; 3 without a j-side).
+// Plus 0.75 SHFL a pair (3 a ring step of R = 4 pairs; none without a
+// j-side) and 0.25 LDS (one LDS.128 a step).
 // Fold bytes: v5 / v5s each slot written and read once, 3 floats a column
 // of every pair j > i: 2 x 12 B x nt(nt-1)/2 x t (25.8 GB at 1M, t = 512);
 // v7 the same; v6 the i-side slots too (12 B x t a pair: 51.6 GB at 1M).
+// The slot fold (`fold_kernel`, v5 and v7) runs a thread a (component,
+// column) and knows its row count up front, so it keeps FOLD_AHEAD slot
+// loads in flight ahead of the dependent Kahan adds, which take the rows in
+// increasing i as before: the same bits.
 //
 // wgmma, TMA and clusters are later work: this is the simple kernel.
 
@@ -85,6 +99,9 @@ constexpr int WARP_T = 32 * R;     // targets per warp
 constexpr int MAX_T = 1024;        // widest tile (shared memory)
 constexpr int MAX_THREADS = 512;   // threads a CTA
 constexpr int MAX_TEAMS = 8;       // named barriers 1 .. 8
+constexpr int SMEM_LIMIT = 232448; // shared memory a CTA may take (227 KB)
+constexpr int UNROLL = 8;          // ring steps a loop body
+constexpr int FOLD_AHEAD = 16;     // slot loads in flight a fold thread
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Mode { kFull = 0, kReduceOnly = 1, kTriOnly = 2 };
@@ -111,10 +128,29 @@ __device__ __forceinline__ void team_sync(int team, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(team + 1), "r"(count) : "memory");
 }
 
-// Teams a CTA of v5 / v5s / v7 for tile width t.
+// Shared memory of one team at tile width t: its staged j-tile (each
+// 32-source chunk twice, float4) and its warps' column sums [t/128][3][t].
+__host__ __device__ inline int team_smem(int t) {
+  return 2 * t * (int)sizeof(float4) +
+         (t / WARP_T) * 3 * t * (int)sizeof(float);
+}
+
+// Teams a CTA of v5 / v5s / v7 for tile width t: up to 512 threads and
+// MAX_TEAMS, within SMEM_LIMIT (one team at t = 1024).
 __host__ __device__ inline int teams_for(int t) {
-  const int s = 2048 / t;
-  return s < 1 ? 1 : (s > MAX_TEAMS ? MAX_TEAMS : s);
+  int s = 2048 / t;
+  s = s > MAX_TEAMS ? MAX_TEAMS : s;
+  const int fit = SMEM_LIMIT / team_smem(t);
+  s = s > fit ? fit : s;
+  return s < 1 ? 1 : s;
+}
+
+// rsqrt.approx.ftz: d2 >= eps2 > 0 is never denormal, so this is the
+// non-ftz rsqrtf bit for bit, without its guard.
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // The team's targets of tile `ibase`: warp tw, lane, r -> tw*128 + r*32 + lane.
@@ -131,52 +167,71 @@ __device__ __forceinline__ void load_targets(const float* __restrict__ pos,
   }
 }
 
-// One (i, j) tile pair for one warp of a team: the row sums of its 4
-// targets a lane against the t sources from jbase into (ax, ay, az), set
-// here; with kJ, the warp's negated column sums into jp[3][t] (x, y, z).
+// Thread k of `threads` stages its t / threads sources of the tile at
+// jbase: source q of chunk c goes to src[64 c + q] and src[64 c + 32 + q].
+__device__ __forceinline__ void stage_tile(const float* __restrict__ pos,
+                                           long long n, int t,
+                                           long long jbase, int k,
+                                           int threads,
+                                           float4* __restrict__ src) {
+  for (int q = k; q < t; q += threads) {
+    const long long j = jbase + q;
+    const float4 p = make_float4(pos[j], pos[n + j], pos[2 * n + j], 0.f);
+    const int at = (q >> 5) * 64 + (q & 31);
+    src[at] = p;
+    src[at + 32] = p;
+  }
+}
+
+// One warp against a staged tile of t sources: the row sums of its R
+// targets a lane into (ax, ay, az), set here; with kJ, the warp's negated
+// column sums into jp[3][t] (x, y, z). Ring step s of chunk c: this lane
+// meets source (lane + s) % 32 of the chunk, read from src[64 c + lane + s]
+// as one LDS.128, and holds that source's j-side sums; only the sums move,
+// one lane down a step, so after 32 steps each is back in its own lane.
 template <bool kJ>
-__device__ __forceinline__ void tile_pair(
-    const float* __restrict__ pos, long long n, int t, long long jbase,
-    const float (&xi)[R], const float (&yi)[R], const float (&zi)[R],
-    float (&ax)[R], float (&ay)[R], float (&az)[R], float eps2,
-    float* __restrict__ jp, int lane) {
+__device__ __forceinline__ void ring(const float4* __restrict__ src, int t,
+                                     const float (&xi)[R],
+                                     const float (&yi)[R],
+                                     const float (&zi)[R], float (&ax)[R],
+                                     float (&ay)[R], float (&az)[R],
+                                     float eps2, float* __restrict__ jp,
+                                     int lane) {
   const int next = (lane + 1) & 31;
 #pragma unroll
   for (int r = 0; r < R; ++r) ax[r] = ay[r] = az[r] = 0.f;
   for (int c = 0; c < t / 32; ++c) {
-    const long long j = jbase + c * 32 + lane;
-    float xj = pos[j], yj = pos[n + j], zj = pos[2 * n + j];
+    const float4* sp = src + c * 64 + lane;
     float jx = 0.f, jy = 0.f, jz = 0.f;
-#pragma unroll 2
-    for (int step = 0; step < 32; ++step) {
+    for (int s0 = 0; s0 < 32; s0 += UNROLL) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float dx = xj - xi[r];
-        const float dy = yj - yi[r];
-        const float dz = zj - zi[r];
-        const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-        const float inv = rsqrtf(d2);
-        const float s = inv * inv * inv;
-        ax[r] += dx * s;
-        ay[r] += dy * s;
-        az[r] += dz * s;
+      for (int u = 0; u < UNROLL; ++u) {
+        const float4 p = sp[s0 + u];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float dx = p.x - xi[r];
+          const float dy = p.y - yi[r];
+          const float dz = p.z - zi[r];
+          const float d2 = dx * dx + dy * dy + dz * dz + eps2;
+          const float inv = rsqrt_ftz(d2);
+          const float w = inv * inv * inv;
+          ax[r] += dx * w;
+          ay[r] += dy * w;
+          az[r] += dz * w;
+          if (kJ) {
+            jx -= dx * w;
+            jy -= dy * w;
+            jz -= dz * w;
+          }
+        }
         if (kJ) {
-          jx -= dx * s;
-          jy -= dy * s;
-          jz -= dz * s;
+          jx = __shfl_sync(FULL, jx, next);
+          jy = __shfl_sync(FULL, jy, next);
+          jz = __shfl_sync(FULL, jz, next);
         }
       }
-      // the source (and its j-side sums) move one lane down
-      xj = __shfl_sync(FULL, xj, next);
-      yj = __shfl_sync(FULL, yj, next);
-      zj = __shfl_sync(FULL, zj, next);
-      if (kJ) {
-        jx = __shfl_sync(FULL, jx, next);
-        jy = __shfl_sync(FULL, jy, next);
-        jz = __shfl_sync(FULL, jz, next);
-      }
     }
-    if (kJ) {  // 32 moves later each source is back in its own lane
+    if (kJ) {
       jp[c * 32 + lane] = jx;
       jp[t + c * 32 + lane] = jy;
       jp[2 * t + c * 32 + lane] = jz;
@@ -190,14 +245,16 @@ __device__ __forceinline__ void tile_pair(
 // (iacc, icomp) [3, n]. The j-side: kFull writes each pair j > i's negated
 // column sums to slot + b*slot_row + d*slot_w + (j - slot_j0)*t;
 // kReduceOnly writes the CTA's carry of colsum(tx)+colsum(ty)+colsum(tz)
-// (negated) over its pairs j >= i to slot + b*slot_row.
+// (negated) over its pairs j >= i to slot + b*slot_row. Shared memory:
+// [teams][2t] float4 staged tiles, then [teams][t/128][3][t] column sums.
 template <int kMode, bool kStatic>
 __global__ void __launch_bounds__(MAX_THREADS)
 tri_kernel(const float* __restrict__ pos, long long n, int t, int teams,
            int i_first, int j_lo, int j_hi, float* __restrict__ iacc,
            float* __restrict__ icomp, float* __restrict__ slot,
            long long slot_row, long long slot_w, int slot_j0, float eps2) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int tw_n = t / WARP_T;  // warps a team
   const int team_threads = tw_n * 32;
   const int team = threadIdx.x / team_threads;
@@ -205,7 +262,9 @@ tri_kernel(const float* __restrict__ pos, long long n, int t, int teams,
   const int tw = lt >> 5, lane = lt & 31;
   const int i = i_first + blockIdx.x;
   const long long ibase = (long long)i * t;
-  float* jp = smem + (long long)team * tw_n * 3 * t;  // [tw_n][3][t]
+  float4* src = smem4 + (long long)team * 2 * t;
+  float* jp = reinterpret_cast<float*>(smem4 + (long long)teams * 2 * t) +
+              (long long)team * tw_n * 3 * t;
 
   float xi[R], yi[R], zi[R];
   load_targets(pos, n, ibase, tw, lane, xi, yi, zi);
@@ -219,15 +278,19 @@ tri_kernel(const float* __restrict__ pos, long long n, int t, int teams,
 
   const int first = (kStatic ? j_lo : (i > j_lo ? i : j_lo)) + team;
   for (int jj = first; jj < j_hi; jj += teams) {
-    if (kStatic && jj < i) continue;  // uniform across the team
-    const bool jside = kMode == kReduceOnly || (kMode == kFull && jj > i);
+    // the tests below are the same for the whole team: the votes tell the
+    // compiler so, and it drops its divergent-shuffle copy of the ring
+    if (kStatic && __all_sync(FULL, jj < i)) continue;
+    team_sync(team, team_threads);  // the last tile and sums are consumed
+    stage_tile(pos, n, t, (long long)jj * t, lt, team_threads, src);
+    team_sync(team, team_threads);
+    const bool jside = kMode == kReduceOnly ||
+                       (kMode == kFull && __all_sync(FULL, jj > i));
     float ax[R], ay[R], az[R];
     if (jside) {
-      tile_pair<true>(pos, n, t, (long long)jj * t, xi, yi, zi, ax, ay, az,
-                      eps2, jp + tw * 3 * t, lane);
+      ring<true>(src, t, xi, yi, zi, ax, ay, az, eps2, jp + tw * 3 * t, lane);
     } else {
-      tile_pair<false>(pos, n, t, (long long)jj * t, xi, yi, zi, ax, ay, az,
-                       eps2, jp, lane);
+      ring<false>(src, t, xi, yi, zi, ax, ay, az, eps2, jp, lane);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -256,7 +319,6 @@ tri_kernel(const float* __restrict__ pos, long long n, int t, int teams,
           carry[q] += (vx + vy) + vz;
         }
       }
-      team_sync(team, team_threads);  // jp is free for the next pair
     }
   }
 
@@ -296,49 +358,66 @@ tri_kernel(const float* __restrict__ pos, long long n, int t, int teams,
 // col_hi) is global column g = col0 + c of tile b = g / t; rows r = 0, 1,
 // ... (i-tile i_first + r) are Kahan-added in that order, with `triangle`
 // only while i < b. Component d of row r is slot[r*slot_row + d*slot_w + c].
+// One thread a (component, column): its row count is known up front, so
+// FOLD_AHEAD loads are issued before the dependent adds take them in order.
 __global__ void fold_kernel(const float* __restrict__ slot, int rows,
                             long long slot_row, long long slot_w, int ncomp,
                             long long col_lo, long long col_hi,
                             long long col0, int i_first, bool triangle,
                             int t, long long n, float* __restrict__ jacc,
                             float* __restrict__ jcomp) {
-  const long long c = col_lo + (long long)blockIdx.x * blockDim.x +
-                      threadIdx.x;
-  if (c >= col_hi) return;
+  const long long cols = col_hi - col_lo;
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= cols * ncomp) return;
+  const int d = (int)(k / cols);
+  const long long c = col_lo + (k - d * cols);
   const long long g = col0 + c;
-  const long long b = g / t;
-  for (int d = 0; d < ncomp; ++d) {
-    float s = jacc[d * n + g], cmp = jcomp[d * n + g];
-    for (int r = 0; r < rows; ++r) {
-      if (triangle && i_first + r >= b) break;
-      kahan_add(s, cmp, slot[r * slot_row + d * slot_w + c]);
-    }
-    jacc[d * n + g] = s;
-    jcomp[d * n + g] = cmp;
+  int nr = rows;
+  if (triangle) {
+    const long long lim = g / t - i_first;
+    nr = lim < 0 ? 0 : (lim < rows ? (int)lim : rows);
   }
+  const float* sp = slot + d * slot_w + c;
+  float s = jacc[d * n + g], cmp = jcomp[d * n + g];
+  for (int r0 = 0; r0 < nr; r0 += FOLD_AHEAD) {
+    float v[FOLD_AHEAD];
+#pragma unroll
+    for (int u = 0; u < FOLD_AHEAD; ++u) {
+      v[u] = r0 + u < nr ? __ldcs(sp + (long long)(r0 + u) * slot_row) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < FOLD_AHEAD; ++u) {
+      if (r0 + u < nr) kahan_add(s, cmp, v[u]);
+    }
+  }
+  jacc[d * n + g] = s;
+  jcomp[d * n + g] = cmp;
 }
 
 // v6: entry k0 + blockIdx.x of the pair table, one team (t/4 threads). The
 // i-side tile sums go to slot_i[b][3][t]; for j > i the negated column sums
-// to slot_j[b][3][t].
+// to slot_j[b][3][t]. Shared memory: the staged j-tile [2t] float4, then
+// the warps' column sums [t/128][3][t].
 __global__ void __launch_bounds__(MAX_T / 4)
 pair_kernel(const float* __restrict__ pos, long long n, int t,
             const int* __restrict__ iofk, const int* __restrict__ jofk,
             long long k0, float* __restrict__ slot_i,
             float* __restrict__ slot_j, float eps2) {
-  extern __shared__ float smem[];  // [tw_n][3][t]
+  extern __shared__ float4 smem4[];
+  float4* src = smem4;
+  float* jp = reinterpret_cast<float*>(smem4 + 2 * t);
   const long long k = k0 + blockIdx.x;
   const int i = iofk[k], j = jofk[k];
   const int tw_n = t / WARP_T;
   const int tw = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float xi[R], yi[R], zi[R], ax[R], ay[R], az[R];
   load_targets(pos, n, (long long)i * t, tw, lane, xi, yi, zi);
-  if (j > i) {
-    tile_pair<true>(pos, n, t, (long long)j * t, xi, yi, zi, ax, ay, az,
-                    eps2, smem + tw * 3 * t, lane);
+  stage_tile(pos, n, t, (long long)j * t, threadIdx.x, blockDim.x, src);
+  __syncthreads();
+  if (__all_sync(FULL, j > i)) {
+    ring<true>(src, t, xi, yi, zi, ax, ay, az, eps2, jp + tw * 3 * t, lane);
   } else {
-    tile_pair<false>(pos, n, t, (long long)j * t, xi, yi, zi, ax, ay, az,
-                     eps2, smem, lane);
+    ring<false>(src, t, xi, yi, zi, ax, ay, az, eps2, jp, lane);
   }
   float* si = slot_i + (long long)blockIdx.x * 3 * t;
 #pragma unroll
@@ -354,8 +433,8 @@ pair_kernel(const float* __restrict__ pos, long long n, int t,
     for (int c = threadIdx.x; c < t; c += blockDim.x) {
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        float v = smem[d * t + c];
-        for (int w = 1; w < tw_n; ++w) v += smem[(w * 3 + d) * t + c];
+        float v = jp[d * t + c];
+        for (int w = 1; w < tw_n; ++w) v += jp[(w * 3 + d) * t + c];
         sj[d * t + c] = v;
       }
     }
@@ -446,7 +525,7 @@ int fold(const float* slot, int rows, long long slot_row, long long slot_w,
          int i_first, bool triangle, int t, long long n, float* planes,
          cudaStream_t st) {
   if (col_hi <= col_lo || rows <= 0) return 0;
-  const long long blocks = (col_hi - col_lo + 255) / 256;
+  const long long blocks = ((col_hi - col_lo) * ncomp + 255) / 256;
   fold_kernel<<<(unsigned)blocks, 256, 0, st>>>(
       slot, rows, slot_row, slot_w, ncomp, col_lo, col_hi, col0, i_first,
       triangle, t, n, planes + 6 * n, planes + 9 * n);
@@ -460,7 +539,7 @@ int launch_tri(const float* pos, long long n, int t, int ctas, int i_first,
                cudaStream_t st) {
   const int teams = teams_for(t);
   const int threads = teams * t / R;
-  const size_t smem = (size_t)teams * (t / WARP_T) * 3 * t * sizeof(float);
+  const size_t smem = (size_t)teams * team_smem(t);
   cudaError_t err = cudaFuncSetAttribute(
       tri_kernel<kMode, kStatic>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -480,6 +559,12 @@ bool bad_shape(long long n, int t) {
 // The targets of a warp (t must be a multiple) and the widest tile.
 extern "C" int aph_tile() { return WARP_T; }
 extern "C" int aph_max_tile() { return MAX_T; }
+// Teams a tri_kernel CTA, and the shared-memory bytes a tri_kernel
+// (kernel 0) or pair_kernel (1) launch asks for at tile width t.
+extern "C" int aph_teams(int t) { return teams_for(t); }
+extern "C" int aph_smem(int kernel, int t) {
+  return kernel == 0 ? teams_for(t) * team_smem(t) : team_smem(t);
+}
 
 // All entry points: pos [4, n] float32 -> out [4, n]; planes [4, 3, n]
 // scratch (i-side sum and compensation, j-side sum and compensation); the
@@ -547,7 +632,7 @@ extern "C" int aph_v6(const void* pos, long long n, int t, const void* iofk,
   float* pl = static_cast<float*>(planes);
   float* si = static_cast<float*>(slot_i);
   float* sj = static_cast<float*>(slot_j);
-  const size_t smem = (size_t)(t / WARP_T) * 3 * t * sizeof(float);
+  const size_t smem = (size_t)team_smem(t);
   cudaError_t e = cudaFuncSetAttribute(
       pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);

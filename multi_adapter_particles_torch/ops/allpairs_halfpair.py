@@ -59,6 +59,8 @@ TILE = 128            # t must be a multiple (the kernels' warp of targets)
 MAX_KERNEL_T = 1024   # the kernels' widest tile (shared memory)
 V5_CHUNK = 128        # i-tiles a v5 / v5s launch (j-side scratch [C, 3, N])
 V6_ENTRIES = 65_536   # pair-table entries a v6 launch (scratch [E, 6, t])
+SMEM_LIMIT = 232_448  # shared memory a CTA may take on sm_90 (227 KB)
+MAX_TEAMS = 8         # teams a tri_kernel CTA (named barriers 1 .. 8)
 
 # elements of one [t, k*t] pair plane in the twins (bounds their memory)
 _PLANE_ELEMS = 1 << 24
@@ -89,6 +91,51 @@ def _check_mode(mode: str) -> None:
 def _check_kb(kb: int) -> None:
     if kb < 1:
         raise ValueError(f"kb must be >= 1, got {kb}")
+
+
+# -- the kernels' launch geometry (host) --------------------------------------
+
+def team_smem_bytes(t: int) -> int:
+    """Shared memory of one team of the kernels at tile width t, which is
+    what a v6 `pair_kernel` CTA asks for: its staged j-tile (each 32-source
+    chunk twice, 16 B a source) and its t / 128 warps' column sums [3, t]
+    float32."""
+    return 2 * t * 16 + (t // TILE) * 3 * t * 4
+
+
+def teams_for(t: int) -> int:
+    """Teams a v5 / v5s / v7 CTA (`tri_kernel`) runs at tile width t: up
+    to 512 threads of t / 4 a team and `MAX_TEAMS`, within `SMEM_LIMIT`."""
+    fit = SMEM_LIMIT // team_smem_bytes(t)
+    return max(1, min(2048 // t, MAX_TEAMS, fit))
+
+
+def tri_smem_bytes(t: int, teams: int | None = None) -> int:
+    """Shared memory a `tri_kernel` CTA of `teams` teams (default
+    `teams_for(t)`) asks for; its end-of-CTA i-side sums [teams, 3, t]
+    reuse it."""
+    return (teams_for(t) if teams is None else teams) * team_smem_bytes(t)
+
+
+
+def v7_bands(n: int, t: int, kb: int) -> list[tuple[int, int, int]]:
+    """v7's launches over nt = n // t tiles: (j0, kbb, off) a band of kbb
+    j-tiles from j0 with its off-diagonal tile pairs (i < j; tile j meets
+    i-tiles 0 .. j) beside its kbb diagonal ones; i-tiles 0 .. j0 + kbb - 1
+    meet it."""
+    nt = n // t
+    return [(j0, min(kb, nt - j0), sum(range(j0, min(j0 + kb, nt))))
+            for j0 in range(0, nt, kb)]
+
+
+def v7_fold_bytes(n: int, t: int, kb: int) -> int:
+    """Bytes v7's band folds must move: each j-side slot (3 floats a
+    column of every tile pair i < j) read once, and the j-side sum and
+    compensation planes of the band's 3 kbb t columns read and written
+    once a band."""
+    slots = sum(off for _, _, off in v7_bands(n, t, kb)) * 12 * t
+    planes = sum(kbb for _, kbb, _ in v7_bands(n, t, kb)) * t * 3 * 4 * 4
+    return slots + planes
 
 
 # -- the twins ----------------------------------------------------------------
@@ -196,12 +243,19 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    for name in ("aph_tile", "aph_max_tile"):
-        getattr(lib, name).argtypes = []
+    for name, args in (("aph_tile", []), ("aph_max_tile", []),
+                       ("aph_teams", [i]), ("aph_smem", [i, i])):
+        getattr(lib, name).argtypes = args
         getattr(lib, name).restype = ctypes.c_int
     if lib.aph_tile() != TILE or lib.aph_max_tile() != MAX_KERNEL_T:
         raise RuntimeError("csrc/allpairs_halfpair.cu's tiles are not "
                            "TILE / MAX_KERNEL_T")
+    for t in range(TILE, MAX_KERNEL_T + 1, TILE):
+        if (lib.aph_teams(t), lib.aph_smem(0, t), lib.aph_smem(1, t)) != (
+                teams_for(t), tri_smem_bytes(t), team_smem_bytes(t)):
+            raise RuntimeError("csrc/allpairs_halfpair.cu's teams or shared "
+                               f"memory at t={t} are not teams_for / "
+                               "tri_smem_bytes / team_smem_bytes")
     return lib
 
 
