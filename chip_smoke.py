@@ -27,7 +27,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ring loops (csrc/allpairs_halfpair.cu: every tri_kernel mode and
    pair_kernel) to 15 FP32 with the j-side and 12 without, 1 MUFU, no
    rsqrt guard, no divergent-shuffle fallback, at most the 3 j-side sums'
-   SHFL a ring step of 4 pairs (no source shuffle) and no spills)
+   SHFL a ring step of 4 pairs (no source shuffle) and no spills; every
+   v3 kernel's (`v3_kernel<path, warps>`) one rsqrt loop to its path's
+   FP32 count a pair (PIPES: vpu 8, mm_split 5, mm_bf16 4), 1 MUFU, no
+   rsqrt guard, no divergent-shuffle copy and no spills)
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
 4. composite_rows kernel (the depth-Q pass alone, off the render path) vs
    plain on the rows the eager composite builds for one 1M chunk of the 4M
@@ -83,8 +86,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     (131,072; hybrid 98,304), with launch counters; each kernel vs its twin
     at 131,072 (hybrid 98,304), two runs bitwise (FP32 forms on the device
     init scene, the HIGHEST expansion also by RMS against the float64 sum,
-    the bf16 forms on a compact copy); each timed at 1,048,576 (hybrid
-    1,047,552) with pairs/s, its per-pipe bound and its error against v0
+    the bf16 forms on a compact copy; v3 at tj = 512 and 1024); each timed
+    at 1,048,576 (hybrid 1,047,552) with pairs/s, its per-pipe bound and
+    its error against v0, v3's beside its time before (no gate) and held
+    to no NaN and 1.5x the error against v0 before
 10c. half-pair generations (`experiments/allpairs_halfpair.py`: v5 and its
     modes, v5s, v6, v7): their path, the harness `tools/allpairs_halfpair.py`
     at its default (131,072) and in its v7 mode at 131,072, with launch
@@ -390,9 +395,11 @@ def phase_build():
         for name, fut in reports:
             for line in fut.result():
                 log(f"  ptxas {name}: {line}")
-                if (name == "allpairs_halfpair" and "spill" in line
-                        and "0 bytes spill stores, 0 bytes spill loads"
-                        not in line):
+                spills = ("spill" in line and "0 bytes spill stores, 0 bytes "
+                          "spill loads" not in line)
+                if spills and (name == "allpairs_halfpair" or (
+                        name == "allpairs_variants"
+                        and line.startswith("v3_kernel"))):
                     fail(f"{name} spills: {line}")
         sass_tally(os.path.join(tmp, "allpairs_variants.cubin"))
         for name in ("allpairs", "allpairs_variants", "allpairs_halfpair",
@@ -446,6 +453,8 @@ def loop_tally(name, cubin):
         tree_loop_check(loops)
     if name == "allpairs_halfpair":
         gen_loop_check(loops)
+    if name == "allpairs_variants":
+        v3_loop_check(loops)
     if name != "allpairs":
         return
     mixes = [m for m in loops.get("half_item_kernel", [])
@@ -504,6 +513,36 @@ def gen_loop_check(loops):
             slots[f"{kernel} {side}"] = mix["slots"]
     log("  generation ring loops at their FP32 counts, no guard, no source "
         f"shuffle, no fallback; issue slots a pair {json.dumps(slots)}")
+
+
+# v3's kernels: v3_kernel<force path, CTA warps>; each has one rsqrt loop
+# (four pipelined chunks a body) at its path's FP32 count a pair (PIPES)
+V3_KERNELS = {f"v3_kernel<{p},{w}>": f"v3 {fp}"
+              for p, fp in enumerate(("vpu", "mm_split", "mm_bf16"))
+              for w in (4, 8)}
+V3_SLOTS = {}   # SASS issue slots a pair, filled by phase 2
+
+
+def v3_loop_check(loops):
+    """Fail unless each v3 kernel (V3_KERNELS) has one rsqrt loop at its
+    FP32 count a pair (PIPES: 8, 5, 4), 1 MUFU, no rsqrt guard (no FSETP,
+    no predicated FP32) and no divergent-shuffle copy; logs and keeps
+    (V3_SLOTS) its issue slots a pair. Its spills are phase 2's ptxas
+    check."""
+    for kernel, label in V3_KERNELS.items():
+        mixes = loops.get(kernel, [])
+        if len(mixes) != 1:
+            fail(f"{kernel}: {len(mixes)} rsqrt loops, want 1")
+        mix = mixes[0]
+        fp32 = PIPES[label][0]
+        if (mix["fp32"] != fp32 or mix["MUFU"] != 1 or mix["FSETP"]
+                or mix["guarded"] or mix["collective"]):
+            fail(f"{kernel} loop: FP32 {mix['fp32']}, MUFU {mix['MUFU']}, "
+                 f"FSETP {mix['FSETP']}, guarded {mix['guarded']}, fallback "
+                 f"{mix['collective']} a pair (want {fp32}, 1, 0, no, no)")
+        V3_SLOTS[kernel] = mix["slots"]
+    log("  v3 loops at their FP32 counts, 1 MUFU, no guard, no fallback; "
+        f"issue slots a pair {json.dumps(V3_SLOTS)}")
 
 
 def tree_loop_check(loops):
@@ -1625,6 +1664,16 @@ VAR_SAMPLE = 4_096   # targets held against the float64 sum
 # (|p| <= 4, eps2 = 25: no cancellation), where an s a rounding apart can
 # land in another bf16 step.
 VAR_LIMIT = {"fp32": 1e-5, "highest": 5e-3, "bf16": 1e-4}
+# v3 before its redesign, on an H100 at 700 W: each path's 1M call at tj =
+# 512 and 1024 (the harness at 1,048,576 on the parent, logged beside the
+# new time, no gate), and its error against v0 on this phase's 1M scene
+# (phase 10b on the parent, tj = 512), which both tj are held to within
+# V3_ERR_FACTOR, with no NaN
+V3_MS_BEFORE = {"v3 vpu": 631.11, "v3 mm_split": 695.95, "v3 mm_bf16": 553.10,
+                "v3 vpu tj=1024": 621.16, "v3 mm_split tj=1024": 684.58,
+                "v3 mm_bf16 tj=1024": 543.26}
+V3_ERR_BEFORE = {"vpu": 3.199e-3, "mm_split": 3.198e-3, "mm_bf16": 3.123e-3}
+V3_ERR_FACTOR = 1.5
 # (PIPES key, JAX launcher it belongs to, keywords, form)
 VAR_CASES = (
     ("attr full", "attr_accel", dict(mode="full"), "fp32"),
@@ -1640,6 +1689,11 @@ VAR_CASES = (
     ("v3 vpu", "v3_accel", dict(force_path="vpu"), "bf16"),
     ("v3 mm_split", "v3_accel", dict(force_path="mm_split"), "bf16"),
     ("v3 mm_bf16", "v3_accel", dict(force_path="mm_bf16"), "bf16"),
+    ("v3 vpu tj=1024", "v3_accel", dict(force_path="vpu", tj=1024), "bf16"),
+    ("v3 mm_split tj=1024", "v3_accel", dict(force_path="mm_split", tj=1024),
+     "bf16"),
+    ("v3 mm_bf16 tj=1024", "v3_accel", dict(force_path="mm_bf16", tj=1024),
+     "bf16"),
 )
 # the JSON entry of each launcher: its JAX defaults' case, and the TPU
 # kernel body it replaces
@@ -1776,6 +1830,13 @@ def phase_allpairs_variants(dev):
                             "rel_err_vs_v0": rel, "nan_share": nan}
             vs = ("(attr: held only against its twin)" if name == "attr_accel"
                   else f"vs v0 rel {rel:.3e}, NaN share {nan:.3e}")
+            if name == "v3_accel":
+                before = V3_ERR_BEFORE[kw["force_path"]]
+                vs += (f"; before {V3_MS_BEFORE[label]:.2f} ms, rel "
+                       f"{before:.3e}")
+                if nan or not rel <= V3_ERR_FACTOR * before:
+                    fail(f"{label} @1M: rel {rel:.3e} (before {before:.3e}), "
+                         f"NaN share {nan:.3e}")
             log(f"    {label:13s} @{n:,}: {ms:9.3f} ms = "
                 f"{n * n / ms * 1e3:.4e} pairs/s; bound {bound:.3f} ms "
                 f"({pipe}, {mhz:.0f} MHz) -> {bound / ms:.1%}; {vs}")
@@ -1989,7 +2050,7 @@ def pipe_bound_ms(name: str, pairs: float, mhz: float):
     slowest of its FP32, MUFU and tensor-core work (PIPES) at its pipe's
     issue rate on 132 SMs at `mhz`."""
     times = {pipe: issue_bound_ms(count * pairs, mhz, pipe)
-             for pipe, count in zip(PIPE_RATE, PIPES[name])}
+             for pipe, count in zip(PIPE_RATE, PIPES[name.split(" tj=")[0]])}
     pipe = max(times, key=times.get)
     return times[pipe], pipe
 

@@ -19,7 +19,8 @@
 // pipe retires 128 lanes a clock per SM, MUFU 16, the tensor cores 4,096
 // dense BF16 flops, i.e. one m16n8k16 mma a clock per SM), as the SASS of
 // each kernel's rsqrt loop shows it (chip_smoke phase 2, beside the
-// rsqrtf guard's FSETP and two predicated FMULs, not counted here):
+// rsqrtf guard's FSETP and two predicated FMULs, not counted here; v3 has
+// no guard):
 //   elementwise (attr full, unroll, v4, hybrid's tiles 0-1): 12 FP32
 //     (3 sub, 4 for d² = dx·dx + dy·dy + dz·dz + eps2, 2 mul for s = inv³,
 //     3 FMA into the sums), 1 MUFU (rsqrt); attr norsqrt 11 FP32 and no
@@ -33,7 +34,10 @@
 //   v1: as v1b plus 1 FP32 (r_j² enters as an FP32 FMA, then + r_i²).
 //   v3: 4 FP32 (d² = (r_i² - 2 dot) + r_j², 2 mul), 1 MUFU, mma 2 a block
 //     (K = 12 padded to 16: 32 flops a pair); + 4 FMA (vpu), or + 1 sub and
-//     2 mma (mm_split, 64 flops), or + 1 mma (mm_bf16, 48 flops).
+//     2 mma (mm_split, 64 flops), or + 1 mma (mm_bf16, 48 flops). Its loops
+//     take 9.98 (vpu), 9.44 (mm_split) and 6.64 (mm_bf16) issue slots a
+//     pair; each mma.sync takes one slot but 4.6-7.7 slots' time on an
+//     H100 (tools/v3_attrib.py), which the slots do not show.
 //   hybrid: two thirds elementwise, one third v1b "highest": 9.67 FP32,
 //     1 MUFU, 42.7 tensor flops a pair.
 // At 1,048,576 and 1,980 MHz one MUFU a pair alone takes 263 ms and 12
@@ -606,80 +610,343 @@ expand_kernel(const float* __restrict__ pos, long long n, int tj,
 // (groups [hi_i | lo_i | hi_i | lo_i] x [hi_j | hi_j | lo_j | lo_j]);
 // d² = (r_i² - 2 dot) + r_j²; each tj-tile's force sums are added to the
 // targets' float32 sums after the tile, as the JAX kernel's carry.
+//
+// - A CTA is 8 warps (256 targets) when ti % 256 == 0, else 4; a warp owns
+//   32 targets as two m16 tiles. The launch bounds ask for 16 warps an SM
+//   (at most 128 registers a thread).
+// - Sources are staged V3_STAGE = 512 at a time (256 or 128 when that
+//   does not divide tj, so that a stage never straddles two j-tiles), into
+//   two buffers: while the CTA computes on one, every thread has already
+//   loaded the next stage's raw positions (one source a thread a round)
+//   and builds their records into the other after its chunks; one barrier
+//   a stage.
+// - The staged records are read as 64-bit words with no bank conflicts:
+//   a source's first-mma B is the 4 words [H01 L01 H2 L2] (H01 = (hi x,
+//   hi y), H2 = (hi z, 0), L the lo pieces), since K words t and t + 4 of
+//   the record are H01 L01 (t even) or H2 L2 (t odd); the second mma's B
+//   is 8 columns [hi x y z | 1 | lo x y z | 0] of 8 source-pair words a
+//   chunk, stored w0 w4 w1 w5 w2 w6 w3 w7 so lane (g, t) reads (w_t,
+//   w_t+4) at 8 g + 2 t. The columns 1 and 0 are written once. mm_split's
+//   B_l = [hi x y z | 1] twice is the table's columns g & 3.
+// - The chunk loop is software-pipelined: the next chunk's B words are
+//   loaded and its first mma issued before this chunk's rsqrt and force
+//   work (two chunks a step, unrolled twice: four a loop body; a stage's
+//   last look-ahead re-reads chunk 0 and is dropped). Each force
+//   accumulator takes one mma a chunk, a chunk's work apart, so the chain
+//   is not split.
+// - rsqrt.approx.ftz (inline PTX, `inv3_ftz`): no FSETP and predicated
+//   FMULs around the MUFU. Here d² can cancel below ε², so it can be
+//   denormal: for a positive denormal rsqrtf gives at least 2^63 and its
+//   cube overflows to +inf, as ftz's rsqrt(+0) = +inf does; zero gives inf
+//   and a negative normal NaN in both. Only a negative denormal differs
+//   (-inf against NaN): non-finite either way.
+// - At a tile's end each quad folds its lanes' partial sums (xor 1, then
+//   xor 2: the pairs' order), ending with lane t holding target (t >> 1,
+//   t & 1)'s (f3, fs) and carry. The fold order is fixed: bitwise the same
+//   from run to run, and the same bits as one lane a quad summing them.
 // ---------------------------------------------------------------------------
 
 enum ForcePath { kVpu = 0, kMmSplit = 1, kMmBf16 = 2 };
 
-struct V3Smem {
-  uint32_t rec[TILE * 12];                // 8 words a source, stride 12
-  uint32_t tcol[CHUNKS * TCHUNK_WORDS];   // [hi x y z | lo x y z | 1 | 0]
-  float4 q[TILE];                         // (qx, qy, qz, r_j²)
+constexpr int V3_STAGE = 512;              // sources a stage (less if tj % 512)
+constexpr int V3_CHUNKS = V3_STAGE / 16;   // 16-source chunks a full stage
+constexpr int V3_REC = 4;                  // record words a source
+constexpr int V3_TCOL = 64;                // column-table words a chunk
+constexpr int V3_SM_WARPS = 16;            // warps an SM the bounds ask for
+constexpr uint32_t BF16_ONES = 0x3f803f80u;
+
+// One staged buffer; `c` is its stage's centre (x, y, z, 0).
+template <int PATH>
+struct V3Buf {                              // the mm paths
+  uint32_t rec[V3_STAGE * V3_REC];
+  uint32_t tcol[V3_CHUNKS * V3_TCOL];
+  float rj2[V3_STAGE];
+  float4 c;
+};
+template <>
+struct V3Buf<kVpu> {
+  uint32_t rec[V3_STAGE * V3_REC];
+  float4 q[V3_STAGE];                       // (qx, qy, qz, r_j²)
+  float4 c;
 };
 
-__device__ __forceinline__ uint32_t v3_word(const __nv_bfloat16 (&hi)[3],
-                                            const __nv_bfloat16 (&lo)[3],
-                                            int w, bool a_side) {
-  // word w: group w >> 1 (A: hi lo hi lo; B: hi hi lo lo), coordinates
-  // (0, 1) or (2, pad)
-  const int grp = w >> 1;
-  const bool use_lo = a_side ? (grp & 1) : (grp >> 1);
-  const __nv_bfloat16* v = use_lo ? lo : hi;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  return (w & 1) ? pack2(v[2], zero) : pack2(v[0], v[1]);
+template <int PATH, int WARPS>
+struct V3Smem {
+  V3Buf<PATH> buf[2];
+  float4 tp[WARPS * 32];                    // the CTA's targets (x, y, z, 0)
+};
+
+// Attribution builds of v3 (`tools/v3_attrib.py`, -DV3_ATTRIB=k; timing
+// only, their results are wrong by design): 1 no rsqrt (inv = d² · 1e-3,
+// an FMUL), 2 each first mma issued twice, 3 no second mma (its A and B
+// folded into the sums by integer ops instead), 4 no staging after the
+// first stage (every stage reads buffer 0; no build, no barrier).
+#ifndef V3_ATTRIB
+#define V3_ATTRIB 0
+#endif
+
+__device__ __forceinline__ float inv3_ftz(float d2) {
+  float inv;
+  if constexpr (V3_ATTRIB == 1) {
+    inv = d2 * 1e-3f;
+  } else {
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(d2));
+  }
+  return inv * inv * inv;
 }
 
+// mma16816, or (attribution build 3) the operands xor-ed into d[0]
+__device__ __forceinline__ void v3_mma2(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  if constexpr (V3_ATTRIB == 3) {
+    d[0] = __fadd_rn(d[0], __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^
+                                           b1));
+  } else {
+    mma16816(d, a, b0, b1);
+  }
+}
+
+// (hi, lo) words of a pair of coordinates: hi = bf16(a, b), lo = bf16 of
+// the remainders
+__device__ __forceinline__ uint2 split_word(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  return make_uint2(as_u32(h), as_u32(__floats2bfloat162_rn(
+                                   __fsub_rn(a, hf.x), __fsub_rn(b, hf.y))));
+}
+
+// Build source j's records of a stage in B, centred on c, from its raw
+// position (x, y, z). Called by whole warps on consecutive j: the column
+// table's words hold a source pair (j even, j + 1), so the even lane writes
+// the pair's hi columns and the odd lane its lo columns, each taking its
+// partner's half over one shuffle.
 template <int PATH>
-__global__ void __launch_bounds__(EXP_WARPS * 32)
+__device__ __forceinline__ void v3_build(V3Buf<PATH>& B, int j, float4 c,
+                                         float x, float y, float z) {
+  const float q[3] = {__fsub_rn(x, c.x), __fsub_rn(y, c.y),
+                      __fsub_rn(z, c.z)};
+  const uint2 w01 = split_word(q[0], q[1]);   // (hi, lo) of (x, y)
+  const uint2 w2 = split_word(q[2], 0.f);     // (hi, lo) of (z, 0)
+  const float rj2 = r2(q[0], q[1], q[2]);
+  reinterpret_cast<uint4*>(B.rec)[j] = make_uint4(w01.x, w01.y, w2.x, w2.y);
+  if constexpr (PATH == kVpu) {
+    B.q[j] = make_float4(q[0], q[1], q[2], rj2);
+  } else {
+    B.rj2[j] = rj2;
+    const bool odd = j & 1;
+    const uint32_t p01 = __shfl_xor_sync(FULL, odd ? w01.x : w01.y, 1);
+    const uint32_t p2 = __shfl_xor_sync(FULL, odd ? w2.x : w2.y, 1);
+    // (source j & ~1, source j | 1) halves of this lane's columns
+    const uint32_t e01 = odd ? p01 : w01.x, o01 = odd ? w01.y : p01;
+    const uint32_t e2 = odd ? p2 : w2.x, o2 = odd ? w2.y : p2;
+    // pair m = (j & 15) / 2 of chunk j / 16 sits at 2 (m & 3) + (m >> 2)
+    const int m = (j & 15) >> 1;
+    uint32_t* col = B.tcol + (j >> 4) * V3_TCOL + (odd ? 4 : 0) * 8 +
+                    2 * (m & 3) + (m >> 2);
+    col[0] = __byte_perm(e01, o01, 0x5410);    // x
+    col[8] = __byte_perm(e01, o01, 0x7632);    // y
+    col[16] = __byte_perm(e2, o2, 0x5410);     // z
+  }
+}
+
+template <int PATH, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, V3_SM_WARPS / WARPS)
 v3_kernel(const float* __restrict__ pos, long long n,
           const float* __restrict__ ci, int ti, const float* __restrict__ cj,
           int tj, float* __restrict__ out, float mass, float eps2) {
-  __shared__ V3Smem sm;
+  constexpr int NT = WARPS * 32;
+  __shared__ V3Smem<PATH, WARPS> sm;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const long long wbase = (long long)blockIdx.x * TILE + warp * 32;
+  const int mo = t >> 1, ho = t & 1;       // the target this lane ends with
+  const long long cbase = (long long)blockIdx.x * NT;
   const long long nti = n / ti, ntj = n / tj;
-  const long long blk = ((long long)blockIdx.x * TILE) / ti;
-  const float cix = ci[blk], ciy = ci[nti + blk], ciz = ci[2 * nti + blk];
+  const long long blk = cbase / ti;
+  const float3 c_i = make_float3(ci[blk], ci[nti + blk], ci[2 * nti + blk]);
+  const int stage = tj % V3_STAGE == 0         ? V3_STAGE
+                    : tj % (V3_STAGE / 2) == 0 ? V3_STAGE / 2
+                                               : V3_STAGE / 4;
+  const int nch = stage / 16;                // chunks a stage (32, 16, 8)
+  const long long nst = n / stage, per_tile = tj / stage;
+  // a thread stages sources threadIdx.x + r NT, r < RB; a warp stages all
+  // of its 32 or none (stage and NT are multiples of 32): the vote says
+  // so, or the compiler keeps a divergent-shuffle copy of the stage loop
+  constexpr int RB = V3_STAGE / NT;
+  const int rounds = stage >= NT ? stage / NT : 1;
+  const bool stager = __all_sync(FULL, (int)threadIdx.x < stage);
 
-  float p[EXP_MT][2][3];     // this lane's rows' positions
-#pragma unroll
-  for (int mt = 0; mt < EXP_MT; ++mt) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const long long i = wbase + mt * 16 + g + 8 * hr;
-      p[mt][hr][0] = pos[i];
-      p[mt][hr][1] = pos[n + i];
-      p[mt][hr][2] = pos[2 * n + i];
+  {
+    const long long i = cbase + threadIdx.x;
+    sm.tp[threadIdx.x] = make_float4(pos[i], pos[n + i], pos[2 * n + i], 0.f);
+  }
+  if constexpr (PATH != kVpu) {   // the columns 1 (3) and 0 (7), once
+    for (int k = threadIdx.x; k < 2 * V3_CHUNKS * 16; k += NT) {
+      const int b = k / (V3_CHUNKS * 16), ch = (k >> 4) % V3_CHUNKS,
+                w = k & 15;
+      sm.buf[b].tcol[ch * V3_TCOL + (w < 8 ? 3 * 8 + w : 7 * 8 + w - 8)] =
+          w < 8 ? BF16_ONES : 0u;
     }
   }
-  float acc3[EXP_MT][2][3] = {};   // the JAX carry, per row
-  float qi[EXP_MT][2][3], ri2[EXP_MT][2];
-  uint32_t afr[EXP_MT][4];
-  // one tile's force sums: vpu (f3, fs) per row; mm: accumulators
-  float fv[EXP_MT][2][4];
-  float fh[EXP_MT][4], fl[EXP_MT][4];
+  // this thread's raw sources and the j-centroid of the next stage
+  float rx[RB], ry[RB], rz[RB];
+  float3 c_j = {};
+  auto fetch = [&](long long s) {
+    if (!stager) return;
+    const long long j0 = s * stage + threadIdx.x, b = s * stage / tj;
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r < rounds) {
+        rx[r] = pos[j0 + r * NT];
+        ry[r] = pos[n + j0 + r * NT];
+        rz[r] = pos[2 * n + j0 + r * NT];
+      }
+    }
+    c_j = make_float3(cj[b], cj[ntj + b], cj[2 * ntj + b]);
+  };
+  auto build = [&](V3Buf<PATH>& B) {
+    if (!stager) return;
+    const float4 c = make_float4(0.5f * (c_i.x + c_j.x),
+                                 0.5f * (c_i.y + c_j.y),
+                                 0.5f * (c_i.z + c_j.z), 0.f);
+    if (threadIdx.x == 0) B.c = c;
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r < rounds) {
+        v3_build<PATH>(B, threadIdx.x + r * NT, c, rx[r], ry[r], rz[r]);
+      }
+    }
+  };
+  fetch(0);
+  build(sm.buf[0]);
+  if (nst > 1) fetch(1);
+  __syncthreads();
 
-  for (long long j0 = 0; j0 < n; j0 += TILE) {
-    const long long b = j0 / tj;
-    const float c[3] = {0.5f * (cix + cj[b]), 0.5f * (ciy + cj[ntj + b]),
-                        0.5f * (ciz + cj[2 * ntj + b])};
-    if (j0 % tj == 0) {  // a new j-tile: re-centre the targets
+  float ri2[EXP_MT][2];      // r_i² + eps2 of rows (mt, g + 8 hr)
+  // the first mma's A quad of each m-tile: words of rows g, g + 8, then
+  // the same again (K slots 8-15 repeat 0-7). The copies are OR-ed with a
+  // zero the compiler cannot see (n < 2^62), so they keep registers of
+  // their own and the quad stays in place; else the compiler re-copies two
+  // of its registers before every mma.
+  uint32_t aq[EXP_MT][4];
+  const uint32_t opaque0 = (uint32_t)(n >> 62);
+  float qo[3] = {0.f, 0.f, 0.f}, acc[3] = {0.f, 0.f, 0.f};
+  float fv[EXP_MT][2][4];    // vpu: (f3, fs) partials of rows (mt, hr)
+  float fh[EXP_MT][4], fl[EXP_MT][4];   // mm: accumulators
+  const float4* tp = sm.tp + warp * 32;
+
+  // one chunk's first mma: d[mt][h] = A(mt) x B(chunk c, half h)
+  auto first_mma = [&](const V3Buf<PATH>& B, int c, float (&d)[EXP_MT][2][4]) {
+    uint2 b[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      b[h] = *reinterpret_cast<const uint2*>(
+          B.rec + (c * 16 + h * 8 + g) * V3_REC + 2 * (t & 1));
+    }
+#pragma unroll
+    for (int mt = 0; mt < EXP_MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[mt][h][e] = 0.f;
+        mma16816(d[mt][h], aq[mt], b[h].x, b[h].y);
+        if constexpr (V3_ATTRIB == 2) {
+          mma16816(d[mt][h], aq[mt], b[h].x, b[h].y);
+        }
+      }
+    }
+  };
+  // one chunk's rsqrt and force work on its first mma's d
+  auto forces = [&](const V3Buf<PATH>& B, int c,
+                    const float (&d)[EXP_MT][2][4]) {
+    if constexpr (PATH == kVpu) {
+      float4 q[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        q[h][0] = B.q[c * 16 + h * 8 + 2 * t];
+        q[h][1] = B.q[c * 16 + h * 8 + 2 * t + 1];
+      }
+#pragma unroll
+      for (int mt = 0; mt < EXP_MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 qj = q[h][e & 1];
+            const float s = inv3_ftz(__fadd_rn(
+                __fmaf_rn(-2.f, d[mt][h][e], ri2[mt][e >> 1]), qj.w));
+            float* f = fv[mt][e >> 1];
+            f[0] = __fmaf_rn(qj.x, s, f[0]);
+            f[1] = __fmaf_rn(qj.y, s, f[1]);
+            f[2] = __fmaf_rn(qj.z, s, f[2]);
+            f[3] = __fadd_rn(f[3], s);
+          }
+        }
+      }
+    } else {
+      float2 rj[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rj[h] = *reinterpret_cast<const float2*>(B.rj2 + c * 16 + h * 8 +
+                                                 2 * t);
+      }
+      const uint32_t* tc = B.tcol + c * V3_TCOL;
+      const uint2 bh = *reinterpret_cast<const uint2*>(tc + g * 8 + 2 * t);
+      uint2 bl = make_uint2(0u, 0u);
+      if constexpr (PATH == kMmSplit) {
+        bl = *reinterpret_cast<const uint2*>(tc + (g & 3) * 8 + 2 * t);
+      }
+#pragma unroll
+      for (int mt = 0; mt < EXP_MT; ++mt) {
+        float s[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float r = (e & 1) ? rj[h].y : rj[h].x;
+            s[h][e] = inv3_ftz(__fadd_rn(
+                __fmaf_rn(-2.f, d[mt][h][e], ri2[mt][e >> 1]), r));
+          }
+        }
+        uint32_t shi[4], sunused[4], slo[4];
+        split_s<false>(s, shi, sunused, slo);
+        v3_mma2(fh[mt], shi, bh.x, bh.y);
+        if constexpr (PATH == kMmSplit) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {  // s - bf16(s), to bf16
+            // the bf16 halves as floats: one shift, one mask
+            const float h0 = __uint_as_float(shi[k] << 16);
+            const float h1 = __uint_as_float(shi[k] & 0xffff0000u);
+            slo[k] = as_u32(__floats2bfloat162_rn(
+                __fsub_rn(s[k >> 1][(k & 1) * 2], h0),
+                __fsub_rn(s[k >> 1][(k & 1) * 2 + 1], h1)));
+          }
+          v3_mma2(fl[mt], slo, bl.x, bl.y);
+        }
+      }
+    }
+  };
+
+  for (long long st = 0; st < nst; ++st) {
+    const V3Buf<PATH>& B = sm.buf[V3_ATTRIB == 4 ? 0 : st & 1];
+    if (st % per_tile == 0) {  // a new j-tile: re-centre the targets
+      const float4 c = B.c;
 #pragma unroll
       for (int mt = 0; mt < EXP_MT; ++mt) {
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-          __nv_bfloat16 hi[3], lo[3];
+          const float4 p = tp[mt * 16 + g + 8 * hr];
+          const float q[3] = {__fsub_rn(p.x, c.x), __fsub_rn(p.y, c.y),
+                              __fsub_rn(p.z, c.z)};
+          ri2[mt][hr] = __fadd_rn(r2(q[0], q[1], q[2]), eps2);
+          // A word t: (hi x, hi y), (hi z, 0), (lo x, lo y), (lo z, 0)
+          const uint2 w = split_word((t & 1) ? q[2] : q[0],
+                                     (t & 1) ? 0.f : q[1]);
+          aq[mt][hr] = (t & 2) ? w.y : w.x;
+          aq[mt][2 + hr] = aq[mt][hr] | opaque0;
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
-            qi[mt][hr][k] = __fsub_rn(p[mt][hr][k], c[k]);
-            hi[k] = __float2bfloat16_rn(qi[mt][hr][k]);
-            lo[k] = __float2bfloat16_rn(
-                __fsub_rn(qi[mt][hr][k], __bfloat162float(hi[k])));
+            qo[k] = mt == mo && hr == ho ? q[k] : qo[k];
           }
-          ri2[mt][hr] = __fadd_rn(r2(qi[mt][hr][0], qi[mt][hr][1],
-                                     qi[mt][hr][2]), eps2);
-          afr[mt][hr] = v3_word(hi, lo, t, true);   // a2 = a0, a3 = a1
-          afr[mt][2 + hr] = afr[mt][hr];
 #pragma unroll
           for (int e = 0; e < 4; ++e) fv[mt][hr][e] = 0.f;
         }
@@ -687,158 +954,85 @@ v3_kernel(const float* __restrict__ pos, long long n,
         for (int e = 0; e < 4; ++e) fh[mt][e] = fl[mt][e] = 0.f;
       }
     }
-    __syncthreads();
-    {  // stage: source j's centred pieces
-      const int j = threadIdx.x;
-      const long long js = j0 + j;
-      const float q[3] = {__fsub_rn(pos[js], c[0]),
-                          __fsub_rn(pos[n + js], c[1]),
-                          __fsub_rn(pos[2 * n + js], c[2])};
-      __nv_bfloat16 hi[3], lo[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        hi[k] = __float2bfloat16_rn(q[k]);
-        lo[k] = __float2bfloat16_rn(__fsub_rn(q[k], __bfloat162float(hi[k])));
-      }
-#pragma unroll
-      for (int w = 0; w < 8; ++w) sm.rec[j * 12 + w] = v3_word(hi, lo, w,
-                                                               false);
-      sm.q[j] = make_float4(q[0], q[1], q[2], r2(q[0], q[1], q[2]));
-      __nv_bfloat16* col = reinterpret_cast<__nv_bfloat16*>(
-          sm.tcol + (j >> 4) * TCHUNK_WORDS);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        col[k * (2 * TCOL_WORDS) + (j & 15)] = hi[k];
-        col[(3 + k) * (2 * TCOL_WORDS) + (j & 15)] = lo[k];
-      }
-      col[6 * (2 * TCOL_WORDS) + (j & 15)] = __float2bfloat16_rn(1.f);
-      col[7 * (2 * TCOL_WORDS) + (j & 15)] = __float2bfloat16_rn(0.f);
+    float d0[EXP_MT][2][4], d1[EXP_MT][2][4];
+    first_mma(B, 0, d0);
+#pragma unroll 2
+    for (int c = 0; c < nch; c += 2) {
+      first_mma(B, c + 1, d1);
+      forces(B, c, d0);
+      first_mma(B, (c + 2) & (nch - 1), d0);   // the last body's is dropped
+      forces(B, c + 1, d1);
     }
-    __syncthreads();
-#pragma unroll 1
-    for (int ch = 0; ch < CHUNKS; ++ch) {
-      uint32_t b1[2][2];
-      float4 qs[2][2];
+    if (V3_ATTRIB != 4 && st + 1 < nst) {
+      build(sm.buf[(st + 1) & 1]);
+      if (st + 2 < nst) fetch(st + 2);
+    }
+    if ((st + 1) % per_tile == 0) {  // the tile's end: acc += f3 - q_i fs
+      float f3[3], fs;
+      if constexpr (PATH == kVpu) {
+        // xor 1 keeps row hr = ho, xor 2 m-tile mo
+        float k8[EXP_MT][4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t* rec = sm.rec + (ch * 16 + h * 8 + g) * 12;
-        b1[h][0] = rec[t];
-        b1[h][1] = rec[4 + t];
-        qs[h][0] = sm.q[ch * 16 + h * 8 + 2 * t];
-        qs[h][1] = sm.q[ch * 16 + h * 8 + 2 * t + 1];
-      }
-      const uint32_t* tc = sm.tcol + ch * TCHUNK_WORDS;
-      const uint32_t bh0 = tc[g * TCOL_WORDS + t];
-      const uint32_t bh1 = tc[g * TCOL_WORDS + 4 + t];
-      // B_l = (hi x, y, z, 1, 0...): columns 0, 1, 2, 6 of B_h
-      const int lcol = g < 3 ? g : 6;
-      const uint32_t bl0 = g < 4 ? tc[lcol * TCOL_WORDS + t] : 0u;
-      const uint32_t bl1 = g < 4 ? tc[lcol * TCOL_WORDS + 4 + t] : 0u;
-#pragma unroll
-      for (int mt = 0; mt < EXP_MT; ++mt) {
-        float s[2][4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma16816(d, afr[mt], b1[h][0], b1[h][1]);
+        for (int mt = 0; mt < EXP_MT; ++mt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float4 q = qs[h][e & 1];
-            const float d2 = __fadd_rn(__fmaf_rn(-2.f, d[e], ri2[mt][e >> 1]),
-                                       q.w);
-            s[h][e] = inv3(d2);
-            if (PATH == kVpu) {
-              float* f = fv[mt][e >> 1];
-              f[0] += q.x * s[h][e];
-              f[1] += q.y * s[h][e];
-              f[2] += q.z * s[h][e];
-              f[3] += s[h][e];
-            }
+            const float keep = ho ? fv[mt][1][e] : fv[mt][0][e];
+            const float send = ho ? fv[mt][0][e] : fv[mt][1][e];
+            k8[mt][e] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, 1));
           }
         }
-        if (PATH != kVpu) {
-          uint32_t shi[4], sunused[4], slo[4];
-          split_s<false>(s, shi, sunused, slo);
-          mma16816(fh[mt], shi, bh0, bh1);
-          if (PATH == kMmSplit) {
+        float k4[4];
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {  // s - bf16(s), to bf16
-              const float s0 = s[q >> 1][(q & 1) * 2];
-              const float s1 = s[q >> 1][(q & 1) * 2 + 1];
-              const float2 hf = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&shi[q]));
-              slo[q] = as_u32(__floats2bfloat162_rn(__fsub_rn(s0, hf.x),
-                                                    __fsub_rn(s1, hf.y)));
-            }
-            mma16816(fl[mt], slo, bl0, bl1);
-          }
+        for (int e = 0; e < 4; ++e) {
+          const float keep = mo ? k8[1][e] : k8[0][e];
+          const float send = mo ? k8[0][e] : k8[1][e];
+          k4[e] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, 2));
         }
-      }
-    }
-    if ((j0 + TILE) % tj != 0) continue;
-    // the tile's end: acc3 += f3 - q_i * fs, per row
-#pragma unroll
-    for (int mt = 0; mt < EXP_MT; ++mt) {
-      float f[2][4];
-      if (PATH == kVpu) {
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float v = fv[mt][hr][e];
-            v += __shfl_xor_sync(FULL, v, 1);
-            v += __shfl_xor_sync(FULL, v, 2);
-            f[hr][e] = v;
-          }
-        }
+        f3[0] = k4[0];
+        f3[1] = k4[1];
+        f3[2] = k4[2];
+        fs = k4[3];
       } else {
-        // column k of row hr sits in lane 4g + k/2, element 2hr + k%2
-        const int quad = lane & ~3;
+        // columns c + 4 of lane t ^ 2 onto c: lanes t = 0, 2 hold (fx, fy),
+        // t = 1, 3 (fz, fs) of rows g (e 0, 1) and g + 8 (e 2, 3)
+        float v[EXP_MT][4];
 #pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          float h8[8], l4[4];
+        for (int mt = 0; mt < EXP_MT; ++mt) {
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            h8[k] = __shfl_sync(FULL, fh[mt][2 * hr + (k & 1)],
-                                quad + (k >> 1));
+          for (int e = 0; e < 4; ++e) {
+            v[mt][e] = __fadd_rn(fh[mt][e],
+                                 __shfl_xor_sync(FULL, fh[mt][e], 2));
+            if (PATH == kMmSplit) v[mt][e] = __fadd_rn(v[mt][e], fl[mt][e]);
           }
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            l4[k] = __shfl_sync(FULL, fl[mt][2 * hr + (k & 1)],
-                                quad + (k >> 1));
-          }
-          // f3 = (f_h[0:3] + f_h[3:6]) + f_l[0:3]; fs = f_h[6] + f_l[3]
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            f[hr][k] = __fadd_rn(h8[k], h8[3 + k]);
-            if (PATH == kMmSplit) f[hr][k] = __fadd_rn(f[hr][k], l4[k]);
-          }
-          f[hr][3] = PATH == kMmSplit ? __fadd_rn(h8[6], l4[3]) : h8[6];
         }
+        // this lane's pair for its target, and the other pair from t ^ 1
+        float own[2], got[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float lo = mo ? v[1][k] : v[0][k];
+          const float hi = mo ? v[1][2 + k] : v[0][2 + k];
+          own[k] = ho ? hi : lo;
+          got[k] = __shfl_xor_sync(FULL, ho ? lo : hi, 1);
+        }
+        const bool xy = (t & 1) == 0;
+        f3[0] = xy ? own[0] : got[0];
+        f3[1] = xy ? own[1] : got[1];
+        f3[2] = xy ? got[0] : own[0];
+        fs = xy ? got[1] : own[1];
       }
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          acc3[mt][hr][k] = __fadd_rn(
-              acc3[mt][hr][k],
-              __fsub_rn(f[hr][k], __fmul_rn(qi[mt][hr][k], f[hr][3])));
-        }
+      for (int k = 0; k < 3; ++k) {
+        acc[k] = __fadd_rn(acc[k], __fsub_rn(f3[k], __fmul_rn(qo[k], fs)));
       }
     }
+    if (V3_ATTRIB != 4) __syncthreads();
   }
-  if (t >= 2) return;
-#pragma unroll
-  for (int mt = 0; mt < EXP_MT; ++mt) {
-    const int hr = t;
-    const long long i = wbase + mt * 16 + g + 8 * hr;
-    const float a[3] = {mass * acc3[mt][hr][0], mass * acc3[mt][hr][1],
-                        mass * acc3[mt][hr][2]};
-    out[i] = a[0];
-    out[n + i] = a[1];
-    out[2 * n + i] = a[2];
-    out[3 * n + i] = amag(a[0], a[1], a[2]);
-  }
+  const long long i = cbase + warp * 32 + mo * 16 + g + 8 * ho;
+  const float a[3] = {mass * acc[0], mass * acc[1], mass * acc[2]};
+  out[i] = a[0];
+  out[n + i] = a[1];
+  out[2 * n + i] = a[2];
+  out[3 * n + i] = amag(a[0], a[1], a[2]);
 }
 
 bool bad_n(long long n) { return n <= 0 || n % TILE != 0; }
@@ -916,6 +1110,21 @@ extern "C" int apv_hybrid(const void* pos, long long n, int tj, void* out,
   return launched();
 }
 
+// v3's CTA width in warps for ti: 8 (256 targets) when ti % 256 == 0,
+// else 4 (`ops/allpairs_variants.py::v3_warps` mirrors it).
+extern "C" int apv_v3_warps(int ti) { return ti % 256 == 0 ? 8 : 4; }
+
+// Static shared memory of a v3 CTA of `warps` warps on force path `path`
+// (`v3_smem_bytes` mirrors it; its stage buffers do not depend on tj).
+extern "C" int apv_v3_smem(int path, int warps) {
+  if (path == kVpu) {
+    return warps == 8 ? (int)sizeof(V3Smem<kVpu, 8>)
+                      : (int)sizeof(V3Smem<kVpu, 4>);
+  }
+  return warps == 8 ? (int)sizeof(V3Smem<kMmSplit, 8>)
+                    : (int)sizeof(V3Smem<kMmSplit, 4>);
+}
+
 // v3: ci [3, n / ti] and cj [3, n / tj] tile centroids; path 0 vpu,
 // 1 mm_split, 2 mm_bf16; out [4, n].
 extern "C" int apv_v3(const void* pos, long long n, const void* ci, int ti,
@@ -930,12 +1139,20 @@ extern "C" int apv_v3(const void* pos, long long n, const void* ci, int ti,
   const float* a = static_cast<const float*>(ci);
   const float* b = static_cast<const float*>(cj);
   float* o = static_cast<float*>(out);
-  const unsigned blocks = (unsigned)(n / TILE);
-  const int th = EXP_WARPS * 32;
-  switch (path) {
-    case kVpu: v3_kernel<kVpu><<<blocks, th, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
-    case kMmSplit: v3_kernel<kMmSplit><<<blocks, th, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
-    default: v3_kernel<kMmBf16><<<blocks, th, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
+  if (apv_v3_warps(ti) == 8) {
+    const unsigned blocks = (unsigned)(n / 256);
+    switch (path) {
+      case kVpu: v3_kernel<kVpu, 8><<<blocks, 256, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
+      case kMmSplit: v3_kernel<kMmSplit, 8><<<blocks, 256, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
+      default: v3_kernel<kMmBf16, 8><<<blocks, 256, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
+    }
+  } else {
+    const unsigned blocks = (unsigned)(n / 128);
+    switch (path) {
+      case kVpu: v3_kernel<kVpu, 4><<<blocks, 128, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
+      case kMmSplit: v3_kernel<kMmSplit, 4><<<blocks, 128, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
+      default: v3_kernel<kMmBf16, 4><<<blocks, 128, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
+    }
   }
   return launched();
 }

@@ -307,6 +307,73 @@ def _v3_rule(n: int, ti: int, tj: int) -> None:
                          f"divide N (N={n}, ti={ti}, tj={tj})")
 
 
+# v3's kernel shape (csrc/allpairs_variants.cu, checked by `_library`)
+V3_STAGE = 512         # sources a staged buffer (fewer when tj % 512)
+V3_SM_WARPS = 16       # warps an SM its launch bounds ask for
+SMEM_LIMIT = 232_448   # shared memory a CTA may use on the H100 (227 KB)
+SM_SMEM = 233_472      # an SM's shared memory, 1 KB of it held a CTA
+
+
+def v3_warps(ti: int) -> int:
+    """Warps of a v3 CTA (32 targets each): 8 when ti % 256 == 0, else 4;
+    a CTA's targets lie in one ti-block."""
+    return 8 if ti % 256 == 0 else 4
+
+
+def v3_stage(tj: int) -> int:
+    """Sources a v3 stage: the largest of V3_STAGE, a half and a quarter of
+    it that divides tj, so that no stage straddles two j-tiles."""
+    return next(s for s in (V3_STAGE, V3_STAGE // 2, V3_STAGE // 4)
+                if tj % s == 0)
+
+
+def v3_smem_bytes(force_path: str, ti: int) -> int:
+    """Static shared memory of a v3 CTA: two stage buffers (double
+    buffering) of V3_STAGE sources — 16 B of first-mma record and, for
+    "vpu", 16 B of (q, r_j²), for the mm paths 16 B of column table and 4 B
+    of r_j² — and the stage's centre (16 B), then the CTA's targets (16 B
+    each). The same at every tj."""
+    per_source = 32 if force_path == "vpu" else 36
+    return 2 * (V3_STAGE * per_source + 16) + 32 * v3_warps(ti) * 16
+
+
+def v3_ctas_per_sm(force_path: str, ti: int) -> int:
+    """CTAs an SM holds by shared memory alone."""
+    return SM_SMEM // (v3_smem_bytes(force_path, ti) + 1024)
+
+
+def v3_rec_words(lane: int, chunk: int = 0, half: int = 0) -> tuple:
+    """The two 32-bit words (one 64-bit load) lane (g, t) reads of a
+    stage buffer's first-mma records in one (chunk, half): source g's
+    record [H01 L01 H2 L2] at 2 (t & 1)."""
+    g, t = lane >> 2, lane & 3
+    w = (chunk * 16 + half * 8 + g) * 4 + 2 * (t & 1)
+    return (w, w + 1)
+
+
+def v3_tcol_words(lane: int, chunk: int = 0, low: bool = False) -> tuple:
+    """The two words (one 64-bit load) lane (g, t) reads of chunk's column
+    table: column g (mm_split's B_l with `low`: column g & 3), source-pair
+    words t and t + 4, stored at 2 t and 2 t + 1."""
+    g, t = lane >> 2, lane & 3
+    w = chunk * 64 + (g & 3 if low else g) * 8 + 2 * t
+    return (w, w + 1)
+
+
+def v3_tcol_slot(pair: int) -> int:
+    """The slot of source-pair word `pair` (0-7) in a column of the
+    table: w0 w4 w1 w5 w2 w6 w3 w7."""
+    return 2 * (pair & 3) + (pair >> 2)
+
+
+def v3_quad_fold(t: int) -> tuple:
+    """The order in which lane t of a quad folds its target's partial sums
+    at a tile's end: ((t, t ^ 1), (t ^ 2, t ^ 3)), the pair sums taken by
+    lanes t and t ^ 2 over xor 1, then added over xor 2. Lane t ends with
+    target (m-tile t >> 1, row half t & 1)."""
+    return ((t, t ^ 1), (t ^ 2, t ^ 3))
+
+
 def v3_centroids(position: Tensor, ti: int, tj: int):
     """The tile centroids [3, N/ti] and [3, N/tj] (`allpairs_v3.py:58,77`)."""
     p = position[:3]
@@ -428,14 +495,23 @@ def _library() -> ctypes.CDLL:
             ("apv_plane", [p, ll, p, f, f, p]),
             ("apv_expand", [p, ll, p, i, i, f, f, p]),
             ("apv_hybrid", [p, ll, i, p, f, f, p]),
-            ("apv_v3", [p, ll, p, i, p, i, p, i, f, f, p])):
+            ("apv_v3", [p, ll, p, i, p, i, p, i, f, f, p]),
+            ("apv_tile", []), ("apv_v3_warps", [i]),
+            ("apv_v3_smem", [i, i])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.apv_tile.argtypes = []
-    lib.apv_tile.restype = ctypes.c_int
     if lib.apv_tile() != TILE:
         raise RuntimeError("csrc/allpairs_variants.cu's tile is not TILE")
+    for ti in range(TILE, 4096 + 1, TILE):
+        warps = v3_warps(ti)
+        smem = {fp: lib.apv_v3_smem(_FORCE_PATH[fp], warps)
+                for fp in FORCE_PATHS}
+        if lib.apv_v3_warps(ti) != warps or any(
+                smem[fp] != v3_smem_bytes(fp, ti) for fp in FORCE_PATHS):
+            raise RuntimeError("csrc/allpairs_variants.cu's v3 CTA width or "
+                               f"shared memory at ti={ti} are not v3_warps / "
+                               "v3_smem_bytes")
     return lib
 
 

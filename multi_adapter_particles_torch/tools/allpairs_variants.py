@@ -1,7 +1,7 @@
 """Time the all-pairs A/B variants against the production rectangle (v0).
 
     python -m multi_adapter_particles_torch.tools.allpairs_variants [N]
-        [--device cuda|cpu] [--reps K]
+        [--device cuda|cpu] [--reps K] [--only PREFIX ...]
 
 The port's counterpart of the `main()`s of the JAX package's
 `experiments/allpairs_*.py`: the same scene (uniform in ±400, w = 0,
@@ -14,9 +14,11 @@ design (unscaled, op groups removed): no error is printed for them.
 Without N each variant runs at its JAX harness's default: 131,072, and
 98,304 for hybrid (192 tiles of 512). With N, a variant whose shape rule N
 breaks (unroll: N // 2048 even; hybrid: N // 512 a multiple of 3) is
-reported as skipped. It runs on the GPU; `--device cpu` runs the plain
-twins (slow: minutes at the default sizes). A kernel's failure is never
-caught.
+reported as skipped. v3 runs each force path at tj = 512 and 1024, as
+its JAX harness does. `--only` keeps the cases whose label starts with one
+of the prefixes (v0 always runs). It runs on the GPU; `--device cpu` runs
+the plain twins (slow: minutes at the default sizes). A kernel's failure
+is never caught.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from multi_adapter_particles_torch.ops.allpairs import all_pairs_accel
 
 N_DEFAULT = 131_072
 N_HYBRID_DEFAULT = 98_304
+V3_TJ = (512, 1024)   # v3's j-tiles, as `allpairs_v3.py:203`
 
 # (label, function, keywords, wrong by design)
 CASES = (
@@ -45,9 +48,8 @@ CASES = (
     ("unroll2", V.unroll_accel, {}, False),
     ("v1 mma default", V.v1_accel, dict(precision="default"), False),
     ("v1 mma highest", V.v1_accel, dict(precision="highest"), False),
-    ("v3 vpu", V.v3_accel, dict(force_path="vpu"), False),
-    ("v3 mm_split", V.v3_accel, dict(force_path="mm_split"), False),
-    ("v3 mm_bf16", V.v3_accel, dict(force_path="mm_bf16"), False),
+    *((f"v3 {fp} tj={tj}", V.v3_accel, dict(force_path=fp, tj=tj), False)
+      for fp in V.FORCE_PATHS for tj in V3_TJ),
     ("hybrid 2:1", V.hybrid_accel, {}, False),
     ("v4 plane", V.v4_accel, {}, False),
 )
@@ -96,22 +98,27 @@ def error_vs(out: torch.Tensor, ref: torch.Tensor):
     return err / float(a0.abs().max()), nan
 
 
-def tiles(fn, n: int) -> bool:
-    """Whether n meets fn's shape rules at its JAX default tiles."""
+def tiles(fn, n: int, kw=None) -> bool:
+    """Whether n meets fn's shape rules at the case's tiles (`kw`'s tj,
+    else the JAX defaults)."""
     rule = {V.unroll_accel: V.unroll_fits, V.hybrid_accel: V.hybrid_fits,
             V.v3_accel: V.v3_fits}.get(fn)
-    return n % V.TILE == 0 and (rule is None or rule(n))
+    tj = {"tj": kw["tj"]} if kw and "tj" in kw else {}
+    return n % V.TILE == 0 and (rule is None or rule(n, **tj))
 
 
-def run(n=None, device="cuda", reps=3, log=print):
-    """Time every case against v0; returns one dict a case run (label, n,
-    ms, pairs_per_s, rel_err, nan_share, or skipped)."""
+def run(n=None, device="cuda", reps=3, log=print, only=()):
+    """Time every case (those whose label starts with a prefix in `only`,
+    if given) against v0; returns one dict a case run (label, n, ms,
+    pairs_per_s, rel_err, nan_share, or skipped)."""
     rows, refs = [], {}
     cuda = torch.device(device).type == "cuda"
     for label, fn, kw, wrong in CASES:
+        if only and not label.startswith(tuple(only)):
+            continue
         size = n if n is not None else (
             N_HYBRID_DEFAULT if fn is V.hybrid_accel else N_DEFAULT)
-        if not tiles(fn, size):
+        if not tiles(fn, size, kw):
             log(f"{label:24s}: skipped, N={size:,} does not tile")
             rows.append({"label": label, "n": size, "skipped": True})
             continue
@@ -144,6 +151,8 @@ def main(argv=None) -> int:
     ap.add_argument("n", nargs="?", type=int, default=None)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--only", nargs="+", default=(), metavar="PREFIX",
+                    help="run only the cases whose label starts with one")
     args = ap.parse_args(argv)
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -157,7 +166,7 @@ def main(argv=None) -> int:
         print(f"N={args.n or 'harness defaults'}, device cpu (plain twins)",
               flush=True)
     run(args.n, args.device, args.reps,
-        log=lambda s: print(s, flush=True))
+        log=lambda s: print(s, flush=True), only=args.only)
     return 0
 
 

@@ -41,6 +41,7 @@ import jax.numpy as jnp
 
 from multi_adapter_particles_torch import constants as C
 from multi_adapter_particles_torch.ops import allpairs_variants as V
+from multi_adapter_particles_torch.tools import allpairs_variants as harness
 
 # The suite runs one xdist worker per core; torch's own thread pool on top
 # only oversubscribes them.
@@ -139,6 +140,18 @@ class TestExpansionTwins:
             want = exp["v3"].v3_accel(jnp.asarray(p), force_path=force_path)
             _assert_rel(_twin(V.v3_accel_plain, p, force_path=force_path),
                         want, rel)
+
+    @pytest.mark.parametrize("force_path", V.FORCE_PATHS)
+    def test_v3_tj1024(self, exp, force_path):
+        """The JAX harness's other j-tile (`allpairs_v3.py:203`), at
+        test_v3's tolerances."""
+        tight = 2e-5 if force_path == "mm_bf16" else 1e-5
+        for scale, rel in ((COMPACT, tight), (1.0, 1e-2)):
+            p = _pos(2048, scale)
+            want = exp["v3"].v3_accel(jnp.asarray(p), tj=1024,
+                                      force_path=force_path)
+            _assert_rel(_twin(V.v3_accel_plain, p, tj=1024,
+                              force_path=force_path), want, rel)
 
     def test_hybrid(self, exp):
         for scale, rel in ((COMPACT, 1e-5), (1.0, 1e-2)):
@@ -253,3 +266,23 @@ def test_cpu_wrapper_is_its_twin(fn, plain, kw):
     assert fn.launches == before
     with pytest.raises(ValueError, match="cuda or cpu"):
         fn(torch.empty((4, 768), device="meta"), **kw)
+
+
+def test_harness_runs_every_v3_tile():
+    """The harness's v3 cases are its JAX harness's: every force path at
+    tj = 512 and 1024 (`allpairs_v3.py:202-203`)."""
+    v3 = [kw for _, fn, kw, _ in harness.CASES if fn is V.v3_accel]
+    want = [(fp, tj) for fp in ("vpu", "mm_split", "mm_bf16")
+            for tj in (512, 1024)]
+    assert sorted((kw["force_path"], kw["tj"]) for kw in v3) == sorted(want)
+
+
+def test_harness_only_keeps_the_prefix():
+    """`--only v3` runs v3's six cases (and v0), at their own tiles; each
+    has its error against v0 (large on this scene, where d² cancels) and no
+    NaN."""
+    rows = harness.run(2048, "cpu", reps=1, log=lambda s: None, only=["v3"])
+    assert [r["label"] for r in rows] == [
+        c[0] for c in harness.CASES if c[0].startswith("v3")]
+    for row in rows:
+        assert row["rel_err"] < 1 and row["nan_share"] == 0
