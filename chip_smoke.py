@@ -28,7 +28,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    pair_kernel) to 15 FP32 with the j-side and 12 without, 1 MUFU, no
    rsqrt guard, no divergent-shuffle fallback, at most the 3 j-side sums'
    SHFL a ring step of 4 pairs (no source shuffle) and no spills; every
-   v3 kernel's (`v3_kernel<path, warps>`) one rsqrt loop to its path's
+   v3 kernel's (`v3_kernel<path>`) one rsqrt loop to its path's
    FP32 count a pair (PIPES: vpu 8, mm_split 5, mm_bf16 4), 1 MUFU, no
    rsqrt guard, no divergent-shuffle copy and no spills)
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
@@ -86,7 +86,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     (131,072; hybrid 98,304), with launch counters; each kernel vs its twin
     at 131,072 (hybrid 98,304), two runs bitwise (FP32 forms on the device
     init scene, the HIGHEST expansion also by RMS against the float64 sum,
-    the bf16 forms on a compact copy; v3 at tj = 512 and 1024); each timed
+    the bf16 forms on a compact copy; v3 at tj = 512 and 1024, and at
+    98,304 at five more (ti, tj) that reach its other stage sizes,
+    untimed); each timed
     at 1,048,576 (hybrid 1,047,552) with pairs/s, its per-pipe bound and
     its error against v0, v3's beside its time before (no gate) and held
     to no NaN and 1.5x the error against v0 before
@@ -515,11 +517,10 @@ def gen_loop_check(loops):
         f"shuffle, no fallback; issue slots a pair {json.dumps(slots)}")
 
 
-# v3's kernels: v3_kernel<force path, CTA warps>; each has one rsqrt loop
-# (four pipelined chunks a body) at its path's FP32 count a pair (PIPES)
-V3_KERNELS = {f"v3_kernel<{p},{w}>": f"v3 {fp}"
-              for p, fp in enumerate(("vpu", "mm_split", "mm_bf16"))
-              for w in (4, 8)}
+# v3's kernels: v3_kernel<force path>; each has one rsqrt loop (four
+# pipelined chunks a body) at its path's FP32 count a pair (PIPES)
+V3_KERNELS = {f"v3_kernel<{p}>": f"v3 {fp}"
+              for p, fp in enumerate(("vpu", "mm_split", "mm_bf16"))}
 V3_SLOTS = {}   # SASS issue slots a pair, filled by phase 2
 
 
@@ -1665,15 +1666,22 @@ VAR_SAMPLE = 4_096   # targets held against the float64 sum
 # land in another bf16 step.
 VAR_LIMIT = {"fp32": 1e-5, "highest": 5e-3, "bf16": 1e-4}
 # v3 before its redesign, on an H100 at 700 W: each path's 1M call at tj =
-# 512 and 1024 (the harness at 1,048,576 on the parent, logged beside the
-# new time, no gate), and its error against v0 on this phase's 1M scene
-# (phase 10b on the parent, tj = 512), which both tj are held to within
-# V3_ERR_FACTOR, with no NaN
+# 512 and 1024 (the harness at 1,048,576 on the one-stage-a-tile kernel,
+# logged beside the new time, no gate), and its error against v0 on this
+# phase's 1M scene (this phase run on that kernel's tree; it had only tj =
+# 512), which both tj are held to within V3_ERR_FACTOR, with no NaN
 V3_MS_BEFORE = {"v3 vpu": 631.11, "v3 mm_split": 695.95, "v3 mm_bf16": 553.10,
                 "v3 vpu tj=1024": 621.16, "v3 mm_split tj=1024": 684.58,
                 "v3 mm_bf16 tj=1024": 543.26}
 V3_ERR_BEFORE = {"vpu": 3.199e-3, "mm_split": 3.198e-3, "mm_bf16": 3.123e-3}
 V3_ERR_FACTOR = 1.5
+# v3's other stage sizes and ti, held against the twin (untimed) at
+# 98,304, which every ti, tj here divides (131,072 is not a multiple of
+# 384): (ti, tj) = (384, 384) and (256, 128) stages of 128 sources,
+# (512, 256) and (128, 256) stages of 256, (128, 512) 512 with a CTA a
+# ti-block; VAR_CASES gives stages of 512 at ti = 512
+N_V3_SHAPES = 98_304
+V3_SHAPES = ((384, 384), (256, 128), (512, 256), (128, 256), (128, 512))
 # (PIPES key, JAX launcher it belongs to, keywords, form)
 VAR_CASES = (
     ("attr full", "attr_accel", dict(mode="full"), "fp32"),
@@ -1730,6 +1738,27 @@ def _time_and_clock(fn, reps: int, warmup: int):
     mhz = sm_clock_mhz()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, mhz
+
+
+def v3_shape_checks(pos):
+    """v3 at V3_SHAPES on every force path, twice bitwise and against its
+    twin within VAR_LIMIT["bf16"] of max|a| (`pos`: the compact scene)."""
+    import torch
+
+    from multi_adapter_particles_torch.ops import allpairs_variants as V
+
+    for ti, tj in V3_SHAPES:
+        for fp in V.FORCE_PATHS:
+            kw = dict(ti=ti, tj=tj, force_path=fp)
+            k = V.v3_accel(pos, **kw)
+            again = V.v3_accel(pos, **kw)
+            plain = V.v3_accel_plain(pos, **kw)
+            torch.cuda.synchronize()
+            label = f"v3 {fp} ti={ti} tj={tj} (stage {V.v3_stage(tj)})"
+            if not torch.equal(k, again):
+                fail(f"{label}: two runs differ")
+            check_rel(f"{label} vs plain @{pos.shape[1]:,} (bf16, two runs "
+                      "bitwise)", k, plain, VAR_LIMIT["bf16"])
 
 
 def phase_allpairs_variants(dev):
@@ -1806,6 +1835,7 @@ def phase_allpairs_variants(dev):
         stats[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": "operations",
                         "pipe": pipe}
+    v3_shape_checks(scene(N_V3_SHAPES, "bf16"))
     del scenes
     torch.cuda.empty_cache()
 

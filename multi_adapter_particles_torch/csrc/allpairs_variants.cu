@@ -35,9 +35,9 @@
 //   v3: 4 FP32 (d² = (r_i² - 2 dot) + r_j², 2 mul), 1 MUFU, mma 2 a block
 //     (K = 12 padded to 16: 32 flops a pair); + 4 FMA (vpu), or + 1 sub and
 //     2 mma (mm_split, 64 flops), or + 1 mma (mm_bf16, 48 flops). Its loops
-//     take 9.98 (vpu), 9.44 (mm_split) and 6.64 (mm_bf16) issue slots a
+//     take 10.13 (vpu), 9.52 (mm_split) and 6.64 (mm_bf16) issue slots a
 //     pair; each mma.sync takes one slot but 4.6-7.7 slots' time on an
-//     H100 (tools/v3_attrib.py), which the slots do not show.
+//     H100 (PERF.md, v3's attribution), which the slots do not show.
 //   hybrid: two thirds elementwise, one third v1b "highest": 9.67 FP32,
 //     1 MUFU, 42.7 tensor flops a pair.
 // At 1,048,576 and 1,980 MHz one MUFU a pair alone takes 263 ms and 12
@@ -611,9 +611,11 @@ expand_kernel(const float* __restrict__ pos, long long n, int tj,
 // d² = (r_i² - 2 dot) + r_j²; each tj-tile's force sums are added to the
 // targets' float32 sums after the tile, as the JAX kernel's carry.
 //
-// - A CTA is 8 warps (256 targets) when ti % 256 == 0, else 4; a warp owns
-//   32 targets as two m16 tiles. The launch bounds ask for 16 warps an SM
-//   (at most 128 registers a thread).
+// - A CTA is 4 warps (128 targets, within one ti-block since ti % 128 ==
+//   0); a warp owns 32 targets as two m16 tiles. The launch bounds ask for
+//   five CTAs, 20 warps an SM (at most 102 registers a thread): on an H100
+//   that beat two 8-warp CTAs (16 warps) and three (24), whose wider CTAs
+//   halve the staging a pair.
 // - Sources are staged V3_STAGE = 512 at a time (256 or 128 when that
 //   does not divide tj, so that a stage never straddles two j-tiles), into
 //   two buffers: while the CTA computes on one, every thread has already
@@ -652,7 +654,9 @@ constexpr int V3_STAGE = 512;              // sources a stage (less if tj % 512)
 constexpr int V3_CHUNKS = V3_STAGE / 16;   // 16-source chunks a full stage
 constexpr int V3_REC = 4;                  // record words a source
 constexpr int V3_TCOL = 64;                // column-table words a chunk
-constexpr int V3_SM_WARPS = 16;            // warps an SM the bounds ask for
+constexpr int V3_WARPS = 4;                // warps a CTA
+constexpr int V3_NT = V3_WARPS * 32;       // targets (threads) a CTA
+constexpr int V3_SM_WARPS = 20;            // warps an SM the bounds ask for
 constexpr uint32_t BF16_ONES = 0x3f803f80u;
 
 // One staged buffer; `c` is its stage's centre (x, y, z, 0).
@@ -670,40 +674,51 @@ struct V3Buf<kVpu> {
   float4 c;
 };
 
-template <int PATH, int WARPS>
+template <int PATH>
 struct V3Smem {
   V3Buf<PATH> buf[2];
-  float4 tp[WARPS * 32];                    // the CTA's targets (x, y, z, 0)
+  float4 tp[V3_NT];                         // the CTA's targets (x, y, z, 0)
 };
-
-// Attribution builds of v3 (`tools/v3_attrib.py`, -DV3_ATTRIB=k; timing
-// only, their results are wrong by design): 1 no rsqrt (inv = d² · 1e-3,
-// an FMUL), 2 each first mma issued twice, 3 no second mma (its A and B
-// folded into the sums by integer ops instead), 4 no staging after the
-// first stage (every stage reads buffer 0; no build, no barrier).
-#ifndef V3_ATTRIB
-#define V3_ATTRIB 0
-#endif
 
 __device__ __forceinline__ float inv3_ftz(float d2) {
   float inv;
-  if constexpr (V3_ATTRIB == 1) {
-    inv = d2 * 1e-3f;
-  } else {
-    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(d2));
-  }
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(d2));
   return inv * inv * inv;
 }
 
-// mma16816, or (attribution build 3) the operands xor-ed into d[0]
-__device__ __forceinline__ void v3_mma2(float (&d)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  if constexpr (V3_ATTRIB == 3) {
-    d[0] = __fadd_rn(d[0], __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^
-                                           b1));
-  } else {
-    mma16816(d, a, b0, b1);
-  }
+// v3's shared-memory layout as the kernel indexes it; the `apv_v3_*`
+// exports give it to the library, which checks `ops/allpairs_variants.py`'s
+// mirror against it when it loads.
+// Sources a stage: V3_STAGE, or its half or quarter when that divides tj.
+__host__ __device__ constexpr int v3_stage(int tj) {
+  return tj % V3_STAGE == 0         ? V3_STAGE
+         : tj % (V3_STAGE / 2) == 0 ? V3_STAGE / 2
+                                    : V3_STAGE / 4;
+}
+// The first record word of lane (g, t)'s 64-bit first-mma B load (chunk c,
+// half h): source g's words t and t + 4 of K, at 2 (t & 1) of its record.
+__host__ __device__ constexpr int v3_rec_word(int c, int h, int g, int t) {
+  return (c * 16 + h * 8 + g) * V3_REC + 2 * (t & 1);
+}
+// Word `slot` of column `col` of chunk c's column table.
+__host__ __device__ constexpr int v3_tcol_at(int c, int col, int slot) {
+  return c * V3_TCOL + col * 8 + slot;
+}
+// The slot of source-pair word m (0-7) in a column: w0 w4 w1 w5 w2 w6 w3 w7.
+__host__ __device__ constexpr int v3_tcol_slot(int m) {
+  return 2 * (m & 3) + (m >> 2);
+}
+// The first word of lane (g, t)'s 64-bit second-mma B load: column g
+// (mm_split's B_l, `low`: column g & 3), slots 2 t and 2 t + 1, which hold
+// source-pair words t and t + 4.
+__host__ __device__ constexpr int v3_tcol_word(int c, bool low, int g,
+                                               int t) {
+  return v3_tcol_at(c, low ? g & 3 : g, 2 * t);
+}
+// vpu: the source whose (q, r_j²) lane t loads for its half h and column
+// parity u of chunk c.
+__host__ __device__ constexpr int v3_q_source(int c, int h, int t, int u) {
+  return c * 16 + h * 8 + 2 * t + u;
 }
 
 // (hi, lo) words of a pair of coordinates: hi = bf16(a, b), lo = bf16 of
@@ -739,23 +754,23 @@ __device__ __forceinline__ void v3_build(V3Buf<PATH>& B, int j, float4 c,
     // (source j & ~1, source j | 1) halves of this lane's columns
     const uint32_t e01 = odd ? p01 : w01.x, o01 = odd ? w01.y : p01;
     const uint32_t e2 = odd ? p2 : w2.x, o2 = odd ? w2.y : p2;
-    // pair m = (j & 15) / 2 of chunk j / 16 sits at 2 (m & 3) + (m >> 2)
+    // pair m = (j & 15) / 2 of chunk j / 16 sits at slot v3_tcol_slot(m)
     const int m = (j & 15) >> 1;
-    uint32_t* col = B.tcol + (j >> 4) * V3_TCOL + (odd ? 4 : 0) * 8 +
-                    2 * (m & 3) + (m >> 2);
+    uint32_t* col =
+        B.tcol + v3_tcol_at(j >> 4, odd ? 4 : 0, v3_tcol_slot(m));
     col[0] = __byte_perm(e01, o01, 0x5410);    // x
     col[8] = __byte_perm(e01, o01, 0x7632);    // y
     col[16] = __byte_perm(e2, o2, 0x5410);     // z
   }
 }
 
-template <int PATH, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32, V3_SM_WARPS / WARPS)
+template <int PATH>
+__global__ void __launch_bounds__(V3_NT, V3_SM_WARPS / V3_WARPS)
 v3_kernel(const float* __restrict__ pos, long long n,
           const float* __restrict__ ci, int ti, const float* __restrict__ cj,
           int tj, float* __restrict__ out, float mass, float eps2) {
-  constexpr int NT = WARPS * 32;
-  __shared__ V3Smem<PATH, WARPS> sm;
+  constexpr int NT = V3_NT;
+  __shared__ V3Smem<PATH> sm;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int mo = t >> 1, ho = t & 1;       // the target this lane ends with
@@ -763,17 +778,13 @@ v3_kernel(const float* __restrict__ pos, long long n,
   const long long nti = n / ti, ntj = n / tj;
   const long long blk = cbase / ti;
   const float3 c_i = make_float3(ci[blk], ci[nti + blk], ci[2 * nti + blk]);
-  const int stage = tj % V3_STAGE == 0         ? V3_STAGE
-                    : tj % (V3_STAGE / 2) == 0 ? V3_STAGE / 2
-                                               : V3_STAGE / 4;
+  const int stage = v3_stage(tj);
   const int nch = stage / 16;                // chunks a stage (32, 16, 8)
   const long long nst = n / stage, per_tile = tj / stage;
-  // a thread stages sources threadIdx.x + r NT, r < RB; a warp stages all
-  // of its 32 or none (stage and NT are multiples of 32): the vote says
-  // so, or the compiler keeps a divergent-shuffle copy of the stage loop
+  // a thread stages sources threadIdx.x + r NT, r < rounds (the stage is a
+  // multiple of NT)
   constexpr int RB = V3_STAGE / NT;
-  const int rounds = stage >= NT ? stage / NT : 1;
-  const bool stager = __all_sync(FULL, (int)threadIdx.x < stage);
+  const int rounds = stage / NT;
 
   {
     const long long i = cbase + threadIdx.x;
@@ -783,7 +794,7 @@ v3_kernel(const float* __restrict__ pos, long long n,
     for (int k = threadIdx.x; k < 2 * V3_CHUNKS * 16; k += NT) {
       const int b = k / (V3_CHUNKS * 16), ch = (k >> 4) % V3_CHUNKS,
                 w = k & 15;
-      sm.buf[b].tcol[ch * V3_TCOL + (w < 8 ? 3 * 8 + w : 7 * 8 + w - 8)] =
+      sm.buf[b].tcol[v3_tcol_at(ch, w < 8 ? 3 : 7, w & 7)] =
           w < 8 ? BF16_ONES : 0u;
     }
   }
@@ -791,7 +802,6 @@ v3_kernel(const float* __restrict__ pos, long long n,
   float rx[RB], ry[RB], rz[RB];
   float3 c_j = {};
   auto fetch = [&](long long s) {
-    if (!stager) return;
     const long long j0 = s * stage + threadIdx.x, b = s * stage / tj;
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
@@ -804,7 +814,6 @@ v3_kernel(const float* __restrict__ pos, long long n,
     c_j = make_float3(cj[b], cj[ntj + b], cj[2 * ntj + b]);
   };
   auto build = [&](V3Buf<PATH>& B) {
-    if (!stager) return;
     const float4 c = make_float4(0.5f * (c_i.x + c_j.x),
                                  0.5f * (c_i.y + c_j.y),
                                  0.5f * (c_i.z + c_j.z), 0.f);
@@ -839,8 +848,7 @@ v3_kernel(const float* __restrict__ pos, long long n,
     uint2 b[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      b[h] = *reinterpret_cast<const uint2*>(
-          B.rec + (c * 16 + h * 8 + g) * V3_REC + 2 * (t & 1));
+      b[h] = *reinterpret_cast<const uint2*>(B.rec + v3_rec_word(c, h, g, t));
     }
 #pragma unroll
     for (int mt = 0; mt < EXP_MT; ++mt) {
@@ -849,9 +857,6 @@ v3_kernel(const float* __restrict__ pos, long long n,
 #pragma unroll
         for (int e = 0; e < 4; ++e) d[mt][h][e] = 0.f;
         mma16816(d[mt][h], aq[mt], b[h].x, b[h].y);
-        if constexpr (V3_ATTRIB == 2) {
-          mma16816(d[mt][h], aq[mt], b[h].x, b[h].y);
-        }
       }
     }
   };
@@ -862,8 +867,8 @@ v3_kernel(const float* __restrict__ pos, long long n,
       float4 q[2][2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        q[h][0] = B.q[c * 16 + h * 8 + 2 * t];
-        q[h][1] = B.q[c * 16 + h * 8 + 2 * t + 1];
+        q[h][0] = B.q[v3_q_source(c, h, t, 0)];
+        q[h][1] = B.q[v3_q_source(c, h, t, 1)];
       }
 #pragma unroll
       for (int mt = 0; mt < EXP_MT; ++mt) {
@@ -886,14 +891,15 @@ v3_kernel(const float* __restrict__ pos, long long n,
       float2 rj[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        rj[h] = *reinterpret_cast<const float2*>(B.rj2 + c * 16 + h * 8 +
-                                                 2 * t);
+        rj[h] = *reinterpret_cast<const float2*>(B.rj2 +
+                                                 v3_q_source(c, h, t, 0));
       }
-      const uint32_t* tc = B.tcol + c * V3_TCOL;
-      const uint2 bh = *reinterpret_cast<const uint2*>(tc + g * 8 + 2 * t);
+      const uint2 bh = *reinterpret_cast<const uint2*>(
+          B.tcol + v3_tcol_word(c, false, g, t));
       uint2 bl = make_uint2(0u, 0u);
       if constexpr (PATH == kMmSplit) {
-        bl = *reinterpret_cast<const uint2*>(tc + (g & 3) * 8 + 2 * t);
+        bl = *reinterpret_cast<const uint2*>(B.tcol +
+                                             v3_tcol_word(c, true, g, t));
       }
 #pragma unroll
       for (int mt = 0; mt < EXP_MT; ++mt) {
@@ -909,7 +915,7 @@ v3_kernel(const float* __restrict__ pos, long long n,
         }
         uint32_t shi[4], sunused[4], slo[4];
         split_s<false>(s, shi, sunused, slo);
-        v3_mma2(fh[mt], shi, bh.x, bh.y);
+        mma16816(fh[mt], shi, bh.x, bh.y);
         if constexpr (PATH == kMmSplit) {
 #pragma unroll
           for (int k = 0; k < 4; ++k) {  // s - bf16(s), to bf16
@@ -920,14 +926,14 @@ v3_kernel(const float* __restrict__ pos, long long n,
                 __fsub_rn(s[k >> 1][(k & 1) * 2], h0),
                 __fsub_rn(s[k >> 1][(k & 1) * 2 + 1], h1)));
           }
-          v3_mma2(fl[mt], slo, bl.x, bl.y);
+          mma16816(fl[mt], slo, bl.x, bl.y);
         }
       }
     }
   };
 
   for (long long st = 0; st < nst; ++st) {
-    const V3Buf<PATH>& B = sm.buf[V3_ATTRIB == 4 ? 0 : st & 1];
+    const V3Buf<PATH>& B = sm.buf[st & 1];
     if (st % per_tile == 0) {  // a new j-tile: re-centre the targets
       const float4 c = B.c;
 #pragma unroll
@@ -963,7 +969,7 @@ v3_kernel(const float* __restrict__ pos, long long n,
       first_mma(B, (c + 2) & (nch - 1), d0);   // the last body's is dropped
       forces(B, c + 1, d1);
     }
-    if (V3_ATTRIB != 4 && st + 1 < nst) {
+    if (st + 1 < nst) {
       build(sm.buf[(st + 1) & 1]);
       if (st + 2 < nst) fetch(st + 2);
     }
@@ -1025,7 +1031,7 @@ v3_kernel(const float* __restrict__ pos, long long n,
         acc[k] = __fadd_rn(acc[k], __fsub_rn(f3[k], __fmul_rn(qo[k], fs)));
       }
     }
-    if (V3_ATTRIB != 4) __syncthreads();
+    __syncthreads();
   }
   const long long i = cbase + warp * 32 + mo * 16 + g + 8 * ho;
   const float a[3] = {mass * acc[0], mass * acc[1], mass * acc[2]};
@@ -1110,19 +1116,30 @@ extern "C" int apv_hybrid(const void* pos, long long n, int tj, void* out,
   return launched();
 }
 
-// v3's CTA width in warps for ti: 8 (256 targets) when ti % 256 == 0,
-// else 4 (`ops/allpairs_variants.py::v3_warps` mirrors it).
-extern "C" int apv_v3_warps(int ti) { return ti % 256 == 0 ? 8 : 4; }
+// v3's warps a CTA (sm = 0) and an SM (sm = 1, its launch bounds' ask);
+// `ops/allpairs_variants.py::V3_WARPS` / `V3_SM_WARPS` mirror them.
+extern "C" int apv_v3_warps(int sm) { return sm ? V3_SM_WARPS : V3_WARPS; }
 
-// Static shared memory of a v3 CTA of `warps` warps on force path `path`
-// (`v3_smem_bytes` mirrors it; its stage buffers do not depend on tj).
-extern "C" int apv_v3_smem(int path, int warps) {
-  if (path == kVpu) {
-    return warps == 8 ? (int)sizeof(V3Smem<kVpu, 8>)
-                      : (int)sizeof(V3Smem<kVpu, 4>);
-  }
-  return warps == 8 ? (int)sizeof(V3Smem<kMmSplit, 8>)
-                    : (int)sizeof(V3Smem<kMmSplit, 4>);
+// Static shared memory of a v3 CTA on force path `path` (`v3_smem_bytes`
+// mirrors it; its stage buffers do not depend on tj).
+extern "C" int apv_v3_smem(int path) {
+  return path == kVpu ? (int)sizeof(V3Smem<kVpu>)
+                      : (int)sizeof(V3Smem<kMmSplit>);
+}
+
+// v3's layout (the functions above), for the check of its host mirror
+// (`ops/allpairs_variants.py::v3_stage`, `v3_rec_words`, `v3_tcol_words`,
+// `v3_tcol_slot`, `v3_q_sources`); lane = 4 g + t.
+extern "C" int apv_v3_stage(int tj) { return v3_stage(tj); }
+extern "C" int apv_v3_rec_word(int c, int h, int lane) {
+  return v3_rec_word(c, h, lane >> 2, lane & 3);
+}
+extern "C" int apv_v3_tcol_word(int c, int low, int lane) {
+  return v3_tcol_word(c, low != 0, lane >> 2, lane & 3);
+}
+extern "C" int apv_v3_tcol_slot(int m) { return v3_tcol_slot(m); }
+extern "C" int apv_v3_q_source(int c, int h, int lane, int u) {
+  return v3_q_source(c, h, lane & 3, u);
 }
 
 // v3: ci [3, n / ti] and cj [3, n / tj] tile centroids; path 0 vpu,
@@ -1139,20 +1156,11 @@ extern "C" int apv_v3(const void* pos, long long n, const void* ci, int ti,
   const float* a = static_cast<const float*>(ci);
   const float* b = static_cast<const float*>(cj);
   float* o = static_cast<float*>(out);
-  if (apv_v3_warps(ti) == 8) {
-    const unsigned blocks = (unsigned)(n / 256);
-    switch (path) {
-      case kVpu: v3_kernel<kVpu, 8><<<blocks, 256, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
-      case kMmSplit: v3_kernel<kMmSplit, 8><<<blocks, 256, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
-      default: v3_kernel<kMmBf16, 8><<<blocks, 256, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
-    }
-  } else {
-    const unsigned blocks = (unsigned)(n / 128);
-    switch (path) {
-      case kVpu: v3_kernel<kVpu, 4><<<blocks, 128, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
-      case kMmSplit: v3_kernel<kMmSplit, 4><<<blocks, 128, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
-      default: v3_kernel<kMmBf16, 4><<<blocks, 128, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
-    }
+  const unsigned blocks = (unsigned)(n / V3_NT);
+  switch (path) {
+    case kVpu: v3_kernel<kVpu><<<blocks, V3_NT, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
+    case kMmSplit: v3_kernel<kMmSplit><<<blocks, V3_NT, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
+    default: v3_kernel<kMmBf16><<<blocks, V3_NT, 0, st>>>(p, n, a, ti, b, tj, o, mass, eps2); break;
   }
   return launched();
 }

@@ -307,17 +307,11 @@ def _v3_rule(n: int, ti: int, tj: int) -> None:
                          f"divide N (N={n}, ti={ti}, tj={tj})")
 
 
-# v3's kernel shape (csrc/allpairs_variants.cu, checked by `_library`)
+# v3's kernel shape and shared-memory layout (csrc/allpairs_variants.cu's
+# `v3_kernel`, whose exports `_library` checks these against when it loads)
 V3_STAGE = 512         # sources a staged buffer (fewer when tj % 512)
-V3_SM_WARPS = 16       # warps an SM its launch bounds ask for
-SMEM_LIMIT = 232_448   # shared memory a CTA may use on the H100 (227 KB)
-SM_SMEM = 233_472      # an SM's shared memory, 1 KB of it held a CTA
-
-
-def v3_warps(ti: int) -> int:
-    """Warps of a v3 CTA (32 targets each): 8 when ti % 256 == 0, else 4;
-    a CTA's targets lie in one ti-block."""
-    return 8 if ti % 256 == 0 else 4
+V3_WARPS = 4           # warps a CTA (32 targets each)
+V3_SM_WARPS = 20       # warps an SM its launch bounds ask for
 
 
 def v3_stage(tj: int) -> int:
@@ -327,51 +321,78 @@ def v3_stage(tj: int) -> int:
                 if tj % s == 0)
 
 
-def v3_smem_bytes(force_path: str, ti: int) -> int:
+def v3_smem_bytes(force_path: str) -> int:
     """Static shared memory of a v3 CTA: two stage buffers (double
     buffering) of V3_STAGE sources — 16 B of first-mma record and, for
     "vpu", 16 B of (q, r_j²), for the mm paths 16 B of column table and 4 B
     of r_j² — and the stage's centre (16 B), then the CTA's targets (16 B
     each). The same at every tj."""
     per_source = 32 if force_path == "vpu" else 36
-    return 2 * (V3_STAGE * per_source + 16) + 32 * v3_warps(ti) * 16
+    return 2 * (V3_STAGE * per_source + 16) + 32 * V3_WARPS * 16
 
 
-def v3_ctas_per_sm(force_path: str, ti: int) -> int:
-    """CTAs an SM holds by shared memory alone."""
-    return SM_SMEM // (v3_smem_bytes(force_path, ti) + 1024)
-
-
-def v3_rec_words(lane: int, chunk: int = 0, half: int = 0) -> tuple:
-    """The two 32-bit words (one 64-bit load) lane (g, t) reads of a
-    stage buffer's first-mma records in one (chunk, half): source g's
-    record [H01 L01 H2 L2] at 2 (t & 1)."""
+def v3_rec_words(lane: int, chunk: int, half: int) -> tuple:
+    """The two 32-bit words (one 64-bit load) lane (g, t) = (lane // 4,
+    lane % 4) reads of a stage buffer's first-mma records in one (chunk,
+    half): words 2 (t & 1) and 2 (t & 1) + 1 of source g's 4-word record."""
     g, t = lane >> 2, lane & 3
     w = (chunk * 16 + half * 8 + g) * 4 + 2 * (t & 1)
     return (w, w + 1)
 
 
-def v3_tcol_words(lane: int, chunk: int = 0, low: bool = False) -> tuple:
-    """The two words (one 64-bit load) lane (g, t) reads of chunk's column
-    table: column g (mm_split's B_l with `low`: column g & 3), source-pair
-    words t and t + 4, stored at 2 t and 2 t + 1."""
-    g, t = lane >> 2, lane & 3
-    w = chunk * 64 + (g & 3 if low else g) * 8 + 2 * t
-    return (w, w + 1)
-
-
 def v3_tcol_slot(pair: int) -> int:
-    """The slot of source-pair word `pair` (0-7) in a column of the
-    table: w0 w4 w1 w5 w2 w6 w3 w7."""
+    """The slot of source-pair word `pair` (0-7) in a column of a chunk's
+    column table (8 columns of 8 words): w0 w4 w1 w5 w2 w6 w3 w7."""
     return 2 * (pair & 3) + (pair >> 2)
 
 
-def v3_quad_fold(t: int) -> tuple:
-    """The order in which lane t of a quad folds its target's partial sums
-    at a tile's end: ((t, t ^ 1), (t ^ 2, t ^ 3)), the pair sums taken by
-    lanes t and t ^ 2 over xor 1, then added over xor 2. Lane t ends with
-    target (m-tile t >> 1, row half t & 1)."""
-    return ((t, t ^ 1), (t ^ 2, t ^ 3))
+def v3_tcol_words(lane: int, chunk: int, low: bool) -> tuple:
+    """The two words (one 64-bit load) lane (g, t) reads of chunk's column
+    table for the second mma's B: column g (mm_split's B_l with `low`:
+    column g & 3), the slots of source-pair words t and t + 4."""
+    g, t = lane >> 2, lane & 3
+    base = chunk * 64 + (g & 3 if low else g) * 8
+    return (base + v3_tcol_slot(t), base + v3_tcol_slot(t + 4))
+
+
+def v3_q_sources(lane: int, chunk: int, half: int) -> tuple:
+    """vpu: the two sources whose (q, r_j²) float4 lane (g, t) loads for
+    one (chunk, half): those of its accumulator columns 2 t and 2 t + 1."""
+    src = chunk * 16 + half * 8 + 2 * (lane & 3)
+    return (src, src + 1)
+
+
+def _check_v3_layout(lib) -> None:
+    """Raise unless the .cu's v3 CTA width, shared memory, stages and
+    fragment loads are this module's mirror of them."""
+    if (lib.apv_v3_warps(0), lib.apv_v3_warps(1)) != (
+            V3_WARPS, V3_SM_WARPS) or any(
+            lib.apv_v3_smem(_FORCE_PATH[fp]) != v3_smem_bytes(fp)
+            for fp in FORCE_PATHS):
+        raise RuntimeError("csrc/allpairs_variants.cu's v3 warps or shared "
+                           "memory are not V3_WARPS, V3_SM_WARPS and "
+                           "v3_smem_bytes")
+    for tj in range(TILE, 4096 + 1, TILE):
+        if lib.apv_v3_stage(tj) != v3_stage(tj):
+            raise RuntimeError(f"csrc/allpairs_variants.cu's v3 stage at "
+                               f"tj={tj} is not v3_stage's")
+    for c in (0, 1, V3_STAGE // 16 - 1):
+        for lane in range(32):
+            for h in (0, 1):
+                if (lib.apv_v3_rec_word(c, h, lane)
+                        != v3_rec_words(lane, c, h)[0]
+                        or (lib.apv_v3_q_source(c, h, lane, 0),
+                            lib.apv_v3_q_source(c, h, lane, 1))
+                        != v3_q_sources(lane, c, h)
+                        or lib.apv_v3_tcol_word(c, h, lane)
+                        != v3_tcol_words(lane, c, bool(h))[0]):
+                    raise RuntimeError(
+                        "csrc/allpairs_variants.cu's v3 fragment loads are "
+                        f"not the mirror's (chunk {c}, lane {lane})")
+    if [lib.apv_v3_tcol_slot(m) for m in range(8)] != [
+            v3_tcol_slot(m) for m in range(8)]:
+        raise RuntimeError("csrc/allpairs_variants.cu's v3 column slots are "
+                           "not v3_tcol_slot's")
 
 
 def v3_centroids(position: Tensor, ti: int, tj: int):
@@ -497,21 +518,15 @@ def _library() -> ctypes.CDLL:
             ("apv_hybrid", [p, ll, i, p, f, f, p]),
             ("apv_v3", [p, ll, p, i, p, i, p, i, f, f, p]),
             ("apv_tile", []), ("apv_v3_warps", [i]),
-            ("apv_v3_smem", [i, i])):
+            ("apv_v3_smem", [i]), ("apv_v3_stage", [i]),
+            ("apv_v3_rec_word", [i, i, i]), ("apv_v3_tcol_word", [i, i, i]),
+            ("apv_v3_tcol_slot", [i]), ("apv_v3_q_source", [i, i, i, i])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
     if lib.apv_tile() != TILE:
         raise RuntimeError("csrc/allpairs_variants.cu's tile is not TILE")
-    for ti in range(TILE, 4096 + 1, TILE):
-        warps = v3_warps(ti)
-        smem = {fp: lib.apv_v3_smem(_FORCE_PATH[fp], warps)
-                for fp in FORCE_PATHS}
-        if lib.apv_v3_warps(ti) != warps or any(
-                smem[fp] != v3_smem_bytes(fp, ti) for fp in FORCE_PATHS):
-            raise RuntimeError("csrc/allpairs_variants.cu's v3 CTA width or "
-                               f"shared memory at ti={ti} are not v3_warps / "
-                               "v3_smem_bytes")
+    _check_v3_layout(lib)
     return lib
 
 
