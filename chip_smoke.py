@@ -30,7 +30,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    SHFL a ring step of 4 pairs (no source shuffle) and no spills; every
    v3 kernel's (`v3_kernel<path>`) one rsqrt loop to its path's
    FP32 count a pair (PIPES: vpu 8, mm_split 5, mm_bf16 4), 1 MUFU, no
-   rsqrt guard, no divergent-shuffle copy and no spills)
+   rsqrt guard, no divergent-shuffle copy and no spills; the same for the
+   v1 / v1b expansion's four kernels (`expand_kernel<v1b,highest>`, FP32 4,
+   3, 5, 4 a pair, "highest" plus its fold's 10 FP32 per 64 pairs))
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
 4. composite_rows kernel (the depth-Q pass alone, off the render path) vs
    plain on the rows the eager composite builds for one 1M chunk of the 4M
@@ -91,7 +93,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     untimed); each timed
     at 1,048,576 (hybrid 1,047,552) with pairs/s, its per-pipe bound and
     its error against v0, v3's beside its time before (no gate) and held
-    to no NaN and 1.5x the error against v0 before
+    to no NaN and 1.5x the error against v0 before; v1 and v1b's four
+    cases also at 98,432 (769 x 128: stages of 128, a half-filled last
+    CTA) against their twins, twice bitwise, and at 1M beside their times
+    before (no gate), held to 1.5x their error against v0 before and a NaN
+    share no higher than before
 10c. half-pair generations (`experiments/allpairs_halfpair.py`: v5 and its
     modes, v5s, v6, v7): their path, the harness `tools/allpairs_halfpair.py`
     at its default (131,072) and in its v7 mode at 131,072, with launch
@@ -253,8 +259,8 @@ TREE_SLOTS = {}
 PIPES = {
     "attr full": (12, 1, 0), "attr norsqrt": (11, 0, 0),
     "attr noaccum": (9, 1, 0), "unroll": (12, 1, 0), "v4": (12, 1, 0),
-    "v1b highest": (5, 1, 128), "v1b default": (3, 1, 48),
-    "v1 highest": (6, 1, 128), "v1 default": (4, 1, 48),
+    "v1b highest": (4, 1, 112), "v1b default": (3, 1, 32),
+    "v1 highest": (5, 1, 112), "v1 default": (4, 1, 32),
     "v3 vpu": (8, 1, 32), "v3 mm_split": (5, 1, 64), "v3 mm_bf16": (4, 1, 48),
     "hybrid": (29 / 3, 1, 128 / 3),
 }
@@ -400,8 +406,8 @@ def phase_build():
                 spills = ("spill" in line and "0 bytes spill stores, 0 bytes "
                           "spill loads" not in line)
                 if spills and (name == "allpairs_halfpair" or (
-                        name == "allpairs_variants"
-                        and line.startswith("v3_kernel"))):
+                        name == "allpairs_variants" and line.startswith(
+                            ("v3_kernel", "expand_kernel")))):
                     fail(f"{name} spills: {line}")
         sass_tally(os.path.join(tmp, "allpairs_variants.cubin"))
         for name in ("allpairs", "allpairs_variants", "allpairs_halfpair",
@@ -457,6 +463,7 @@ def loop_tally(name, cubin):
         gen_loop_check(loops)
     if name == "allpairs_variants":
         v3_loop_check(loops)
+        expand_loop_check(loops)
     if name != "allpairs":
         return
     mixes = [m for m in loops.get("half_item_kernel", [])
@@ -544,6 +551,42 @@ def v3_loop_check(loops):
         V3_SLOTS[kernel] = mix["slots"]
     log("  v3 loops at their FP32 counts, 1 MUFU, no guard, no fallback; "
         f"issue slots a pair {json.dumps(V3_SLOTS)}")
+
+
+# v1 / v1b's kernels: expand_kernel<v1b, highest>; each has one rsqrt loop
+# (eight chunks a body) at its case's FP32 count a pair (PIPES); "highest"
+# folds its sums into the Kahan totals inside that loop, every 8 chunks: a
+# row tile's 10 FP32 (for each of a lane's two columns the pair's add and a
+# Kahan add of 4) per 64 of its pairs a lane
+EXPAND_FOLD_FP32 = 10 / 64
+EXPAND_KERNELS = {"expand_kernel<1,1>": "v1b highest",
+                  "expand_kernel<1,0>": "v1b default",
+                  "expand_kernel<0,1>": "v1 highest",
+                  "expand_kernel<0,0>": "v1 default"}
+EXPAND_SLOTS = {}   # SASS issue slots a pair, filled by phase 2
+
+
+def expand_loop_check(loops):
+    """Fail unless each expansion kernel (EXPAND_KERNELS) has one rsqrt
+    loop at its FP32 count a pair (PIPES: 4, 3, 5, 4; "highest" plus
+    EXPAND_FOLD_FP32), 1 MUFU, no rsqrt guard (no FSETP, no predicated
+    FP32) and no divergent-shuffle copy; logs and keeps (EXPAND_SLOTS) its
+    issue slots a pair. Its spills are phase 2's ptxas check."""
+    for kernel, label in EXPAND_KERNELS.items():
+        mixes = loops.get(kernel, [])
+        if len(mixes) != 1:
+            fail(f"{kernel}: {len(mixes)} rsqrt loops, want 1")
+        mix = mixes[0]
+        fp32 = PIPES[label][0] + (EXPAND_FOLD_FP32 if "highest" in label
+                                  else 0)
+        if (mix["fp32"] != fp32 or mix["MUFU"] != 1 or mix["FSETP"]
+                or mix["guarded"] or mix["collective"]):
+            fail(f"{kernel} loop: FP32 {mix['fp32']}, MUFU {mix['MUFU']}, "
+                 f"FSETP {mix['FSETP']}, guarded {mix['guarded']}, fallback "
+                 f"{mix['collective']} a pair (want {fp32}, 1, 0, no, no)")
+        EXPAND_SLOTS[kernel] = mix["slots"]
+    log("  expansion loops at their FP32 counts, 1 MUFU, no guard, no "
+        f"fallback; issue slots a pair {json.dumps(EXPAND_SLOTS)}")
 
 
 def tree_loop_check(loops):
@@ -1682,6 +1725,23 @@ V3_ERR_FACTOR = 1.5
 # ti-block; VAR_CASES gives stages of 512 at ti = 512
 N_V3_SHAPES = 98_304
 V3_SHAPES = ((384, 384), (256, 128), (512, 256), (128, 256), (128, 512))
+# v1 / v1b's expansion before its redesign, on an H100 at 700 W (this phase
+# on that kernel's tree): each case's 1M call (logged beside the new time, no
+# gate), its error against v0 on this phase's 1M scene, which the new kernel
+# is held to within EXPAND_ERR_FACTOR, and its NaN share there (NaN
+# components of 3 x 2^20), which it may not exceed (the "default" forms are
+# NaN on this scene by design)
+EXPAND_MS_BEFORE = {"v1b highest": 867.466, "v1 highest": 892.262,
+                    "v1b default": 420.280, "v1 default": 471.146}
+EXPAND_ERR_BEFORE = {"v1b highest": 2.110e-4, "v1 highest": 3.198e-4,
+                     "v1b default": 2.759e4, "v1 default": 2.757e3}
+EXPAND_NAN_BEFORE = {"v1b highest": 0.0, "v1 highest": 0.0,
+                     "v1b default": 3_123_915 / 3_145_728,
+                     "v1 default": 3_034_443 / 3_145_728}
+EXPAND_ERR_FACTOR = 1.5
+# an odd multiple of 128 (769 x 128): the expansion's stages fall to 128
+# sources and its last CTA of 256 targets half-fills
+N_EXPAND_ODD = 98_432
 # (PIPES key, JAX launcher it belongs to, keywords, form)
 VAR_CASES = (
     ("attr full", "attr_accel", dict(mode="full"), "fp32"),
@@ -1761,6 +1821,29 @@ def v3_shape_checks(pos):
                       "bitwise)", k, plain, VAR_LIMIT["bf16"])
 
 
+def expand_odd_checks(scene):
+    """v1 and v1b's four cases at N_EXPAND_ODD, twice bitwise and against
+    their twins within VAR_LIMIT (`scene(n, form)`: the phase's scenes)."""
+    import torch
+
+    from multi_adapter_particles_torch.ops import allpairs_variants as V
+
+    for label, name, kw, form in VAR_CASES:
+        if label not in EXPAND_MS_BEFORE:
+            continue
+        pos = scene(N_EXPAND_ODD, form)
+        fn, plain = getattr(V, name), getattr(V, f"{name}_plain")
+        k = fn(pos, **kw)
+        again = fn(pos, **kw)
+        want = plain(pos, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(k, again):
+            fail(f"{label} @{N_EXPAND_ODD:,}: two runs differ")
+        check_rel(f"{label} vs plain @{N_EXPAND_ODD:,} (stage "
+                  f"{V.expand_stage(N_EXPAND_ODD)}, {form}, two runs "
+                  "bitwise)", k, want, VAR_LIMIT[form])
+
+
 def phase_allpairs_variants(dev):
     """Phase 10b: the rectangle-schedule variants. Their path is the
     harness (`tools/allpairs_variants.py`) at its defaults; then each
@@ -1836,6 +1919,7 @@ def phase_allpairs_variants(dev):
                         "bound_ms": bound, "bound_by": "operations",
                         "pipe": pipe}
     v3_shape_checks(scene(N_V3_SHAPES, "bf16"))
+    expand_odd_checks(scene)
     del scenes
     torch.cuda.empty_cache()
 
@@ -1859,7 +1943,15 @@ def phase_allpairs_variants(dev):
                             "share": bound / ms, "mhz": mhz,
                             "rel_err_vs_v0": rel, "nan_share": nan}
             vs = ("(attr: held only against its twin)" if name == "attr_accel"
-                  else f"vs v0 rel {rel:.3e}, NaN share {nan:.3e}")
+                  else f"vs v0 rel {rel:.3e}, NaN share {nan:.6e}")
+            if label in EXPAND_MS_BEFORE:
+                before = EXPAND_ERR_BEFORE[label]
+                nan_before = EXPAND_NAN_BEFORE[label]
+                vs += (f"; before {EXPAND_MS_BEFORE[label]:.2f} ms, rel "
+                       f"{before:.3e}, NaN share {nan_before:.4e}")
+                if nan > nan_before or not rel <= EXPAND_ERR_FACTOR * before:
+                    fail(f"{label} @1M: rel {rel:.3e} (before {before:.3e}), "
+                         f"NaN share {nan:.6e} (before {nan_before:.6e})")
             if name == "v3_accel":
                 before = V3_ERR_BEFORE[kw["force_path"]]
                 vs += (f"; before {V3_MS_BEFORE[label]:.2f} ms, rel "

@@ -293,6 +293,128 @@ def v1_accel_plain(position: Tensor, ti: int = 256, tj: int = 512,
     return _out(_scalar(MASS, p) * (acc[:3] - p * acc[3:4]), rows=False)
 
 
+# v1 / v1b's kernel shape and shared-memory layout (csrc/allpairs_variants.cu's
+# `expand_kernel`, whose exports `_library` checks these against when it
+# loads)
+EXPAND_MT = 2            # m16 row tiles a warp (32 targets)
+EXPAND_WARPS = 8         # warps a CTA
+EXPAND_SM_WARPS = 16     # warps an SM its launch bounds ask for
+EXPAND_TARGETS = 16 * EXPAND_MT * EXPAND_WARPS
+EXPAND_STAGE = 512       # sources a staged buffer (fewer when N % 512)
+# the first-mma record of a source: the K words (each two bf16 K slots) in
+# record order; "highest" reads words t and t + 4 as one 64-bit load at 2 t
+# (K words 8-11 repeat 0-3, 12-15 are zero), "default" word t & 1 (group 0;
+# its K words 2-3 meet a zero A)
+EXPAND_REC = {"highest": (0, 4, 1, 5, 2, 6, 3, 7), "default": (0, 1)}
+# a chunk's column table: [hi x y z | 1 | mid x y z | 0 | lo x y z]
+# ("highest"), [hi x y z | 1 | 0] ("default"), 8 source-pair words a
+# column; the second mma's B operands ("which"): 0 [hi | mid] ("highest"
+# only), 1 [hi | 0], 2 [lo | 0] ("highest" only)
+EXPAND_COLS = {"highest": 11, "default": 5}
+EXPAND_ZERO_COL = {"highest": 7, "default": 4}
+EXPAND_WHICH = {"highest": (0, 1, 2), "default": (1,)}
+
+
+def expand_stage(n: int) -> int:
+    """Sources an expansion stage: the largest of EXPAND_STAGE, a half and
+    a quarter of it that divides N (N a multiple of TILE)."""
+    return next(s for s in (EXPAND_STAGE, EXPAND_STAGE // 2,
+                            EXPAND_STAGE // 4) if n % s == 0)
+
+
+def expand_smem_bytes(v1b: bool, precision: str) -> int:
+    """Dynamic shared memory of an expansion CTA: two stage buffers of
+    EXPAND_STAGE sources, each a record (8 words "highest", 2 "default"), a
+    column table (8 words a column) and, for v1, r_j² (twice at
+    "highest"; v1b: a 16-byte pad)."""
+    rj2 = 4 if v1b else EXPAND_STAGE * (2 if precision == "highest" else 1)
+    words = (EXPAND_STAGE * len(EXPAND_REC[precision])
+             + EXPAND_STAGE // 16 * EXPAND_COLS[precision] * 8 + rj2)
+    return 2 * 4 * words
+
+
+def expand_rec_words(precision: str, lane: int, chunk: int,
+                     half: int) -> tuple:
+    """The words lane (g, t) = (lane // 4, lane % 4) reads of a stage
+    buffer's records for the first mma of one (chunk, half): source
+    chunk·16 + half·8 + g's words 2 t and 2 t + 1 (one 64-bit load,
+    "highest") or word t & 1 ("default")."""
+    g, t = lane >> 2, lane & 3
+    rec = len(EXPAND_REC[precision])
+    base = (chunk * 16 + half * 8 + g) * rec
+    return (base + 2 * t, base + 2 * t + 1) if precision == "highest" \
+        else (base + (t & 1),)
+
+
+def expand_col(precision: str, which: int, g: int) -> int:
+    """The column lane group g reads for second-mma operand `which`."""
+    zero = EXPAND_ZERO_COL[precision]
+    if which == 0:
+        return g
+    if which == 1:
+        return g if g < 4 else zero
+    return 8 + g if g < 3 else zero
+
+
+def expand_tcol_words(precision: str, which: int, lane: int,
+                      chunk: int) -> tuple:
+    """The two words (one 64-bit load) lane (g, t) reads of chunk's column
+    table for second-mma operand `which`: its column's slots 2 t, 2 t + 1,
+    which hold source-pair words t and t + 4 (`v3_tcol_slot`'s order)."""
+    g, t = lane >> 2, lane & 3
+    w = (chunk * EXPAND_COLS[precision] + expand_col(precision, which, g)) \
+        * 8 + 2 * t
+    return (w, w + 1)
+
+
+def expand_rj2_words(precision: str, lane: int, chunk: int,
+                     half: int) -> tuple:
+    """v1: the words lane (g, t) reads of r_j², those of its accumulator
+    columns' source pair m = chunk·8 + half·4 + t: "highest" stores each
+    pair as (r_2m, r_2m+1, r_2m, r_2m+1), its first-mma C quad (one
+    128-bit load); "default" r_j² once a source (one 64-bit load)."""
+    m = chunk * 8 + half * 4 + (lane & 3)
+    if precision == "highest":
+        return tuple(range(4 * m, 4 * m + 4))
+    return (2 * m, 2 * m + 1)
+
+
+def _check_expand_layout(lib) -> None:
+    """Raise unless the .cu's expansion CTA shape, shared memory, stages
+    and fragment loads are this module's mirror of them."""
+    if (lib.apv_expand_warps(0), lib.apv_expand_warps(1),
+            lib.apv_expand_warps(2)) != (EXPAND_WARPS, EXPAND_SM_WARPS,
+                                         EXPAND_MT) or any(
+            lib.apv_expand_smem(int(v1b), int(prec == "highest"))
+            != expand_smem_bytes(v1b, prec)
+            for v1b in (True, False) for prec in PRECISIONS):
+        raise RuntimeError("csrc/allpairs_variants.cu's expansion warps, row "
+                           "tiles or shared memory are not EXPAND_WARPS, "
+                           "EXPAND_SM_WARPS, EXPAND_MT and expand_smem_bytes")
+    for n in [TILE * k for k in range(1, 65)] + [TILE * 769]:
+        if lib.apv_expand_stage(n) != expand_stage(n):
+            raise RuntimeError(f"csrc/allpairs_variants.cu's expansion stage "
+                               f"at N={n} is not expand_stage's")
+    for prec in PRECISIONS:
+        hi = int(prec == "highest")
+        for c in (0, 1, EXPAND_STAGE // 16 - 1):
+            for lane in range(32):
+                bad = any(
+                    lib.apv_expand_rec_word(hi, c, h, lane)
+                    != expand_rec_words(prec, lane, c, h)[0]
+                    or lib.apv_expand_rj2_word(hi, c, h, lane)
+                    != expand_rj2_words(prec, lane, c, h)[0]
+                    for h in (0, 1)) or any(
+                    lib.apv_expand_tcol_word(hi, which, c, lane)
+                    != expand_tcol_words(prec, which, lane, c)[0]
+                    for which in EXPAND_WHICH[prec])
+                if bad:
+                    raise RuntimeError(
+                        "csrc/allpairs_variants.cu's expansion fragment loads "
+                        f"are not the mirror's ({prec}, chunk {c}, lane "
+                        f"{lane})")
+
+
 # -- 9e: centred bf16 expansion -----------------------------------------------
 
 def v3_fits(n: int, ti: int = 512, tj: int = 512) -> bool:
@@ -517,7 +639,11 @@ def _library() -> ctypes.CDLL:
             ("apv_expand", [p, ll, p, i, i, f, f, p]),
             ("apv_hybrid", [p, ll, i, p, f, f, p]),
             ("apv_v3", [p, ll, p, i, p, i, p, i, f, f, p]),
-            ("apv_tile", []), ("apv_v3_warps", [i]),
+            ("apv_tile", []), ("apv_expand_warps", [i]),
+            ("apv_expand_smem", [i, i]), ("apv_expand_stage", [ll]),
+            ("apv_expand_rec_word", [i, i, i, i]),
+            ("apv_expand_tcol_word", [i, i, i, i]),
+            ("apv_expand_rj2_word", [i, i, i, i]), ("apv_v3_warps", [i]),
             ("apv_v3_smem", [i]), ("apv_v3_stage", [i]),
             ("apv_v3_rec_word", [i, i, i]), ("apv_v3_tcol_word", [i, i, i]),
             ("apv_v3_tcol_slot", [i]), ("apv_v3_q_source", [i, i, i, i])):
@@ -526,6 +652,7 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     if lib.apv_tile() != TILE:
         raise RuntimeError("csrc/allpairs_variants.cu's tile is not TILE")
+    _check_expand_layout(lib)
     _check_v3_layout(lib)
     return lib
 
