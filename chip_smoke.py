@@ -32,12 +32,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    FP32 count a pair (PIPES: vpu 8, mm_split 5, mm_bf16 4), 1 MUFU, no
    rsqrt guard, no divergent-shuffle copy and no spills; the same for the
    v1 / v1b expansion's four kernels (`expand_kernel<v1b,highest>`, FP32 4,
-   3, 5, 4 a pair, "highest" plus its fold's 10 FP32 per 64 pairs))
+   3, 5, 4 a pair, "highest" plus its fold's 10 FP32 per 64 pairs) and for
+   hybrid's one loop (`hybrid_kernel`, FP32 28/3 a pair), each logged
+   with its issue slots a pair and registers)
 3. central-well kernel vs plain at 4,194,304 particles (+ num_sim freeze)
 4. composite_rows kernel (the depth-Q pass alone, off the render path) vs
-   plain on the rows the eager composite builds for one 1M chunk of the 4M
-   state (Q=256) and for 262,144 particles (Q=64); its launches counted
-   over its timed calls
+   plain, bitwise in both blends, on the rows the eager composite builds
+   for one 1M chunk of the 4M state (Q=256) and for 262,144 particles
+   (Q=64), and on synthetic rows of awkward shapes (COMPOSITE_SHAPES: Q
+   and V not multiples of the kernel's blocks, Q = 1, V = 1, every row_hi
+   0, row_hi None, a tile of two CTA passes); its launches counted over
+   its timed calls
 4a. sort kernel vs plain, bitwise on every output: the render keys and
    payloads of the 4M state's first chunk after one step (E = 2^22), its
    dup 2x3 window (E = 6 x 2^20), the 262,144-particle 1280x720 chunk
@@ -97,7 +102,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     cases also at 98,432 (769 x 128: stages of 128, a half-filled last
     CTA) against their twins, twice bitwise, and at 1M beside their times
     before (no gate), held to 1.5x their error against v0 before and a NaN
-    share no higher than before
+    share no higher than before; hybrid also at tj = 128 (98,304) and 384
+    (97,920, stages of 128, a half-filled last CTA) against its twin,
+    twice bitwise, and at 1M beside its time before (no gate), held to
+    1.5x its error against v0 before and a NaN share no higher
 10c. half-pair generations (`experiments/allpairs_halfpair.py`: v5 and its
     modes, v5s, v6, v7): their path, the harness `tools/allpairs_halfpair.py`
     at its default (131,072) and in its v7 mode at 131,072, with launch
@@ -262,7 +270,7 @@ PIPES = {
     "v1b highest": (4, 1, 112), "v1b default": (3, 1, 32),
     "v1 highest": (5, 1, 112), "v1 default": (4, 1, 32),
     "v3 vpu": (8, 1, 32), "v3 mm_split": (5, 1, 64), "v3 mm_bf16": (4, 1, 48),
-    "hybrid": (29 / 3, 1, 128 / 3),
+    "hybrid": (28 / 3, 1, 112 / 3),
 }
 # issue rates a clock per SM: FP32 lanes, MUFU lanes, BF16 dense tensor
 # flops (989 TFLOP/s = 132 x 4,096 x 1,830 MHz, the data sheet's clock)
@@ -407,7 +415,7 @@ def phase_build():
                           "spill loads" not in line)
                 if spills and (name == "allpairs_halfpair" or (
                         name == "allpairs_variants" and line.startswith(
-                            ("v3_kernel", "expand_kernel")))):
+                            ("v3_kernel", "expand_kernel", "hybrid_kernel")))):
                     fail(f"{name} spills: {line}")
         sass_tally(os.path.join(tmp, "allpairs_variants.cubin"))
         for name in ("allpairs", "allpairs_variants", "allpairs_halfpair",
@@ -464,6 +472,7 @@ def loop_tally(name, cubin):
     if name == "allpairs_variants":
         v3_loop_check(loops)
         expand_loop_check(loops)
+        hybrid_loop_check(loops)
     if name != "allpairs":
         return
     mixes = [m for m in loops.get("half_item_kernel", [])
@@ -589,6 +598,35 @@ def expand_loop_check(loops):
         f"fallback; issue slots a pair {json.dumps(EXPAND_SLOTS)}")
 
 
+# hybrid's kernel: one rsqrt loop, each body a v1b "highest" chunk (16
+# pairs a lane) and 32 elementwise pairs, at PIPES' FP32 count a pair (its
+# folds lie outside the loop, every eight bodies)
+HYBRID_SLOTS = {}   # SASS issue slots a pair, filled by phase 2
+
+
+def hybrid_loop_check(loops):
+    """Fail unless hybrid_kernel has one rsqrt loop at PIPES["hybrid"]'s
+    FP32 count a pair (28/3: 12 elementwise, 4 expansion), 1 MUFU, no
+    rsqrt guard (no FSETP, no predicated FP32) and no divergent-shuffle
+    copy; logs and keeps (HYBRID_SLOTS) its issue slots a pair. Its spills
+    are phase 2's ptxas check."""
+    mixes = loops.get("hybrid_kernel", [])
+    if len(mixes) != 1:
+        fail(f"hybrid_kernel: {len(mixes)} rsqrt loops, want 1")
+    mix = mixes[0]
+    fp32 = PIPES["hybrid"][0]
+    if (abs(mix["fp32"] - fp32) > 1e-9 or mix["MUFU"] != 1 or mix["FSETP"]
+            or mix["guarded"] or mix["collective"]):
+        fail(f"hybrid_kernel loop: FP32 {mix['fp32']:.4f}, MUFU "
+             f"{mix['MUFU']}, FSETP {mix['FSETP']}, guarded "
+             f"{mix['guarded']}, fallback {mix['collective']} a pair (want "
+             f"{fp32:.4f}, 1, 0, no, no)")
+    HYBRID_SLOTS["hybrid_kernel"] = mix["slots"]
+    log("  hybrid loop at its FP32 count, 1 MUFU, no guard, no fallback; "
+        f"issue slots a pair {mix['slots']:.3f} ({mix['pairs']} pairs a "
+        "body)")
+
+
 def tree_loop_check(loops):
     """Fail unless every tree sweep item kernel's rsqrt loops take their
     FP32 count a pair (INSTR), 1 MUFU, no rsqrt guard and no
@@ -708,6 +746,53 @@ def _rows_inputs(args, kw):
     return sp, bases, hi_k
 
 
+# composite_rows' awkward shapes (Q, V, tile_h, tile_w, row_hi), each
+# bitwise against the twin in both blends: Q not a multiple of the kernel's
+# q-block (32) and V not a multiple of its row block (8), Q = 1, V = 1,
+# every row_hi 0, row_hi None, and a 150-pixel tile (two CTA passes)
+COMPOSITE_SHAPES = ((40, 1_001, 8, 16, "random"), (1, 37, 8, 16, "random"),
+                    (33, 16, 8, 16, "zero"), (70, 9, 8, 16, "none"),
+                    (5, 1, 8, 16, "random"), (33, 11, 3, 50, "random"))
+
+
+def _composite_case(dev, q, v, tile_h, tile_w, hi_mode, seed):
+    """(sp, bases, row_hi) of a synthetic composite_rows input: sprites
+    over the tile, random row_hi in [-2, Q + 2] (or all 0, or None), dead
+    slots with alpha scale 0 (the layout's rule): those at or past row_hi
+    and, as the renderer's rows have them, a random prefix of each row."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sp = np.empty((8, q, v), np.float32)
+    sp[0] = rng.uniform(-2.0, tile_w + 2.0, (q, v))
+    sp[1] = rng.uniform(-2.0, tile_h + 2.0, (q, v))
+    sp[2:4] = rng.uniform(0.05, 0.6, (2, q, v))
+    sp[4:7] = rng.uniform(0.0, 1.5, (3, q, v))
+    sp[7] = rng.uniform(0.1, 1.0, (q, v))
+    bases = rng.integers(0, 64, (2, v)).astype(np.float32)
+    hi = {"random": rng.integers(-2, q + 3, v), "zero": np.zeros(v),
+          "none": None}[hi_mode]
+    if hi is not None:
+        hi = hi.astype(np.int32)
+        slot = np.arange(q)[:, None]
+        live = ((slot < np.clip(hi, 0, q)[None, :])
+                & (slot >= rng.integers(0, q + 1, v)[None, :]))
+        sp[7] = np.where(live, sp[7], 0.0)
+        hi = torch.from_numpy(hi).to(dev)
+    return torch.from_numpy(sp).to(dev), torch.from_numpy(bases).to(dev), hi
+
+
+def _composite_bitwise(label, got, want):
+    import torch
+
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else "shape"
+        fail(f"composite_rows {label}: differs from the plain version ({bad} "
+             "elements)")
+    log(f"  {label}: bitwise the plain version")
+
+
 def phase_composite(dev):
     import torch
 
@@ -735,7 +820,7 @@ def phase_composite(dev):
             k = composite_rows(sp, bases, TILE_H, TILE_W, blend, hi)
             p = composite_rows_plain(sp, bases, TILE_H, TILE_W, blend, hi)
             torch.cuda.synchronize()
-            err = max(err, check_close(f"{label} {blend}", k, p, 1e-5, 1e-6))
+            _composite_bitwise(f"{label} {blend}", k, p)
         def kernel():
             return composite_rows(sp, bases, TILE_H, TILE_W, "over", hi)
 
@@ -745,21 +830,39 @@ def phase_composite(dev):
         launches += composite_rows.launches
         plain_ms = time_ms(lambda: composite_rows_plain(
             sp, bases, TILE_H, TILE_W, "over", hi), reps=3, warmup=1)
-        # the work these rows need: each live slot (q < row_hi) of each
-        # row blends into TILE_H * TILE_W pixels; every byte once
-        slots = float(hi.clamp(0, q).sum())
+        # the work these rows need: each live slot of each row blends into
+        # TILE_H * TILE_W pixels; every byte once. A row's live slots run
+        # from its first slot of nonzero alpha scale to row_hi (the dead
+        # slots before it blend as the identity; the kernel skips them);
+        # row_hi's own count, every slot below it, is logged beside
+        top = hi.clamp(0, q)
+        live = ((sp[7] != 0) & (torch.arange(q, device=dev)[:, None]
+                                < top[None, :]))
+        first = torch.where(live.any(0), live.int().argmax(0), top)
+        slots = float((top - first).sum())
         px = TILE_H * TILE_W
         mhz = busy_clock_mhz(kernel, reps=max(20, int(300 / ms)))
         ops = issue_bound_ms(slots * px * INSTR["composite"], mhz)
+        ops_hi = issue_bound_ms(float(top.sum()) * px * INSTR["composite"],
+                                mhz)
         nbytes = (sp.numel() + bases.numel() + hi.numel()
                   + 4 * px * sp.shape[2]) * 4
         bound = max(ops, bytes_bound_ms(nbytes))
         by = "operations" if ops >= bytes_bound_ms(nbytes) else "bytes"
         log(f"  {label} over: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
             f"{slots:.4e} live slots x {px} px; bound {bound:.4f} ms "
-            f"({by}, {mhz:.0f} MHz) -> {bound / ms:.1%} of it")
+            f"({by}, {mhz:.0f} MHz) -> {bound / ms:.1%} of it; row_hi's "
+            f"count {float(top.sum()):.4e} slots, {ops_hi:.4f} ms -> "
+            f"{ops_hi / ms:.1%}")
         times[label] = (ms, plain_ms, bound, by)
         del sp, bases, hi
+    for seed, (q, v, th, tw, hi_mode) in enumerate(COMPOSITE_SHAPES):
+        sp, bases, hi = _composite_case(dev, q, v, th, tw, hi_mode, seed)
+        for blend in ("over", "additive"):
+            _composite_bitwise(
+                f"Q={q}, V={v:,}, tile {th}x{tw}, row_hi {hi_mode}, {blend}",
+                composite_rows(sp, bases, th, tw, blend, hi),
+                composite_rows_plain(sp, bases, th, tw, blend, hi))
     ms, plain_ms, bound, by = times["1M chunk of 4M"]
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "launches": launches,
@@ -1739,6 +1842,17 @@ EXPAND_NAN_BEFORE = {"v1b highest": 0.0, "v1 highest": 0.0,
                      "v1b default": 3_123_915 / 3_145_728,
                      "v1 default": 3_034_443 / 3_145_728}
 EXPAND_ERR_FACTOR = 1.5
+# hybrid before its redesign, on an H100 at 700 W (this phase on that
+# kernel's tree): its 1,047,552 call at 1,815 MHz (logged beside the new
+# time, no gate), its error against v0 there, which the new kernel is held
+# to within EXPAND_ERR_FACTOR, and its NaN share, which it may not exceed
+HYBRID_MS_BEFORE = 726.547
+HYBRID_ERR_BEFORE = 1.148e-4
+HYBRID_NAN_BEFORE = 0.0
+# hybrid at other tiles (untimed), against its twin: tj = 128 (stages of
+# 128, one a group) at 98,304, and tj = 384 (stages of 128, three a group)
+# at 97,920 = 255 x 384, whose last CTA of 256 targets half-fills
+HYBRID_SHAPES = ((98_304, 128), (97_920, 384))
 # an odd multiple of 128 (769 x 128): the expansion's stages fall to 128
 # sources and its last CTA of 256 targets half-fills
 N_EXPAND_ODD = 98_432
@@ -1844,6 +1958,26 @@ def expand_odd_checks(scene):
                   "bitwise)", k, want, VAR_LIMIT[form])
 
 
+def hybrid_shape_checks(scene):
+    """hybrid at HYBRID_SHAPES, twice bitwise, no NaN, and against its twin
+    within VAR_LIMIT["highest"] (`scene(n, form)`: the phase's scenes)."""
+    import torch
+
+    from multi_adapter_particles_torch.ops import allpairs_variants as V
+
+    for n, tj in HYBRID_SHAPES:
+        pos = scene(n, "highest")
+        k = V.hybrid_accel(pos, tj=tj)
+        again = V.hybrid_accel(pos, tj=tj)
+        want = V.hybrid_accel_plain(pos, tj=tj)
+        torch.cuda.synchronize()
+        if not torch.equal(k, again):
+            fail(f"hybrid tj={tj} @{n:,}: two runs differ")
+        check_rel(f"hybrid tj={tj} vs plain @{n:,} (stage "
+                  f"{V.hybrid_stage(tj)}, highest, two runs bitwise, no NaN)",
+                  k, want, VAR_LIMIT["highest"])
+
+
 def phase_allpairs_variants(dev):
     """Phase 10b: the rectangle-schedule variants. Their path is the
     harness (`tools/allpairs_variants.py`) at its defaults; then each
@@ -1920,6 +2054,7 @@ def phase_allpairs_variants(dev):
                         "pipe": pipe}
     v3_shape_checks(scene(N_V3_SHAPES, "bf16"))
     expand_odd_checks(scene)
+    hybrid_shape_checks(scene)
     del scenes
     torch.cuda.empty_cache()
 
@@ -1944,11 +2079,14 @@ def phase_allpairs_variants(dev):
                             "rel_err_vs_v0": rel, "nan_share": nan}
             vs = ("(attr: held only against its twin)" if name == "attr_accel"
                   else f"vs v0 rel {rel:.3e}, NaN share {nan:.6e}")
-            if label in EXPAND_MS_BEFORE:
-                before = EXPAND_ERR_BEFORE[label]
-                nan_before = EXPAND_NAN_BEFORE[label]
-                vs += (f"; before {EXPAND_MS_BEFORE[label]:.2f} ms, rel "
-                       f"{before:.3e}, NaN share {nan_before:.4e}")
+            if label in EXPAND_MS_BEFORE or label == "hybrid":
+                ms_before, before, nan_before = (
+                    (HYBRID_MS_BEFORE, HYBRID_ERR_BEFORE, HYBRID_NAN_BEFORE)
+                    if label == "hybrid" else (EXPAND_MS_BEFORE[label],
+                                               EXPAND_ERR_BEFORE[label],
+                                               EXPAND_NAN_BEFORE[label]))
+                vs += (f"; before {ms_before:.2f} ms, rel {before:.3e}, NaN "
+                       f"share {nan_before:.4e}")
                 if nan > nan_before or not rel <= EXPAND_ERR_FACTOR * before:
                     fail(f"{label} @1M: rel {rel:.3e} (before {before:.3e}), "
                          f"NaN share {nan:.6e} (before {nan_before:.6e})")

@@ -18,9 +18,9 @@
 // Issue tally per pair, by pipe (what bounds each on the H100: the FP32
 // pipe retires 128 lanes a clock per SM, MUFU 16, the tensor cores 4,096
 // dense BF16 flops, i.e. one m16n8k16 mma a clock per SM), as the SASS of
-// each kernel's rsqrt loop shows it (chip_smoke phase 2; the elementwise
-// loops and hybrid's beside the rsqrtf guard's FSETP and two predicated
-// FMULs, not counted here; v1, v1b and v3 have no guard):
+// each kernel's rsqrt loop shows it (chip_smoke phase 2; attr's, unroll's
+// and v4's loops beside the rsqrtf guard's FSETP and two predicated FMULs,
+// not counted here; v1, v1b, v3 and hybrid have no guard):
 //   elementwise (attr full, unroll, v4, hybrid's tiles 0-1): 12 FP32
 //     (3 sub, 4 for d² = dx·dx + dy·dy + dz·dz + eps2, 2 mul for s = inv³,
 //     3 FMA into the sums), 1 MUFU (rsqrt); attr norsqrt 11 FP32 and no
@@ -45,8 +45,11 @@
 //     take 10.13 (vpu), 9.52 (mm_split) and 6.64 (mm_bf16) issue slots a
 //     pair; each mma.sync takes one slot but 4.6-7.7 slots' time on an
 //     H100 (PERF.md, v3's attribution), which the slots do not show.
-//   hybrid: two thirds elementwise, one third v1b "highest": 9.67 FP32,
-//     1 MUFU, 42.7 tensor flops a pair.
+//   hybrid: two thirds elementwise, one third v1b "highest": 28/3 = 9.33
+//     FP32 (its folds, every 8 loop bodies, lie outside the loop), 1 MUFU,
+//     112/3 = 37.3 tensor flops a pair; a loop body is 16 expansion and 32
+//     elementwise pairs a lane; LDS 0.75 an elementwise pair (three
+//     LDS.128 a 4 sources) and the expansion's 0.31.
 // At 1,048,576 and 1,980 MHz one MUFU a pair alone takes 263 ms and 12
 // FP32 394.4 ms: the expansion forms move FP32 work onto the tensor cores
 // and should end MUFU-bound.
@@ -95,9 +98,17 @@
 // accumulator measured 10% further from the float64 sum) and once a stage
 // at "default"; bitwise the same from run to run.
 //
-// hybrid keeps the schedule it was ported with: 4 warps, 128 sources a
-// stage, records of strides 20 and 12 words, one chunk a loop body, the
-// rsqrtf guard.
+// hybrid (`hybrid_kernel`) runs that CTA and that chunk, fold and finish
+// (`ExpRows<true, true>`: v1b "highest"), and beside each chunk, in the same
+// loop body, 32 elementwise sources against the lane's own target: a stage
+// is S = 512 sources of a group's tile 2 (256 or 128 when that does not
+// divide tj) and the 2 S sources of its tiles 0-1, in two buffers of
+// dynamic shared memory, the elementwise x, y, z planes staged by 16-byte
+// cp.async copies (no registers held) and read as float4 broadcasts; one
+// barrier a stage; `rsqrt.approx.ftz` in both forms (d² >= eps2 > 0 in the
+// elementwise terms: bitwise rsqrtf). The elementwise sums run in one chain
+// a coordinate and fold into Kahan totals with the expansion's, every 8
+// bodies (128 expansion and 256 elementwise sources).
 //
 // Float32 sums over 1M sources: each stage is summed in the mma
 // accumulator or in 4 chains, and the stage sums go into the running sums
@@ -442,205 +453,6 @@ __device__ __forceinline__ uint32_t k_word(const Pieces (&pc)[4], int w,
 }
 
 // ---------------------------------------------------------------------------
-// hybrid: of each group of three tj-tiles, tiles 0-1 elementwise (one
-// thread a target) and tile 2 through v1b's "highest" expansion, 4 warps x
-// 32 targets a block (two m16 row tiles a warp), sources 128 a stage in
-// 16-source chunks.
-// ---------------------------------------------------------------------------
-
-constexpr int HYB_WARPS = 4;
-constexpr int HYB_MT = 2;              // m16 row tiles a warp
-constexpr int CHUNKS = TILE / 16;      // 16-source chunks a stage
-constexpr int REC_WORDS = 16;          // first mma's B words a source (K / 2)
-constexpr int REC_STRIDE = 20;         // conflict-free record stride
-constexpr int TCOL_WORDS = 12;         // words a column of the T table
-constexpr int TCHUNK_WORDS = 12 * TCOL_WORDS;
-
-struct HybridSmem {
-  uint32_t rec[TILE * REC_STRIDE];                     // first mma's B
-  uint32_t tcol[CHUNKS * TCHUNK_WORDS];                // second mma's B
-  float4 elem[TILE];                                   // elementwise tiles
-};
-
-// Stage sources j0..j0+TILE for the expansion: thread j builds source j's
-// K record (w = (-2x, -2y, -2z, r_j²)) and its column entries
-// ([hi x, y, z, 1 | mid | lo]).
-__device__ __forceinline__ void stage_hybrid(const float* pos, long long n,
-                                             long long j0, HybridSmem& sm) {
-  const int j = threadIdx.x;
-  const float x = pos[j0 + j], y = pos[n + j0 + j], z = pos[2 * n + j0 + j];
-  const Pieces w[4] = {split3(-2.f * x), split3(-2.f * y), split3(-2.f * z),
-                       split3(r2(x, y, z))};
-#pragma unroll
-  for (int k = 0; k < REC_WORDS; ++k) {
-    sm.rec[j * REC_STRIDE + k] = k_word<true>(w, k, false);
-  }
-  // columns: piece pi of coordinate c at column 4 * pi + c
-  __nv_bfloat16* col = reinterpret_cast<__nv_bfloat16*>(
-      sm.tcol + (j >> 4) * TCHUNK_WORDS);
-  const Pieces t[4] = {split3(x), split3(y), split3(z), split3(1.f)};
-#pragma unroll
-  for (int pi = 0; pi < 3; ++pi) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      col[(4 * pi + c) * (2 * TCOL_WORDS) + (j & 15)] = t[c].p[pi];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(HYB_WARPS * 32)
-hybrid_kernel(const float* __restrict__ pos, long long n, int tj,
-              float* __restrict__ out, float mass, float eps2) {
-  constexpr int KSTEPS = 2;
-  __shared__ HybridSmem sm;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const long long wbase = (long long)blockIdx.x * TILE + warp * 32;
-
-  // targets of this lane's rows: row (mt, hr) is target mt*16 + g + 8*hr
-  uint32_t afr[HYB_MT][KSTEPS][4];
-  float ri2[HYB_MT][2];
-#pragma unroll
-  for (int mt = 0; mt < HYB_MT; ++mt) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const long long i = wbase + mt * 16 + g + 8 * hr;
-      const float x = pos[i], y = pos[n + i], z = pos[2 * n + i];
-      ri2[mt][hr] = __fadd_rn(r2(x, y, z), eps2);
-      const Pieces v[4] = {split3(x), split3(y), split3(z), split3(1.f)};
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        afr[mt][ks][hr] = k_word<true>(v, ks * 8 + t, true);
-        afr[mt][ks][2 + hr] = k_word<true>(v, ks * 8 + 4 + t, true);
-      }
-    }
-  }
-  // this lane's own target for the elementwise tiles
-  const float exi = pos[wbase + lane], eyi = pos[n + wbase + lane],
-              ezi = pos[2 * n + wbase + lane];
-  float es[3] = {0.f, 0.f, 0.f}, ec[3] = {0.f, 0.f, 0.f};
-  float run[HYB_MT][4], comp[HYB_MT][4];
-#pragma unroll
-  for (int mt = 0; mt < HYB_MT; ++mt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) run[mt][e] = comp[mt][e] = 0.f;
-  }
-
-  for (long long j0 = 0; j0 < n; j0 += TILE) {
-    const bool expand = (j0 / tj) % 3 == 2;
-    __syncthreads();
-    if (expand) {
-      stage_hybrid(pos, n, j0, sm);
-    } else {
-      stage_float4(pos, n, j0, sm.elem);
-    }
-    __syncthreads();
-    if (!expand) {
-      float s[3];
-      tile_sums<kFull>(exi, eyi, ezi, sm.elem, eps2, s[0], s[1], s[2]);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) kahan_add(es[k], ec[k], s[k]);
-      continue;
-    }
-    float acc[HYB_MT][4];
-#pragma unroll
-    for (int mt = 0; mt < HYB_MT; ++mt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
-    }
-#pragma unroll 1
-    for (int c = 0; c < CHUNKS; ++c) {
-      uint32_t b1[2][KSTEPS][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t* rec = sm.rec + (c * 16 + h * 8 + g) * REC_STRIDE;
-#pragma unroll
-        for (int ks = 0; ks < KSTEPS; ++ks) {
-          b1[h][ks][0] = rec[ks * 8 + t];
-          b1[h][ks][1] = rec[ks * 8 + 4 + t];
-        }
-      }
-      // second mma's B: [hi | mid] (columns 0-7) and [lo | 0], [hi | 0]
-      const uint32_t* tc = sm.tcol + c * TCHUNK_WORDS;
-      const uint32_t bhm0 = tc[g * TCOL_WORDS + t];
-      const uint32_t bhm1 = tc[g * TCOL_WORDS + 4 + t];
-      const uint32_t bh0 = g < 4 ? bhm0 : 0u, bh1 = g < 4 ? bhm1 : 0u;
-      uint32_t bl0 = 0u, bl1 = 0u;
-      if (g < 4) {
-        bl0 = tc[(8 + g) * TCOL_WORDS + t];
-        bl1 = tc[(8 + g) * TCOL_WORDS + 4 + t];
-      }
-#pragma unroll
-      for (int mt = 0; mt < HYB_MT; ++mt) {
-        float s[2][4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int ks = 0; ks < KSTEPS; ++ks) {
-            mma16816(d, afr[mt][ks], b1[h][ks][0], b1[h][ks][1]);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[h][e] = inv3(__fadd_rn(d[e], ri2[mt][e >> 1]));
-          }
-        }
-        uint32_t shi[4], smid[4], slo[4];
-        split_s<true>(s, shi, smid, slo);
-        mma16816(acc[mt], shi, bhm0, bhm1);   // hi·hi | hi·mid
-        mma16816(acc[mt], smid, bhm0, bhm1);  // mid·hi | mid·mid
-        mma16816(acc[mt], slo, bh0, bh1);     // lo·hi
-        mma16816(acc[mt], shi, bl0, bl1);     // hi·lo
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < HYB_MT; ++mt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) kahan_add(run[mt][e], comp[mt][e],
-                                            acc[mt][e]);
-    }
-  }
-
-  // F = columns c + c+4 (lanes t, t^2); lane t = 0 writes row g, t = 1 row
-  // g + 8: (Fx, Fy) sit in t = 0, (Fz, F3) in t = 1
-  float es_final[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) es_final[k] = es[k] - ec[k];
-#pragma unroll
-  for (int mt = 0; mt < HYB_MT; ++mt) {
-    float v[4], o[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v[e] = run[mt][e] - comp[mt][e];
-      v[e] += __shfl_xor_sync(FULL, v[e], 2);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[e] = __shfl_xor_sync(FULL, v[e], 1);
-    const int hr = t;  // lanes t = 0, 1 write rows g, g + 8
-    const int row = mt * 16 + g + 8 * (hr & 1);
-    float e3[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) e3[k] = __shfl_sync(FULL, es_final[k], row);
-    if (hr < 2) {
-      const float f[4] = {hr == 0 ? v[0] : o[2], hr == 0 ? v[1] : o[3],
-                          hr == 0 ? o[0] : v[2], hr == 0 ? o[1] : v[3]};
-      const long long i = wbase + row;
-      const float p[3] = {pos[i], pos[n + i], pos[2 * n + i]};
-      float a[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        a[k] = mass * __fsub_rn(__fadd_rn(e3[k], f[k]),
-                                __fmul_rn(p[k], f[3]));
-      }
-      out[i] = a[0];
-      out[n + i] = a[1];
-      out[2 * n + i] = a[2];
-      out[3 * n + i] = amag(a[0], a[1], a[2]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // v1 / v1b: the expansion (layout in the header). A CTA is EXP_WARPS warps
 // of EXP_MT m16 row tiles (EXP_TARGETS targets); sources are staged
 // EXP_STAGE at a time (256 or 128 when that does not divide n) into two
@@ -769,57 +581,58 @@ __device__ __forceinline__ void exp_build(ExpBuf<kV1b, kThree>& B, int j,
   }
 }
 
+// The columns 1 and 0 of both stage buffers' column tables, written once.
 template <bool kV1b, bool kThree>
-__global__ void __launch_bounds__(EXP_NT, EXP_SM_WARPS / EXP_WARPS)
-expand_kernel(const float* __restrict__ pos, long long n,
-              float* __restrict__ out, float mass, float eps2) {
-  using Buf = ExpBuf<kV1b, kThree>;
+__device__ __forceinline__ void exp_const_cols(ExpBuf<kV1b, kThree>& b0,
+                                               ExpBuf<kV1b, kThree>& b1) {
   constexpr int TCOL = exp_cols(kThree) * 8;   // column-table words a chunk
-  extern __shared__ uint4 exp_smem[];
-  Buf* const buf = reinterpret_cast<Buf*>(exp_smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const long long wbase =
-      (long long)blockIdx.x * EXP_TARGETS + warp * (EXP_MT * 16);
-  const int stage = exp_stage(n);
-  const int nch = stage / 16;                  // chunks a stage (32, 16, 8)
-  const long long nst = n / stage;
-
   for (int k = threadIdx.x; k < 2 * EXP_CHUNKS * 16; k += EXP_NT) {
-    // the columns 1 and 0 of both buffers, once
-    const int b = k / (EXP_CHUNKS * 16), ch = (k >> 4) % EXP_CHUNKS,
-              w = k & 15;
-    buf[b].tcol[ch * TCOL + (w < 8 ? 3 : exp_zero_col(kThree)) * 8 +
-                (w & 7)] = w < 8 ? BF16_ONES : 0u;
+    const int ch = (k >> 4) % EXP_CHUNKS, w = k & 15;
+    (k < EXP_CHUNKS * 16 ? b0 : b1)
+        .tcol[ch * TCOL + (w < 8 ? 3 : exp_zero_col(kThree)) * 8 + (w & 7)] =
+        w < 8 ? BF16_ONES : 0u;
   }
-  // this thread's raw sources j = threadIdx.x + r EXP_NT of the next stage
+}
+
+// One thread's share of a stage's expansion sources: the raw positions of
+// sources j = threadIdx.x + r EXP_NT, loaded a stage ahead and built into
+// the other buffer's records after the current stage's chunks.
+struct ExpFetch {
   float rx[EXP_RB], ry[EXP_RB], rz[EXP_RB];
-  auto fetch = [&](long long s) {
+
+  // sources src0 + j of a stage of `stage` sources
+  __device__ __forceinline__ void fetch(const float* pos, long long n,
+                                        long long src0, int stage) {
 #pragma unroll
     for (int r = 0; r < EXP_RB; ++r) {
       const int j = threadIdx.x + r * EXP_NT;
       if (j < stage) {
-        const long long src = s * stage + j;
+        const long long src = src0 + j;
         rx[r] = pos[src];
         ry[r] = pos[n + src];
         rz[r] = pos[2 * n + src];
       }
     }
-  };
-  auto build = [&](Buf& B) {
+  }
+
+  template <bool kV1b, bool kThree>
+  __device__ __forceinline__ void build(ExpBuf<kV1b, kThree>& B,
+                                        int stage) const {
 #pragma unroll
     for (int r = 0; r < EXP_RB; ++r) {
       const int j = threadIdx.x + r * EXP_NT;
       if (j < stage) exp_build<kV1b, kThree>(B, j, rx[r], ry[r], rz[r]);
     }
-  };
-  fetch(0);
-  build(buf[0]);
-  if (nst > 1) fetch(1);
+  }
+};
 
-  // this lane's rows: row (mt, hr) is target mt 16 + g + 8 hr; a warp past
-  // n (the last CTA when n / 128 is odd) computes on target n - 1 and
-  // writes nothing
+// A warp's 32 targets in the expansion (two m16 row tiles; lane (g, t)):
+// their A fragments and the lane's force sums. expand_kernel and
+// hybrid_kernel run the same chunk, fold and finish.
+template <bool kV1b, bool kThree>
+struct ExpRows {
+  using Buf = ExpBuf<kV1b, kThree>;
+  int g, t;
   uint32_t ak16[EXP_MT][4];   // "highest": K slots 0-15 (words t, t + 4)
   uint32_t ak8[EXP_MT][2];    // "highest": K 16-23 (word 8 + t); "default" 0-7
   float ri2[EXP_MT][2];       // r_i² + eps2
@@ -827,48 +640,57 @@ expand_kernel(const float* __restrict__ pos, long long n,
   // g + 8; the copies are OR-ed with a zero the compiler cannot see (n <
   // 2^62), so the quad keeps registers of its own
   float cq[EXP_MT][4];
-#pragma unroll
-  for (int mt = 0; mt < EXP_MT; ++mt) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const long long row = wbase + mt * 16 + g + 8 * hr;
-      const long long i = row < n ? row : n - 1;
-      const float x = pos[i], y = pos[n + i], z = pos[2 * n + i];
-      ri2[mt][hr] = __fadd_rn(r2(x, y, z), eps2);
-      if constexpr (kV1b && kThree) {
-        cq[mt][2 * hr] = ri2[mt][hr];
-        cq[mt][2 * hr + 1] = __uint_as_float(__float_as_uint(ri2[mt][hr]) |
-                                             (uint32_t)(n >> 62));
-      }
-      // v1 "highest": the pieces of -2 p_i (exactly -2 times p_i's), so
-      // the first mma gives r_j² - 2 dot with r_j² as its C
-      const float sc = !kV1b && kThree ? -2.f : 1.f;
-      const Pieces v[4] = {split3(sc * x), split3(sc * y), split3(sc * z),
-                           split3(kV1b ? 1.f : 0.f)};
-      if constexpr (kThree) {
-        ak16[mt][hr] = k_word<true>(v, t, true);
-        ak16[mt][2 + hr] = k_word<true>(v, 4 + t, true);
-        ak8[mt][hr] = k_word<true>(v, 8 + t, true);
-      } else {
-        ak8[mt][hr] = k_word<false>(v, t, true);
-      }
-    }
-  }
   // the force sums since the last fold, in the accumulator layout; run /
   // comp: the compensated totals of this lane's row g + 8 (t >> 1), F
   // columns 2 (t & 1) and 2 (t & 1) + 1
   float f[EXP_MT][4];
   float run[EXP_MT][2], comp[EXP_MT][2];
+
+  // row (mt, hr) is target wbase + mt 16 + g + 8 hr; a warp past n (the
+  // last CTA when n / 128 is odd) computes on target n - 1 and writes
+  // nothing
+  __device__ __forceinline__ ExpRows(const float* pos, long long n,
+                                     long long wbase, float eps2) {
+    g = (threadIdx.x & 31) >> 2;
+    t = threadIdx.x & 3;
 #pragma unroll
-  for (int mt = 0; mt < EXP_MT; ++mt) {
+    for (int mt = 0; mt < EXP_MT; ++mt) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) f[mt][e] = 0.f;
-    run[mt][0] = run[mt][1] = comp[mt][0] = comp[mt][1] = 0.f;
+      for (int hr = 0; hr < 2; ++hr) {
+        const long long row = wbase + mt * 16 + g + 8 * hr;
+        const long long i = row < n ? row : n - 1;
+        const float x = pos[i], y = pos[n + i], z = pos[2 * n + i];
+        ri2[mt][hr] = __fadd_rn(r2(x, y, z), eps2);
+        if constexpr (kV1b && kThree) {
+          cq[mt][2 * hr] = ri2[mt][hr];
+          cq[mt][2 * hr + 1] = __uint_as_float(
+              __float_as_uint(ri2[mt][hr]) | (uint32_t)(n >> 62));
+        }
+        // v1 "highest": the pieces of -2 p_i (exactly -2 times p_i's), so
+        // the first mma gives r_j² - 2 dot with r_j² as its C
+        const float sc = !kV1b && kThree ? -2.f : 1.f;
+        const Pieces v[4] = {split3(sc * x), split3(sc * y), split3(sc * z),
+                             split3(kV1b ? 1.f : 0.f)};
+        if constexpr (kThree) {
+          ak16[mt][hr] = k_word<true>(v, t, true);
+          ak16[mt][2 + hr] = k_word<true>(v, 4 + t, true);
+          ak8[mt][hr] = k_word<true>(v, 8 + t, true);
+        } else {
+          ak8[mt][hr] = k_word<false>(v, t, true);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < EXP_MT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[mt][e] = 0.f;
+      run[mt][0] = run[mt][1] = comp[mt][0] = comp[mt][1] = 0.f;
+    }
   }
-  __syncthreads();
 
   // one chunk's first mma: d[mt][h] = A(mt) x B(chunk c, half h)
-  auto first_mma = [&](const Buf& B, int c, float (&d)[EXP_MT][2][4]) {
+  __device__ __forceinline__ void first_mma(const Buf& B, int c,
+                                            float (&d)[EXP_MT][2][4]) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float cj[4] = {};   // v1 "highest": r_j² of columns 2 t, 2 t + 1, twice
@@ -896,14 +718,15 @@ expand_kernel(const float* __restrict__ pos, long long n,
         } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e) d[mt][h][e] = 0.f;
-          if constexpr (kThree) mma16816(d[mt][h], ak16[mt], b.x, b.y);
         }
         mma1688(d[mt][h], ak8[mt], b.x);   // K words 8-11 repeat 0-3
       }
     }
-  };
+  }
+
   // one chunk's rsqrt and force work on its first mma's d
-  auto forces = [&](const Buf& B, int c, const float (&d)[EXP_MT][2][4]) {
+  __device__ __forceinline__ void forces(const Buf& B, int c,
+                                         const float (&d)[EXP_MT][2][4]) {
     float2 rj[2] = {};
     if constexpr (!kV1b && !kThree) {
 #pragma unroll
@@ -951,12 +774,19 @@ expand_kernel(const float* __restrict__ pos, long long n,
         mma16816(f[mt], shi, bh.x, bh.y);
       }
     }
-  };
+  }
+
+  // one 16-source chunk: its first mma just before its forces
+  __device__ __forceinline__ void chunk(const Buf& B, int c) {
+    float d[EXP_MT][2][4];
+    first_mma(B, c, d);
+    forces(B, c, d);
+  }
 
   // the sums since the last fold into the totals: columns c + 4 of lane
   // t ^ 2 onto c, each lane adding the pair of the row it keeps
-  const bool up = t & 2;   // this lane keeps row g + 8 (else row g)
-  auto fold = [&]() {
+  __device__ __forceinline__ void fold() {
+    const bool up = t & 2;   // this lane keeps row g + 8 (else row g)
 #pragma unroll
     for (int mt = 0; mt < EXP_MT; ++mt) {
 #pragma unroll
@@ -969,7 +799,70 @@ expand_kernel(const float* __restrict__ pos, long long n,
 #pragma unroll
       for (int e = 0; e < 4; ++e) f[mt][e] = 0.f;
     }
-  };
+  }
+
+  // a = m((e + F0..2) - p_i F3) into out [4, n]: lane t holds (Fx, Fy) (t
+  // even) or (Fz, F3) (t odd) of row g + 8 (t >> 1); the even lane takes
+  // the odd lane's pair and writes the target. With kElem, lane l's e is
+  // the elementwise sum of target wbase + l (hybrid); else e is unused.
+  template <bool kElem>
+  __device__ __forceinline__ void finish(const float* pos, long long n,
+                                         long long wbase, float* out,
+                                         float mass,
+                                         const float (&e)[3]) const {
+#pragma unroll
+    for (int mt = 0; mt < EXP_MT; ++mt) {
+      const float f0 = run[mt][0] - comp[mt][0];
+      const float f1 = run[mt][1] - comp[mt][1];
+      const float o0 = __shfl_xor_sync(FULL, f0, 1);
+      const float o1 = __shfl_xor_sync(FULL, f1, 1);
+      const int row = mt * 16 + g + 8 * (t >> 1);
+      float F[4] = {f0, f1, o0, o1};
+      if constexpr (kElem) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          F[k] = __fadd_rn(__shfl_sync(FULL, e[k], row), F[k]);
+        }
+      }
+      const long long i = wbase + row;
+      if ((t & 1) == 0 && i < n) {
+        const float p[3] = {pos[i], pos[n + i], pos[2 * n + i]};
+        float a[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          a[k] = mass * __fsub_rn(F[k], __fmul_rn(p[k], F[3]));
+        }
+        out[i] = a[0];
+        out[n + i] = a[1];
+        out[2 * n + i] = a[2];
+        out[3 * n + i] = amag(a[0], a[1], a[2]);
+      }
+    }
+  }
+};
+
+template <bool kV1b, bool kThree>
+__global__ void __launch_bounds__(EXP_NT, EXP_SM_WARPS / EXP_WARPS)
+expand_kernel(const float* __restrict__ pos, long long n,
+              float* __restrict__ out, float mass, float eps2) {
+  using Buf = ExpBuf<kV1b, kThree>;
+  extern __shared__ uint4 exp_smem[];
+  Buf* const buf = reinterpret_cast<Buf*>(exp_smem);
+  const int warp = threadIdx.x >> 5;
+  const long long wbase =
+      (long long)blockIdx.x * EXP_TARGETS + warp * (EXP_MT * 16);
+  const int stage = exp_stage(n);
+  const int nch = stage / 16;                  // chunks a stage (32, 16, 8)
+  const long long nst = n / stage;
+
+  exp_const_cols(buf[0], buf[1]);
+  ExpFetch fx;
+  fx.fetch(pos, n, 0, stage);
+  fx.build(buf[0], stage);
+  if (nst > 1) fx.fetch(pos, n, stage, stage);
+  ExpRows<kV1b, kThree> rows(pos, n, wbase, eps2);
+  __syncthreads();
+
   // chunks between folds: "highest" 8 (128 sources, whose sums in one
   // accumulator stay near float32's accuracy), "default" a stage
   const int per_fold = kThree ? EXP_FOLD : nch;
@@ -979,42 +872,167 @@ expand_kernel(const float* __restrict__ pos, long long n,
       // eight chunks a body: the compiler interleaves one chunk's first
       // mma with the last one's force work
 #pragma unroll 8
-      for (int c = c0; c < c0 + per_fold; ++c) {
-        float d[EXP_MT][2][4];
-        first_mma(B, c, d);
-        forces(B, c, d);
-      }
-      fold();
+      for (int c = c0; c < c0 + per_fold; ++c) rows.chunk(B, c);
+      rows.fold();
     }
     if (st + 1 < nst) {
-      build(buf[(st + 1) & 1]);
-      if (st + 2 < nst) fetch(st + 2);
+      fx.build(buf[(st + 1) & 1], stage);
+      if (st + 2 < nst) fx.fetch(pos, n, (st + 2) * stage, stage);
     }
     __syncthreads();
   }
+  const float unused[3] = {};
+  rows.template finish<false>(pos, n, wbase, out, mass, unused);
+}
 
-  // lane t holds (Fx, Fy) (t even) or (Fz, F3) (t odd) of row g + 8 (t >>
-  // 1); the even lane takes the odd lane's pair and writes the target
+// ---------------------------------------------------------------------------
+// hybrid: of each group of three tj-tiles, tiles 0-1 elementwise (v0's
+// pair terms, the lane's own target) and tile 2 through v1b's "highest"
+// expansion (ExpRows<true, true>), both in one loop body. The CTA is the
+// expansion's (EXP_WARPS warps of 32 targets, EXP_SM_WARPS an SM); a stage
+// holds S = hyb_stage(tj) sources of tile 2 and the 2 S sources of tiles
+// 0-1 beside them, and each loop body takes one 16-source expansion chunk
+// (512 pairs a warp) and 32 elementwise sources (1,024 pairs a warp), so
+// the FP32 and MUFU pipes work while the chunk's mma results are in flight.
+// ---------------------------------------------------------------------------
+
+constexpr int HYB_STAGE = EXP_STAGE;   // expansion sources a stage (at most)
+constexpr int HYB_ELEM = 32;           // elementwise sources a loop body
+
+// Expansion sources a stage: HYB_STAGE, or its half or quarter, whichever
+// divides tj (a stage never straddles two groups).
+__host__ __device__ constexpr int hyb_stage(int tj) {
+  return tj % HYB_STAGE == 0         ? HYB_STAGE
+         : tj % (HYB_STAGE / 2) == 0 ? HYB_STAGE / 2
+                                     : HYB_STAGE / 4;
+}
+// The global index of stage s's source j (of 3 S): j < 2 S the elementwise
+// sources, the (s mod tj / S)-th 2 S of the group's tiles 0-1; then the S
+// expansion sources, the (s mod tj / S)-th S of its tile 2. The group is
+// s / (tj / S).
+__host__ __device__ constexpr long long hyb_source(int tj, long long s,
+                                                   int j) {
+  const int S = hyb_stage(tj);
+  const long long spt = tj / S;   // stages a tile
+  const long long g0 = s / spt * 3 * (long long)tj, k = s % spt;
+  return j < 2 * S ? g0 + k * 2 * S + j : g0 + 2LL * tj + k * S + (j - 2 * S);
+}
+// The first word of the u-th float4 (u < HYB_ELEM / 4) a lane reads of each
+// elementwise plane in loop body c: every lane the same (a broadcast).
+__host__ __device__ constexpr int hyb_elem_word(int c, int u) {
+  return c * HYB_ELEM + 4 * u;
+}
+
+// One staged buffer: the expansion's records and column table, then the
+// elementwise sources' x, y and z planes.
+struct alignas(16) HybBuf {
+  ExpBuf<true, true> x;
+  float e[3][2 * HYB_STAGE];
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Stage s's 2 S elementwise positions into B's planes: 16-byte copies that
+// hold no registers while they fly (pos 16-byte aligned, n % 128 == 0).
+__device__ __forceinline__ void hyb_stage_elem(HybBuf& B, const float* pos,
+                                               long long n, int tj,
+                                               long long s) {
+  const int S = hyb_stage(tj);
+  const int q = S / 2;   // float4 a plane
+  const long long e0 = hyb_source(tj, s, 0);
+  for (int k = threadIdx.x; k < 3 * q; k += EXP_NT) {
+    const int c = k / q, w = 4 * (k - c * q);
+    cp_async16(B.e[c] + w, pos + c * n + e0 + w);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The 32 elementwise sources of loop body c against (xi, yi, zi): v0's
+// pair terms, the rsqrt without a guard (d² >= eps2 > 0: bitwise rsqrtf).
+__device__ __forceinline__ void hyb_elem(const HybBuf& B, int c, float xi,
+                                         float yi, float zi, float eps2,
+                                         float (&acc)[3]) {
 #pragma unroll
-  for (int mt = 0; mt < EXP_MT; ++mt) {
-    const float f0 = run[mt][0] - comp[mt][0], f1 = run[mt][1] - comp[mt][1];
-    const float o0 = __shfl_xor_sync(FULL, f0, 1);
-    const float o1 = __shfl_xor_sync(FULL, f1, 1);
-    const long long i = wbase + mt * 16 + g + 8 * (t >> 1);
-    if ((t & 1) == 0 && i < n) {
-      const float F[4] = {f0, f1, o0, o1};
-      const float p[3] = {pos[i], pos[n + i], pos[2 * n + i]};
-      float a[3];
+  for (int u = 0; u < HYB_ELEM / 4; ++u) {
+    const int w = hyb_elem_word(c, u);
+    const float4 x4 = *reinterpret_cast<const float4*>(B.e[0] + w);
+    const float4 y4 = *reinterpret_cast<const float4*>(B.e[1] + w);
+    const float4 z4 = *reinterpret_cast<const float4*>(B.e[2] + w);
+    const float px[4] = {x4.x, x4.y, x4.z, x4.w};
+    const float py[4] = {y4.x, y4.y, y4.z, y4.w};
+    const float pz[4] = {z4.x, z4.y, z4.z, z4.w};
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        a[k] = mass * __fsub_rn(F[k], __fmul_rn(p[k], F[3]));
-      }
-      out[i] = a[0];
-      out[n + i] = a[1];
-      out[2 * n + i] = a[2];
-      out[3 * n + i] = amag(a[0], a[1], a[2]);
+    for (int k = 0; k < 4; ++k) {
+      const float dx = px[k] - xi;
+      const float dy = py[k] - yi;
+      const float dz = pz[k] - zi;
+      const float d2 = dx * dx + dy * dy + dz * dz + eps2;
+      const float s = inv3_ftz(d2);
+      acc[0] += dx * s;
+      acc[1] += dy * s;
+      acc[2] += dz * s;
     }
   }
+}
+
+__global__ void __launch_bounds__(EXP_NT, EXP_SM_WARPS / EXP_WARPS)
+hybrid_kernel(const float* __restrict__ pos, long long n, int tj,
+              float* __restrict__ out, float mass, float eps2) {
+  extern __shared__ uint4 hyb_smem[];
+  HybBuf* const buf = reinterpret_cast<HybBuf*>(hyb_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long wbase =
+      (long long)blockIdx.x * EXP_TARGETS + warp * (EXP_MT * 16);
+  const int S = hyb_stage(tj);
+  const int nch = S / 16;                  // bodies (and chunks) a stage
+  const long long nst = n / (3 * S);
+
+  exp_const_cols(buf[0].x, buf[1].x);
+  hyb_stage_elem(buf[0], pos, n, tj, 0);
+  ExpFetch fx;
+  fx.fetch(pos, n, hyb_source(tj, 0, 2 * S), S);
+  fx.build(buf[0].x, S);
+  if (nst > 1) fx.fetch(pos, n, hyb_source(tj, 1, 2 * S), S);
+  ExpRows<true, true> rows(pos, n, wbase, eps2);
+  // the lane's own target in the elementwise tiles (clamped past n): the
+  // sums since the last fold, and their compensated totals
+  const long long ie = wbase + lane < n ? wbase + lane : n - 1;
+  const float xi = pos[ie], yi = pos[n + ie], zi = pos[2 * n + ie];
+  float ep[3] = {0.f, 0.f, 0.f}, es[3] = {0.f, 0.f, 0.f},
+        ec[3] = {0.f, 0.f, 0.f};
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  for (long long st = 0; st < nst; ++st) {
+    const HybBuf& B = buf[st & 1];
+    if (st + 1 < nst) hyb_stage_elem(buf[(st + 1) & 1], pos, n, tj, st + 1);
+    for (int c0 = 0; c0 < nch; c0 += EXP_FOLD) {
+#pragma unroll 1
+      for (int c = c0; c < c0 + EXP_FOLD; ++c) {
+        rows.chunk(B.x, c);
+        hyb_elem(B, c, xi, yi, zi, eps2, ep);
+      }
+      // every 128 expansion and 256 elementwise sources
+      rows.fold();
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        kahan_add(es[k], ec[k], ep[k]);
+        ep[k] = 0.f;
+      }
+    }
+    if (st + 1 < nst) {
+      fx.build(buf[(st + 1) & 1].x, S);
+      if (st + 2 < nst) fx.fetch(pos, n, hyb_source(tj, st + 2, 2 * S), S);
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+  }
+  const float e[3] = {es[0] - ec[0], es[1] - ec[1], es[2] - ec[2]};
+  rows.finish<true>(pos, n, wbase, out, mass, e);
 }
 
 // ---------------------------------------------------------------------------
@@ -1539,17 +1557,45 @@ extern "C" int apv_expand_rj2_word(int highest, int c, int h, int lane) {
 }
 
 // hybrid: tj-tiles (tj a multiple of TILE, n / tj a multiple of 3); of
-// each group of three, tiles 0-1 elementwise, tile 2 v1b "highest".
+// each group of three, tiles 0-1 elementwise, tile 2 v1b "highest". pos
+// 16-byte aligned (the elementwise sources are staged by 16-byte copies).
 extern "C" int apv_hybrid(const void* pos, long long n, int tj, void* out,
                           float mass, float eps2, void* stream) {
-  if (bad_n(n) || tj <= 0 || tj % TILE || n % tj || (n / tj) % 3) {
+  if (bad_n(n) || tj <= 0 || tj % TILE || n % tj || (n / tj) % 3 ||
+      reinterpret_cast<uintptr_t>(pos) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  hybrid_kernel<<<(unsigned)(n / TILE), HYB_WARPS * 32, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+  constexpr int smem = 2 * (int)sizeof(HybBuf);
+  const cudaError_t e = cudaFuncSetAttribute(
+      hybrid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  hybrid_kernel<<<(unsigned)((n + EXP_TARGETS - 1) / EXP_TARGETS), EXP_NT,
+                  smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), n, tj, static_cast<float*>(out), mass,
       eps2);
   return launched();
+}
+
+// hybrid's warps a CTA (sm = 0), an SM (sm = 1, its launch bounds' ask) and
+// m16 row tiles a warp (sm = 2): the expansion's (`EXPAND_WARPS`,
+// `EXPAND_SM_WARPS`, `EXPAND_MT` mirror them).
+extern "C" int apv_hybrid_warps(int sm) {
+  return sm == 0 ? EXP_WARPS : sm == 1 ? EXP_SM_WARPS : EXP_MT;
+}
+
+// Dynamic shared memory of a hybrid CTA: its two stage buffers
+// (`ops/allpairs_variants.py::hybrid_smem_bytes` mirrors it).
+extern "C" int apv_hybrid_smem() { return 2 * (int)sizeof(HybBuf); }
+
+// hybrid's stages and elementwise loads (the functions above), for the
+// check of its host mirror (`hybrid_stage`, `hybrid_source`,
+// `hybrid_elem_words`).
+extern "C" int apv_hybrid_stage(int tj) { return hyb_stage(tj); }
+extern "C" long long apv_hybrid_source(int tj, long long s, int j) {
+  return hyb_source(tj, s, j);
+}
+extern "C" int apv_hybrid_elem_word(int c, int u) {
+  return hyb_elem_word(c, u);
 }
 
 // v3's warps a CTA (sm = 0) and an SM (sm = 1, its launch bounds' ask);

@@ -598,6 +598,80 @@ def _hybrid_rule(n: int, tj: int) -> None:
                          f"(N={n}, tj={tj}, group {HYBRID_GROUP})")
 
 
+# hybrid's kernel shape and shared-memory layout (csrc/allpairs_variants.cu's
+# `hybrid_kernel`, whose exports `_library` checks these against when it
+# loads): the expansion's CTA (EXPAND_WARPS warps of two m16 row tiles,
+# EXPAND_SM_WARPS an SM); a stage holds S expansion sources of a group's
+# tile 2 and the 2 S elementwise sources of its tiles 0-1 beside them, and
+# a loop body takes one 16-source chunk of the first and HYBRID_ELEM of the
+# second
+HYBRID_STAGE = 512       # expansion sources a stage (fewer when tj % 512)
+HYBRID_ELEM = 32         # elementwise sources a loop body
+
+
+def hybrid_stage(tj: int) -> int:
+    """Expansion sources a hybrid stage: the largest of HYBRID_STAGE, a
+    half and a quarter of it that divides tj (tj a multiple of TILE)."""
+    return next(s for s in (HYBRID_STAGE, HYBRID_STAGE // 2,
+                            HYBRID_STAGE // 4) if tj % s == 0)
+
+
+def hybrid_source(tj: int, stage: int, j: int) -> int:
+    """The source index of stage `stage`'s source j (of 3 S, S =
+    hybrid_stage(tj)): j < 2 S its group's tiles 0-1, the stage's 2 S of
+    them in order; then S of its tile 2. A group takes tj / S stages."""
+    size = hybrid_stage(tj)
+    group, k = divmod(stage, tj // size)
+    if j < 2 * size:
+        return group * 3 * tj + k * 2 * size + j
+    return group * 3 * tj + 2 * tj + k * size + (j - 2 * size)
+
+
+def hybrid_elem_words(chunk: int, u: int) -> tuple:
+    """The four words (one 16-byte load, the same on every lane) loop body
+    `chunk` reads as its u-th float4 of each elementwise plane: sources
+    chunk·HYBRID_ELEM + 4 u to + 3 of the stage."""
+    w = chunk * HYBRID_ELEM + 4 * u
+    return tuple(range(w, w + 4))
+
+
+def hybrid_smem_bytes() -> int:
+    """Dynamic shared memory of a hybrid CTA: two stage buffers, each v1b
+    "highest"'s (records and column table of HYBRID_STAGE sources) and
+    the x, y and z planes of 2 HYBRID_STAGE elementwise sources."""
+    return expand_smem_bytes(True, "highest") + 2 * 3 * 2 * HYBRID_STAGE * 4
+
+
+def _check_hybrid_layout(lib) -> None:
+    """Raise unless the .cu's hybrid CTA shape, shared memory, stages,
+    source order and elementwise loads are this module's mirror of
+    them."""
+    if tuple(lib.apv_hybrid_warps(k) for k in range(3)) != (
+            EXPAND_WARPS, EXPAND_SM_WARPS, EXPAND_MT) or \
+            lib.apv_hybrid_smem() != hybrid_smem_bytes():
+        raise RuntimeError("csrc/allpairs_variants.cu's hybrid warps, row "
+                           "tiles or shared memory are not EXPAND_WARPS, "
+                           "EXPAND_SM_WARPS, EXPAND_MT and hybrid_smem_bytes")
+    for tj in range(TILE, 4096 + 1, TILE):
+        size = hybrid_stage(tj)
+        if lib.apv_hybrid_stage(tj) != size:
+            raise RuntimeError(f"csrc/allpairs_variants.cu's hybrid stage at "
+                               f"tj={tj} is not hybrid_stage's")
+        for stage in range(3 * tj // size + 1):
+            for j in (0, 1, 2 * size - 1, 2 * size, 3 * size - 1):
+                if lib.apv_hybrid_source(tj, stage, j) != hybrid_source(
+                        tj, stage, j):
+                    raise RuntimeError(
+                        "csrc/allpairs_variants.cu's hybrid source order is "
+                        f"not hybrid_source's (tj={tj}, stage {stage}, j={j})")
+    for c in range(HYBRID_STAGE // 16):
+        for u in range(HYBRID_ELEM // 4):
+            if lib.apv_hybrid_elem_word(c, u) != hybrid_elem_words(c, u)[0]:
+                raise RuntimeError("csrc/allpairs_variants.cu's hybrid "
+                                   "elementwise loads are not the mirror's "
+                                   f"(body {c}, float4 {u})")
+
+
 def hybrid_accel_plain(position: Tensor, ti: int = 256,
                        tj: int = 512) -> Tensor:
     """Twin of `_hybrid_kernel` (`allpairs_hybrid.py:42`): of every group
@@ -646,14 +720,18 @@ def _library() -> ctypes.CDLL:
             ("apv_expand_rj2_word", [i, i, i, i]), ("apv_v3_warps", [i]),
             ("apv_v3_smem", [i]), ("apv_v3_stage", [i]),
             ("apv_v3_rec_word", [i, i, i]), ("apv_v3_tcol_word", [i, i, i]),
-            ("apv_v3_tcol_slot", [i]), ("apv_v3_q_source", [i, i, i, i])):
+            ("apv_v3_tcol_slot", [i]), ("apv_v3_q_source", [i, i, i, i]),
+            ("apv_hybrid_warps", [i]), ("apv_hybrid_smem", []),
+            ("apv_hybrid_stage", [i]), ("apv_hybrid_source", [i, ll, i]),
+            ("apv_hybrid_elem_word", [i, i])):
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = ctypes.c_int
+        fn.restype = ll if name == "apv_hybrid_source" else ctypes.c_int
     if lib.apv_tile() != TILE:
         raise RuntimeError("csrc/allpairs_variants.cu's tile is not TILE")
     _check_expand_layout(lib)
     _check_v3_layout(lib)
+    _check_hybrid_layout(lib)
     return lib
 
 
@@ -777,6 +855,8 @@ def hybrid_accel(position: Tensor, ti: int = 256, tj: int = 512) -> Tensor:
     _hybrid_rule(n, tj)
     if position.device.type == "cpu":
         return hybrid_accel_plain(position, ti, tj)
+    if position.data_ptr() % 16:   # the kernel stages by 16-byte copies
+        position = position.clone()
     out = _launch(position, "hybrid_accel", (4, n), lambda lib, o, st:
                   lib.apv_hybrid(position.data_ptr(), n, tj, o.data_ptr(),
                                  MASS, EPS2, st))
