@@ -177,6 +177,33 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 24. `-fused -force p3m -p3mnear tree` at 262,144 runs uncaptured
     (`fused_graph` false) and agrees with split the same way; all_pairs
     (65,536) and pm_grid (262,144, G=64) capture and agree likewise
+25. live reassignment through the control surface (`apply_key`,
+    `apply_control`): at 4,194,304 / 1024², split, `c` moves compute to
+    the CPU for 3 frames (CPU steps, a cross-adapter copy of the
+    positions each frame, the H100 renders) and back, then the draw
+    toggle, the extension (the compute stream's priority) and size and
+    intensity keys; positions within rtol 1e-5 / atol 1e-3 of a bare run
+    of the same steps; drain + migrate ms of each move, the CPU-compute
+    frame and the copy's ms. The render role H100 -> CPU -> H100 at
+    65,536 / 512² (the CPU's frame within 2e-5 of the H100's render of
+    the same positions); fused at 262,144 / 1280x720 with both roles to
+    the CPU and back (each move rebuilds the fused engine), held the same
+    way
+26. `-interactive` through the CLI at 262,144 on a scripted key stream (c,
+    c, SPACE, [, ], w, q): rc 0, 6 frames, 2 reassignments
+27. `-fused` at 4M: `-checkpointevery 10` over 20 frames, `-resume` for 10,
+    bitwise an uninterrupted 30-frame run (write and read ms); `-preset
+    4m-fused` 20 frames with and without `-debug`; `-trace` for 8 frames
+    names the central-well and composite_tiles kernels; the 1M tree-P3M
+    CLI twice with `-probecache` (warm probe under 10% of cold); `-serve 0
+    -dashboard` in its own process answers GET /state and POST /set (the
+    size changes), stops on SIGINT with rc 0 and leaves the page
+28. the p3m slot near field: on a uniform 262,144 scene (G=128, the least
+    capacity with no overflow) the accel vs the exact sum on 4,096 targets
+    (RMS < 1% of max|a|) and vs the tree near field, the sweep's ms and
+    peak memory; then `-force p3m -p3mnear slots` at 262,144 on the demo
+    init: the overflow warning, `p3m_overflow` equal to the host count, and
+    split vs fused (captured) bitwise
 
 The kernels line (before the last) has one entry per kernel with its
 launches on its main path (for composite_rows and the row gather, off the
@@ -221,6 +248,9 @@ HALF_LAUNCH_LIMIT = 32    # device launches a half-pair call may take
 HALF_1M_MS_BEFORE = 490.94
 AP_STEPS_HALF = 8
 AP_STEPS_RECT = 6
+# phase 10's "simulate" stage (EMA) against its kernel's time alone: the
+# step adds only the Euler tail, ~0.1% at 1M
+STAGE_TOL = 0.05
 N_TREE_CHECK = 262_144    # tree kernels vs twins (G=128, B=256); exact gauge
 N_TREE = 1_048_576        # the tree-P3M path (G=192, B=512)
 TREE_SAMPLE = 4_096       # targets held against the exact sum
@@ -1732,7 +1762,11 @@ def phase_allpairs_exact(dev, rect_1m, half_1m):
         log(f"  {name}: two runs at {N_AP:,} bitwise equal")
 
 
-def phase_allpairs_main_path():
+def phase_allpairs_main_path(kernel_ms):
+    """Phase 10. `kernel_ms`: the half and rect kernels' 1M times (phases
+    7 and 8), which the path's "simulate" stage must match within
+    STAGE_TOL: the stage times the step where it runs (its own stream
+    when the extension is on), not what overlaps it."""
     import statistics
 
     from multi_adapter_particles_torch.ops.allpairs import (
@@ -1789,6 +1823,12 @@ def phase_allpairs_main_path():
             f"{results[label]['pairs_per_s']:.4e} pairs/s of device frame "
             f"time; interactions/s (wall, setup included) "
             f"{seen['rate']:.4e}")
+        gap = abs(stages["simulate"] / kernel_ms[label] - 1)
+        log(f"  simulate ms vs the {label} kernel's {kernel_ms[label]:.2f} ms"
+            f" alone: {gap:.2%} apart (at most {STAGE_TOL:.0%})")
+        if gap > STAGE_TOL:
+            fail(f"{label}: the simulate stage reads {stages['simulate']:.2f}"
+                 f" ms for a step whose kernel takes {kernel_ms[label]:.2f}")
         log(f"  last frame: max {float(seen['frame'].max()):.4f}, mean "
             f"{float(seen['frame'].mean()):.5f}, truncated 0")
         del seen
@@ -3114,6 +3154,495 @@ def phase_diag_main_paths(scene_1m):
     return launches, results
 
 
+# Phases 25-28: the live control surface, the single-device utilities and
+# the p3m slot near field. Positions after a reassignment are held against
+# a bare run of the same steps at the JAX property test's tolerance; the
+# frame rendered on the CPU against the card's at the render tolerance.
+MOVE_RTOL, MOVE_ATOL = 1e-5, 1e-3
+RENDER_ATOL = 2e-5
+N_RENDER_MOVE = 65_536
+N_FUSED_MOVE = 262_144
+N_SLOTS = 262_144
+SLOT_GRID = 128          # r_c = 108, a near grid of 18 cells an axis
+# phase 28's uniform cube: its side, inside the mesh's interior (G=128 on
+# the 2048 box keeps particles within [-1000, 1000) on the mesh; P3M gives
+# a particle outside it no far-field force, as the JAX package does)
+SLOT_SPAN = 1800.0
+SLOT_STEPS = 8           # phase 28's CLI frames (the timer skips 3)
+
+
+def _move_app(n, width, height, fused=False):
+    """A ParticlesApp on the card (adapter 0) for the moves of phase 25."""
+    from multi_adapter_particles_torch.config import (
+        AppConfig,
+        RenderConfig,
+        SimConfig,
+    )
+    from multi_adapter_particles_torch.runtime.orchestrator import (
+        ParticlesApp,
+    )
+
+    return ParticlesApp(
+        AppConfig(num_particles=n, vsync=False, gui=False),
+        SimConfig(num_particles=n), RenderConfig(width=width, height=height),
+        compute_adapter=0, render_adapter=0, fused=fused)
+
+
+def _bare_positions(dev, n, steps):
+    """The state after `steps` steps of a compute engine alone on the card,
+    from the apps' seed."""
+    from multi_adapter_particles_torch.config import SimConfig
+    from multi_adapter_particles_torch.runtime.compute_engine import (
+        ComputeEngine,
+    )
+
+    eng = ComputeEngine(SimConfig(num_particles=n), dev, seed=0)
+    for _ in range(steps):
+        eng.simulate()
+    eng.wait_for_gpu()
+    return eng.state.position
+
+
+def _draw_ms(p) -> float:
+    """One frame of `p` with the card drained after it (host ms)."""
+    import torch
+
+    t0 = time.perf_counter()
+    p.draw()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _expect_device(label, adapter, kind):
+    if adapter.device.type != kind:
+        fail(f"{label}: role on {adapter.device}, expected {kind}")
+
+
+def phase_reassign(dev):
+    import statistics
+
+    import torch
+
+    from multi_adapter_particles_torch.runtime.controls import (
+        apply_control,
+        apply_key,
+    )
+    from multi_adapter_particles_torch.runtime.devices import (
+        cpu_adapter_index,
+    )
+
+    cpu = cpu_adapter_index()
+    out = {}
+    log(f"phase 25: live reassignment and controls, split @{N_MAIN:,} "
+        f"{WIDTH}x{HEIGHT}: compute H100 -> CPU (3 frames) -> H100, draw, "
+        "extension, size and intensity")
+    p = _move_app(N_MAIN, WIDTH, HEIGHT)
+    steps = 0
+    p.draw()
+    apply_key(p, "c")
+    p.draw()
+    steps += 2
+    _expect_device("after c", p.compute_adapter, "cpu")
+    _expect_device("render after c", p.render_adapter, "cuda")
+    cpu_frames = [_draw_ms(p) for _ in range(3)]
+    steps += 3
+    copy = [timed(lambda: p.render.copy_simulation_results(
+        p.compute.positions))[1] for _ in range(3)]
+    if p.render._local.device.type != "cuda":
+        fail("the cross-adapter copy did not land on the card")
+    apply_key(p, "c")
+    p.draw()
+    steps += 1
+    _expect_device("after c c", p.compute_adapter, "cuda")
+    apply_control(p, "draw", 0)
+    p.draw()
+    apply_control(p, "draw", 1)
+    apply_key(p, "e")
+    p.draw()
+    if p.extension.enabled or p.compute.extension.stream() is not None:
+        fail("the extension toggle did not reach the compute engine")
+    apply_key(p, "e")
+    p.draw()
+    apply_key(p, "]")
+    apply_key(p, "=")
+    p.draw()
+    steps += 4
+    prio = p.extension.priority
+    p.shutdown()
+    n_moves = int(p.metrics.counters.get("reconfigurations", 0))
+    if n_moves != 2:
+        fail(f"{n_moves} reconfigurations, expected 2")
+    if p.compute.get_fence_value() != steps:
+        fail(f"fence {p.compute.get_fence_value()} after {steps} steps")
+    got = p.compute.state.position
+    err = check_close(f"positions after {steps} frames vs a bare run",
+                      got, _bare_positions(dev, N_MAIN, steps), MOVE_RTOL,
+                      MOVE_ATOL)
+    out["split_4m"] = {
+        "reconfig_ms": p.metrics.gauges["reconfig_ms"],
+        "cpu_frame_ms": cpu_frames, "copy_ms": statistics.median(copy),
+        "copy_bytes": N_MAIN * 16, "max_abs_err": err, "steps": steps,
+        "size": p.app.particle_size, "intensity": p.app.particle_intensity,
+        "stream_priority": prio}
+    log(f"  drain + migrate ms (to the CPU, back): "
+        f"{p.metrics.gauges['reconfig_ms']}; CPU-compute frame ms "
+        f"{cpu_frames}; cross-adapter copy of {N_MAIN * 16 / 2**20:.0f} MiB "
+        f"CPU -> H100 {statistics.median(copy):.3f} ms (median of 3); "
+        f"compute stream priority {prio}")
+    del p, got
+    torch.cuda.empty_cache()
+
+    log(f"  render role H100 -> CPU -> H100 @{N_RENDER_MOVE:,} 512x512")
+    p = _move_app(N_RENDER_MOVE, 512, 512)
+    p.draw()
+    apply_key(p, "r")
+    p.draw()
+    _expect_device("render after r", p.render_adapter, "cpu")
+    drawn = p._display_positions.clone()
+    p.draw()
+    cpu_frame = p.render.last_frame
+    if cpu_frame.device.type != "cpu":
+        fail("the moved render did not run on the CPU")
+    rend = p._carry_renderer(p.render.config)
+    want = rend.render_arrays(drawn, p.render.camera, p.app.particle_size,
+                              p.app.particle_intensity,
+                              num_draw=p.app.resolved_counts()[2]).frame
+    frame_err = check_close("frame rendered on the CPU vs the H100's",
+                            cpu_frame.to(dev), want, 0.0, RENDER_ATOL)
+    apply_key(p, "r")
+    p.draw()
+    p.draw()
+    _expect_device("render after r r", p.render_adapter, "cuda")
+    p.shutdown()
+    err = check_close("positions after 5 frames vs a bare run",
+                      p.compute.state.position,
+                      _bare_positions(dev, N_RENDER_MOVE, 5), MOVE_RTOL,
+                      MOVE_ATOL)
+    out["render_64k"] = {"reconfig_ms": p.metrics.gauges["reconfig_ms"],
+                         "frame_err": frame_err, "max_abs_err": err}
+    del p
+
+    log(f"  fused @{N_FUSED_MOVE:,} 1280x720: both roles H100 -> CPU -> "
+        "H100")
+    p = _move_app(N_FUSED_MOVE, 1280, 720, fused=True)
+    for _ in range(3):
+        p.draw()
+    if p.fused_engine.replays != 2:
+        fail(f"fused: {p.fused_engine.replays} replays in 3 frames")
+    apply_control(p, "computeadapter", cpu)
+    apply_control(p, "renderadapter", cpu)
+    p.draw()
+    if p.fused_engine.device.type != "cpu":
+        fail("the fused engine was not rebuilt on the CPU")
+    cpu_fused = [_draw_ms(p) for _ in range(2)]
+    apply_control(p, "computeadapter", 0)
+    apply_control(p, "renderadapter", 0)
+    p.draw()
+    for _ in range(3):
+        p.draw()
+    graph = p.metrics.gauges.get("fused_graph")
+    p.shutdown()
+    if p.fused_engine.device.type != "cuda" or graph is not True:
+        fail(f"fused back on the card: {p.fused_engine.device}, "
+             f"fused_graph {graph}")
+    err = check_close("fused positions after 10 frames vs a bare run",
+                      p.compute.state.position,
+                      _bare_positions(dev, N_FUSED_MOVE, 10), MOVE_RTOL,
+                      MOVE_ATOL)
+    out["fused_262k"] = {"reconfig_ms": p.metrics.gauges["reconfig_ms"],
+                         "cpu_frame_ms": cpu_fused, "max_abs_err": err,
+                         "fused_graph": graph}
+    log(f"  fused moves: drain + rebuild + migrate ms "
+        f"{p.metrics.gauges['reconfig_ms']}; CPU fused frame ms {cpu_fused};"
+        f" fused_graph {graph} after the move back")
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_interactive():
+    import io
+
+    from multi_adapter_particles_torch import app
+
+    log("phase 26: -interactive through the CLI, a scripted key stream "
+        "(c, c, SPACE, [, ], w, q) @262,144")
+    seen = {}
+
+    def on_exit(p):
+        seen.update(frames=p.frame_count, compute=p.compute.device,
+                    draw=p.draw_enabled, size=p.app.particle_size,
+                    moves=p.metrics.counters.get("reconfigurations", 0),
+                    ms=list(p.metrics.gauges.get("reconfig_ms", [])))
+
+    t0 = time.perf_counter()
+    rc = app.main(["-numparticles", "262144", "-steps", "100", "-novsync",
+                   "-nogui", "-interactive"], on_exit=on_exit,
+                  input_stream=io.StringIO("c\nc\n \n[\n]\nw\nq\n"))
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"-interactive returned {rc}")
+    if seen["frames"] != 6 or seen["moves"] != 2:
+        fail(f"-interactive: {seen['frames']} frames, {seen['moves']} "
+             "reassignments (expected 6 and 2)")
+    if seen["compute"].type != "cuda" or seen["draw"] or seen["size"] != 2.5:
+        fail(f"-interactive ended with {seen}")
+    log(f"  rc 0, 6 frames in {wall:.2f} s wall, 2 reassignments (drain + "
+        f"migrate ms {seen['ms']}), draw off, size 2.5, compute on the card")
+    return {"frames": 6, "reconfig_ms": seen["ms"], "wall_s": wall}
+
+
+def _serve_check(root):
+    """`-serve 0 -dashboard` as its own process: GET /state, POST a size,
+    see it applied, stop it with SIGINT (rc 0) and find the page."""
+    import signal
+    import sys
+    import urllib.request
+
+    tmp = tempfile.mkdtemp()
+    html = os.path.join(tmp, "dash.html")
+    cmd = [sys.executable, "-m", "multi_adapter_particles_torch",
+           "-numparticles", "262144", "-width", "512", "-height", "512",
+           "-steps", "0", "-novsync", "-nogui", "-serve", "0",
+           "-dashboard", html]
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        base = None
+        t0 = time.perf_counter()
+        while base is None and time.perf_counter() - t0 < 180:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            if line.startswith("dashboard: http://"):
+                base = line.split()[1].rstrip("/")
+        if base is None:
+            fail("-serve 0 printed no address")
+        state = json.loads(urllib.request.urlopen(f"{base}/state",
+                                                  timeout=30).read())
+        size0 = next(c["value"] for c in state["controls"]
+                     if c["name"] == "size")
+        urllib.request.urlopen(urllib.request.Request(
+            f"{base}/set", data=b"name=size&value=6.5", method="POST"),
+            timeout=30).read()
+        size = size0
+        t1 = time.perf_counter()
+        while size != 6.5 and time.perf_counter() - t1 < 60:
+            time.sleep(0.2)
+            state = json.loads(urllib.request.urlopen(f"{base}/state",
+                                                      timeout=30).read())
+            size = next(c["value"] for c in state["controls"]
+                        if c["name"] == "size")
+        if size != 6.5:
+            fail(f"POST /set size=6.5 left particle_size at {size}")
+        frames = state["metrics"]["counters"].get("frames", 0)
+        proc.send_signal(signal.SIGINT)
+        rest, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        fail(f"-serve run exited {proc.returncode}: {rest[-2000:]}")
+    with open(html) as f:
+        page = f.read()
+    if "data:image/png;base64," not in page:
+        fail("-dashboard wrote no frame")
+    return {"size_before": size0, "size_after": size, "frames_seen": frames,
+            "html_bytes": len(page)}
+
+
+def phase_utilities(dev):
+    import statistics
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    base = ["-novsync", "-nogui", "-numparticles", str(N_MAIN), "-width",
+            str(WIDTH), "-height", str(HEIGHT)]
+    log(f"phase 27: checkpoint, debug, trace, probe cache, dashboard @"
+        f"{N_MAIN:,}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "state.npz")
+        m1, _ = _run_app(base + ["-fused", "-steps", "20", "-checkpointevery",
+                                 "10", "-checkpoint", ck], 20)
+        m2, resumed = _run_app(base + ["-fused", "-steps", "10", "-resume",
+                                       ck], 10)
+        m3, whole = _run_app(base + ["-fused", "-steps", "30"], 30)
+        if not torch.equal(resumed["position"], whole["position"]):
+            fail("checkpoint at 20 + resume for 10 is not bitwise the "
+                 "uninterrupted 30-frame fused run")
+        writes = m1["counters"].get("checkpoint_writes")
+        if writes != 3:
+            fail(f"{writes} checkpoint writes, expected 3 (frames 10, 20, "
+                 "exit)")
+        out["checkpoint"] = {"write_ms": m1["gauges"]["checkpoint_write_ms"],
+                             "read_ms": m2["gauges"]["checkpoint_read_ms"],
+                             "bytes": os.path.getsize(ck)}
+        log(f"  fused checkpoint every 10 over 20 frames + resume for 10: "
+            f"bitwise the 30-frame run; write ms "
+            f"{out['checkpoint']['write_ms']}, read ms "
+            f"{out['checkpoint']['read_ms']:.1f} "
+            f"({os.path.getsize(ck) / 2**20:.1f} MiB)")
+        del resumed, whole
+        torch.cuda.empty_cache()
+
+        dbg = {}
+        for label, extra in (("plain", []), ("debug", ["-debug"])):
+            t0 = time.perf_counter()
+            m, _ = _run_app(["-preset", "4m-fused", "-steps", "20",
+                             "-nogui"] + extra, 20)
+            dbg[label] = {"wall_s": time.perf_counter() - t0,
+                          "device_frame_ms": statistics.median(
+                              m["gauges"]["device_frame_ms"]),
+                          "host_frame_ms": m["frame_ms"]}
+        out["debug"] = dbg
+        log(f"  -preset 4m-fused, 20 frames: {json.dumps(dbg)}")
+
+        trace_dir = os.path.join(tmp, "trace")
+        _run_app(base + ["-steps", "8", "-trace", trace_dir], 8)
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            trace = f.read()
+        for name in ("central_well_kernel", "tile_rows_kernel",
+                     "tile_fold_kernel"):
+            if name not in trace:
+                fail(f"-trace: {name} not in the trace")
+        out["trace_mb"] = len(trace) / 2**20
+        log(f"  -trace, 8 frames: {out['trace_mb']:.1f} MiB, names "
+            "central_well_kernel, tile_rows_kernel and tile_fold_kernel")
+        del trace
+
+        cache = os.path.join(tmp, "probes.json")
+        probe = []
+        for _ in range(2):
+            m, _ = _run_app(["-force", "p3m", "-p3mnear", "tree",
+                             "-numparticles", str(N_TREE), "-width", "1024",
+                             "-height", "1024", "-steps", "2", "-novsync",
+                             "-nogui", "-probecache", cache], 2)
+            probe.append(m["gauges"]["probe_s"])
+        if not probe[1] < 0.1 * probe[0]:
+            fail(f"warm probe {probe[1]:.3f} s is not under 10% of the "
+                 f"cold {probe[0]:.3f} s")
+        out["probe_s"] = {"cold": probe[0], "warm": probe[1]}
+        log(f"  1M tree-P3M -probecache: probe_s cold {probe[0]:.3f}, warm "
+            f"{probe[1]:.4f}")
+    torch.cuda.empty_cache()
+    out["serve"] = _serve_check(root)
+    log(f"  -serve 0 -dashboard (own process): {json.dumps(out['serve'])}")
+    return out
+
+
+def phase_slots(dev):
+    import contextlib
+    import io
+
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.config import SimConfig
+    from multi_adapter_particles_torch.ops import p3m, treeforce
+    from multi_adapter_particles_torch.ops.allpairs import all_pairs_accel
+
+    log(f"phase 28: the p3m slot near field, a uniform cube of side "
+        f"{SLOT_SPAN:g} with {N_SLOTS:,} particles (G={SLOT_GRID}, box "
+        f"{BOX:g})")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    pos = torch.zeros((4, N_SLOTS), device=dev)
+    pos[:3] = (torch.rand((3, N_SLOTS), generator=gen, device=dev) - 0.5) \
+        * SLOT_SPAN
+    host = pos.cpu().numpy()
+    r_c, gn = p3m.near_grid_for(SLOT_GRID, BOX, CUTOFF)
+    cap = 1
+    while p3m.host_overflow_count(host, SLOT_GRID, BOX, CUTOFF, cap):
+        cap *= 2
+    lo = cap // 2
+    while lo + 1 < cap:   # the least capacity with no overflow
+        mid = (lo + cap) // 2
+        if p3m.host_overflow_count(host, SLOT_GRID, BOX, CUTOFF, mid):
+            lo = mid
+        else:
+            cap = mid
+    g = C.PARTICLE_MASS / N_SLOTS
+    kw = dict(grid=SLOT_GRID, box=BOX, g_const=g,
+              softening_squared=C.SOFTENING_SQUARED, cutoff_cells=CUTOFF)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    (a, overflow), total_ms = timed(lambda: p3m.p3m_accel_with_overflow(
+        pos, capacity=cap, near_mode="slots", **kw))
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    if int(overflow) != 0:
+        fail(f"slots at capacity {cap}: overflow {int(overflow)}")
+    sweep_ms = time_ms(lambda: p3m.near_field_correction(
+        pos, BOX, g, C.SOFTENING_SQUARED, r_c, gn, cap), reps=3, warmup=1)
+    accel_ms = time_ms(lambda: p3m.p3m_accel_with_overflow(
+        pos, capacity=cap, near_mode="slots", **kw), reps=3, warmup=1)
+    idx = torch.linspace(0, N_SLOTS - 1, TREE_SAMPLE, device=dev).long()
+    exact = all_pairs_accel(pos[:, idx].contiguous(), sources=pos,
+                            **_ap_phys(N_SLOTS))[:3]
+    torch.cuda.synchronize()
+    scale = float(exact.abs().max())
+    rms = float(((a[:, idx] - exact) ** 2).mean().sqrt()) / scale
+    log(f"  capacity {cap} (the least with no overflow), near grid {gn}: "
+        f"RMS vs the exact sum on {TREE_SAMPLE:,} targets {rms:.4%} of "
+        f"max|a| (limit 1%); sweep {sweep_ms:.3f} ms, whole accel "
+        f"{accel_ms:.3f} ms (first call {total_ms:.1f} ms); peak memory "
+        f"{peak:.3f} GiB above the scene")
+    if not rms < 0.01:
+        fail(f"slots RMS error {rms:.4%} of max|a|")
+    coarse, sub, _ = treeforce.host_tree_counts(host, BOX, r_c, gn)
+    budget = int(coarse * treeforce.PAIR_HEADROOM) + 1
+    sub_budget = None if sub is None else int(
+        sub * treeforce.PAIR_HEADROOM) + 2
+    t, dropped = p3m.p3m_accel_with_overflow(
+        pos, near_mode="tree", pair_budget=budget,
+        sub_pair_budget=sub_budget, half_force=True, **kw)
+    if dropped:
+        fail(f"tree: {dropped} block pairs dropped")
+    vs_tree = float((a - t).abs().max()) / float(t.abs().max())
+    rms_tree = float(((a - t) ** 2).mean().sqrt()) / float(t.abs().max())
+    log(f"  slots vs tree on the whole scene: max {vs_tree:.3e}, RMS "
+        f"{rms_tree:.3e} of max|a| (pairs past r_c inside the 27 cells)")
+    if not rms_tree < 0.01:
+        fail(f"slots vs tree RMS {rms_tree:.3e} of max|a|")
+    out = {"capacity": cap, "near_grid": gn, "rms_vs_exact": rms,
+           "sweep_ms": sweep_ms, "accel_ms": accel_ms, "peak_gib": peak,
+           "vs_tree_max": vs_tree, "vs_tree_rms": rms_tree}
+    del a, t, exact
+    torch.cuda.empty_cache()
+
+    argv = ["-force", "p3m", "-p3mnear", "slots", "-numparticles",
+            str(N_SLOTS), "-novsync", "-nogui", "-width", "512", "-height",
+            "512"]
+    log(f"  CLI -force p3m -p3mnear slots @{N_SLOTS:,}, the demo init, "
+        "capacity 64")
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            m, _ = _run_app(argv + ["-steps", "1"], 1)
+    finally:
+        print(printed.getvalue(), end="", flush=True)
+    text = printed.getvalue()
+    pos0 = _ap_state(dev, N_SLOTS).cpu().numpy()
+    ov = p3m.host_overflow_count(pos0, SimConfig.pm_grid_size, BOX, CUTOFF,
+                                 SimConfig.p3m_capacity)
+    if f"p3m: {ov} of {N_SLOTS} particles exceed" not in text:
+        fail("the slot overflow warning was not printed")
+    if m["gauges"].get("p3m_overflow") != ov:
+        fail(f"p3m_overflow {m['gauges'].get('p3m_overflow')} != the host "
+             f"count {ov}")
+    fused = _fused_vs_split("slots 262K", argv, SLOT_STEPS, True)
+    out["cli"] = {"overflow": ov, "fused_graph": True,
+                  "fused_frame_ms": fused["frame_ms"],
+                  "split_frame_ms": fused["split_frame_ms"]}
+    log(f"  p3m_overflow {ov} = host_overflow_count; split and fused "
+        f"bitwise, fused_graph True; frame ms fused {fused['frame_ms']}, "
+        f"split {fused['split_frame_ms']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     phase_device()
     import torch
@@ -3141,7 +3670,8 @@ def main() -> int:
     phase_allpairs_exact(dev, rect_1m, half_1m)
     del rect_1m
     torch.cuda.empty_cache()
-    ap_launches, ap_path = phase_allpairs_main_path()
+    ap_launches, ap_path = phase_allpairs_main_path(
+        {"half": half["ms_1m"], "rect": rect["ms_1m"]})
     torch.cuda.empty_cache()
     var_entries, var_check, var_1m = phase_allpairs_variants(dev)
     torch.cuda.empty_cache()
@@ -3171,6 +3701,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused = phase_fused(split_4m)
     del split_4m
+    torch.cuda.empty_cache()
+    moves = phase_reassign(dev)
+    interactive = phase_interactive()
+    torch.cuda.empty_cache()
+    utilities = phase_utilities(dev)
+    torch.cuda.empty_cache()
+    slots = phase_slots(dev)
 
     def entry(name, source, replaces, launches, stats):
         """`replaces`: the TPU kernel's file:line from the repository root
@@ -3238,6 +3775,9 @@ def main() -> int:
     log(f"sort @E={N_MAIN:,}: {json.dumps(sort)}; row gather "
         f"{json.dumps(gather)}")
     log(f"fused: {json.dumps(fused)}")
+    log(f"reassignment: {json.dumps(moves, default=str)}; interactive: "
+        f"{json.dumps(interactive)}")
+    log(f"utilities: {json.dumps(utilities)}; slots: {json.dumps(slots)}")
     log(f"all-pairs variants, kernel vs twin: {json.dumps(var_check)}; "
         f"@1M: {json.dumps(var_1m)}")
     log(f"half-pair generations, kernel vs twin: {json.dumps(gen_check)}; "

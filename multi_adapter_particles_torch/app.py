@@ -14,19 +14,25 @@ noext, size, intensity, novsync, fullscreen, numCopy, numDraw, numSim; `?`
 prints help (`ArgParser.h:105-127`). Extensions: preset, steps, seed,
 force, interactionscale, rectpair / halfpair, the pm_grid / p3m knobs
 (pmgrid, pmbox, p3mcutoff, p3mcapacity, p3mnear, p3mbudget,
-treedirected), adapter indices, frame size, frame dumping, metrics JSON,
-hard-sync stage profiling, the conservation gauges (diagnostics,
-diagmode). For `-force p3m` the JAX CLI's startup probe
-runs on the port's own device init: it resolves `-p3mnear auto`, picks the
-grid when `-pmgrid` is absent and sizes the tree's pair budgets. The JAX
-package's other flags, the slot near field and the presets that need them
-belong to slices not ported yet: they exit with status 2 and say so.
+treedirected, probecache), adapter indices, frame size, frame dumping,
+metrics JSON, hard-sync stage profiling, the conservation gauges
+(diagnostics, diagmode), the key-driven loop (interactive), the
+validation layer (debug), a torch.profiler trace (trace; timerwindow is
+accepted and has no effect), checkpoints (checkpoint, checkpointevery,
+resume) and the dashboard (dashboard, serve). For `-force p3m` the JAX CLI's startup probe runs on
+the port's own device init: it resolves `-p3mnear auto` to the slot or the
+tree near field, picks the grid when `-pmgrid` is absent and sizes the
+tree's pair budgets, optionally through the probe cache. The multi-device
+flags and the preset that needs them belong to a slice not ported yet, and
+`-compilecache` has no CUDA counterpart: they exit with status 2 and say
+so.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import traceback
 from typing import Callable, List, Optional
 
 from multi_adapter_particles_torch.config import AppConfig, RenderConfig, SimConfig
@@ -37,23 +43,12 @@ from multi_adapter_particles_torch.utils.argparser import ArgParser
 _LATER_FLAGS = {
     "meshdevices": "item 14",
     "shardrender": "item 14",
-    "probecache": "item 13",
-    "debug": "item 13",
-    "checkpoint": "item 13",
-    "checkpointevery": "item 13",
-    "resume": "item 13",
-    "dashboard": "item 13",
-    "serve": "item 13",
-    "timerwindow": "item 5",
-    "interactive": "item 5",
-    "trace": "item 5",
     "compilecache": "(no CUDA counterpart)",
 }
 # flags among those that take a value
-_LATER_VALUED = {
-    "meshdevices", "probecache", "checkpoint", "checkpointevery", "resume",
-    "dashboard", "serve", "timerwindow", "trace", "compilecache",
-}
+_LATER_VALUED = {"meshdevices", "compilecache"}
+# frames between two -dashboard page writes
+DASHBOARD_EVERY = 30
 
 
 def build_parser(app: AppConfig, extra: dict) -> ArgParser:
@@ -74,7 +69,9 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
                "borderless fullscreen: render at the fullscreen resolution "
                "(RenderConfig.fullscreen_width/height, default 1920x1080)",
                lambda: setattr(app, "fullscreen", True))
-    p.add_flag("noext", "disable the queue-throttle extension (no-op on CUDA)",
+    p.add_flag("noext", "disable the queue-throttle extension analog (on "
+               "CUDA: the compute engine's stream at the highest priority; "
+               "this gives it the default one)",
                lambda: setattr(app, "use_queue_extension", False))
     p.add_int("framelatency",
               "max frames in flight under -novsync (SetMaximumFrameLatency)",
@@ -129,10 +126,9 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
               "near field's; it sizes the auto probe)",
               lambda v: extra.__setitem__("p3m_capacity", v))
     p.add_str("p3mnear",
-              "p3m near-field engine: auto | tree (auto probes the initial "
-              "state and picks tree when the slot capacity would overflow; "
-              "the slot near field is not yet ported, ROADMAP queue 1 item "
-              "10)",
+              "p3m near-field engine: auto | slots | tree (auto probes the "
+              "initial state and picks tree when the slot capacity would "
+              "overflow, e.g. the demo's cluster cores)",
               lambda v: extra.__setitem__("p3m_near_mode", v))
     p.add_int("p3mbudget",
               "tree near-field block-pair budget (default: sized from the "
@@ -142,6 +138,13 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
                "p3m tree: the directed (both-ways) near sweep instead of the "
                "(default) Newton-3rd halved sweep",
                lambda: extra.__setitem__("tree_half_force", False))
+    p.add_str("probecache",
+              "startup-probe sidecar: off (default) | auto (~/.cache/"
+              "multi_adapter_particles_torch/probes.json, or under "
+              "$XDG_CACHE_HOME) | a path — repeat launches of the same (N, "
+              "seed, box, cutoff, device kind) skip the device init and the "
+              "host tree probes",
+              lambda v: extra.__setitem__("probe_cache", v))
     p.add_int("computeadapter", "compute adapter index",
               lambda v: extra.__setitem__("compute_adapter", v))
     p.add_int("renderadapter", "render adapter index",
@@ -176,13 +179,47 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
                lambda: extra.__setitem__("fused", True))
     p.add_flag("nodraw", "simulate only (SPACE-toggle analog)",
                lambda: extra.__setitem__("draw", False))
+    p.add_flag("interactive",
+               "read keys: SPACE toggles draw, ESC/q quits, WASD/arrows "
+               "fly, mouse drag looks (xterm SGR reporting), and the "
+               "control panel's keys (runtime/controls.py); a stdin that "
+               "is not a terminal is a script, one line of keys a frame",
+               lambda: extra.__setitem__("interactive", True))
+    p.add_flag("debug", "validation layer: per-frame finiteness checks of "
+               "the state and the double-buffer hand-off asserts (D3D12 "
+               "debug layer analog; one host read a frame)",
+               lambda: extra.__setitem__("debug", True))
+    p.add_str("trace", "write a torch.profiler trace of the run (CPU and "
+              "CUDA activities) to DIR/trace.json; the profiler is known to "
+              "drop events inside long calls",
+              lambda v: extra.__setitem__("trace", v))
+    p.add_int("timerwindow",
+              "has no effect here: accepted for the JAX CLI's trace "
+              "cadence and recorded as the timer_window_every gauge; the "
+              "port's CUDA-event stage timer times every frame without a "
+              "stall, so it has no trace window to space",
+              lambda v: extra.__setitem__("timer_window_every", v))
+    p.add_str("dashboard", "write a live HTML dashboard to this path (every "
+              f"{DASHBOARD_EVERY} frames and at exit)",
+              lambda v: extra.__setitem__("dashboard", v))
+    p.add_int("serve", "serve the LIVE bidirectional dashboard on this "
+              "port of 127.0.0.1 (0 = pick one); its widgets drive the app "
+              "like the GUI (POST /set)",
+              lambda v: extra.__setitem__("serve", v))
+    p.add_str("checkpoint", "write a state checkpoint here at exit (.npz, "
+              "the JAX package's format)",
+              lambda v: extra.__setitem__("checkpoint", v))
+    p.add_int("checkpointevery", "also checkpoint every K frames",
+              lambda v: extra.__setitem__("checkpoint_every", v))
+    p.add_str("resume", "resume state from a checkpoint (.npz)",
+              lambda v: extra.__setitem__("resume", v))
     p.add_flag("listadapters", "print the adapter list and exit",
                lambda: extra.__setitem__("list_adapters", True))
 
     for name, item in _LATER_FLAGS.items():
         msg = f"-{name}: not yet ported (ROADMAP queue 1 {item})"
-        if name == "probecache":
-            msg += "; the port probes the scene on every launch"
+        if item.startswith("("):
+            msg = f"-{name}: not ported {item}"
         if name in _LATER_VALUED:
             p.add_str(name, msg, lambda v, m=msg: not_ported.append(m))
         else:
@@ -202,40 +239,42 @@ def write_frame(frame, path: str) -> None:
     write_png(path, arr)
 
 
-def probe_p3m(app_cfg: AppConfig, extra: dict, device) -> Optional[str]:
+def probe_p3m(app_cfg: AppConfig, extra: dict, device) -> None:
     """The JAX CLI's startup probe (`multi_adapter_particles_tpu/app.py:
     213-331`) on the port's own device init (the engine's scene: same N,
     seed and device): `-p3mnear auto` -> the slot capacity's overflow ->
-    tree; the grid from `auto_grid` when `-pmgrid` is absent; the pair and
-    sub-pair budgets from one `host_tree_counts`. Fills `extra`; returns an
-    error message when the scene needs the slot near field."""
+    slots, or tree where it overflows; for tree, the grid from `auto_grid`
+    when `-pmgrid` is absent and the pair and sub-pair budgets from one
+    `host_tree_counts`. Results go through the probe cache
+    (`utils/probecache.py`, `-probecache`), so a warm cache needs neither
+    the init nor the host counts. Fills `extra` (`probe_s`: its seconds)."""
     import time
 
     near_mode = extra.get("p3m_near_mode", "auto")
     pair_budget = extra.get("p3m_pair_budget")
     sub_pair_budget = extra.get("p3m_sub_pair_budget")
-    if near_mode == "slots":
-        return ("-p3mnear slots: the slot near field is not yet ported "
-                "(ROADMAP queue 1 item 10)")
     if not (near_mode == "auto" or (near_mode == "tree" and (
             "pm_grid_size" not in extra or pair_budget is None
             or sub_pair_budget is None))):
-        return None
+        return
     import torch
 
     from multi_adapter_particles_torch.models import init as pinit
     from multi_adapter_particles_torch.ops import p3m, treeforce
+    from multi_adapter_particles_torch.utils.probecache import open_cache
 
     t0 = time.perf_counter()
     grid = extra.get("pm_grid_size", SimConfig.pm_grid_size)
     box = extra.get("pm_box", SimConfig.pm_box)
     cutoff = extra.get("p3m_cutoff_cells", SimConfig.p3m_cutoff_cells)
+    seed = extra.get("seed", 0)
+    cache = open_cache(extra.get("probe_cache"), app_cfg.num_particles, seed,
+                       box, cutoff, torch.device(device).type)
     _pos0 = []
 
     def pos0():
         if not _pos0:
-            gen = torch.Generator(device=device).manual_seed(
-                extra.get("seed", 0))
+            gen = torch.Generator(device=device).manual_seed(seed)
             _pos0.append(pinit.initialize_particles_device(
                 app_cfg.num_particles, generator=gen, device=device
             ).position.cpu().numpy())  # padding parked at 1e9: out of box
@@ -243,30 +282,30 @@ def probe_p3m(app_cfg: AppConfig, extra: dict, device) -> Optional[str]:
 
     if near_mode == "auto":
         cap = extra.get("p3m_capacity", SimConfig.p3m_capacity)
-        ov = p3m.host_overflow_count(pos0(), grid, box, cutoff, cap)
+        ov = cache.overflow.get((grid, cap))
+        if ov is None:
+            ov = p3m.host_overflow_count(pos0(), grid, box, cutoff, cap)
+            cache.overflow[(grid, cap)] = int(ov)
         near_mode = "tree" if ov else "slots"
         print(f"p3m: near-field auto probe -> {near_mode}"
               + (f" ({ov} particles would overflow the slot capacity)" if ov
                  else " (slot capacity covers the scene)"), flush=True)
-        if near_mode == "slots":
-            return ("-p3mnear auto picked the slot near field, which is not "
-                    "yet ported (ROADMAP queue 1 item 10); -p3mnear tree "
-                    "runs the tree near field")
     extra["p3m_near_mode"] = near_mode
-    counts: dict = {}
-    if "pm_grid_size" not in extra:
+    if near_mode == "tree" and "pm_grid_size" not in extra:
         grid = treeforce.auto_grid(
             pos0, box, cutoff, treeforce.solve_budget(device),
-            counts_cache=counts, num_particles=app_cfg.num_particles)
+            counts_cache=cache.counts, num_particles=app_cfg.num_particles)
         extra["pm_grid_size"] = grid
         print(f"p3m: tree grid auto-selected G={grid} (scene-probed cost "
               "model; override with -pmgrid)", flush=True)
-    if pair_budget is None or sub_pair_budget is None:
+    if near_mode == "tree" and (pair_budget is None
+                                or sub_pair_budget is None):
         r_c, gn = p3m.near_grid_for(grid, box, cutoff)
         ck = treeforce.counts_cache_key(gn, r_c)
-        if ck not in counts:
-            counts[ck] = treeforce.host_tree_counts(pos0(), box, r_c, gn)
-        coarse, sub, _block = counts[ck]
+        if ck not in cache.counts:
+            cache.counts[ck] = treeforce.host_tree_counts(pos0(), box, r_c,
+                                                          gn)
+        coarse, sub, _block = cache.counts[ck]
         if pair_budget is None:
             extra["p3m_pair_budget"] = int(
                 coarse * treeforce.PAIR_HEADROOM) + 1
@@ -279,16 +318,120 @@ def probe_p3m(app_cfg: AppConfig, extra: dict, device) -> Optional[str]:
             print(f"p3m: sweep sub-pair list capped at "
                   f"{extra['p3m_sub_pair_budget']} (wide-block scene)",
                   flush=True)
+    cache.save()
     extra["probe_s"] = time.perf_counter() - t0
     print(f"p3m: startup probe {extra['probe_s']:.2f} s", flush=True)
-    return None
+
+
+def warn_slot_overflow(particles, sim_cfg: SimConfig) -> None:
+    """The JAX CLI's startup warning (`app.py:383-400`): particles of the
+    initial state past the slot capacity keep only the mesh force."""
+    from multi_adapter_particles_torch.ops.p3m import host_overflow_count
+
+    ov = host_overflow_count(
+        particles.compute.positions.cpu().numpy(), sim_cfg.pm_grid_size,
+        sim_cfg.pm_box, sim_cfg.p3m_cutoff_cells, sim_cfg.p3m_capacity)
+    if ov:
+        print(
+            f"p3m: {ov} of {sim_cfg.num_particles} particles exceed "
+            f"near-cell capacity {sim_cfg.p3m_capacity} — they keep "
+            "only the smooth long-range mesh force (WORSE than pure "
+            "pm_grid at small separations). Use -p3mnear tree (exact "
+            "on any density contrast), raise -p3mcapacity / -pmgrid, "
+            "or prefer -force pm_grid for this scene.",
+            flush=True,
+        )
+
+
+def _save_checkpoint(particles, path: str, num_particles: int) -> None:
+    """Write the compute state (counted in `checkpoint_writes`, its host
+    milliseconds in the `checkpoint_write_ms` gauge list)."""
+    import time
+
+    from multi_adapter_particles_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    save_checkpoint(path, particles.compute.state,
+                    particles.compute.get_fence_value(), num_particles)
+    particles.metrics.count("checkpoint_writes")
+    particles.metrics.gauges.setdefault("checkpoint_write_ms", []).append(
+        (time.perf_counter() - t0) * 1e3)
+
+
+def _resume(particles, path: str, num_particles: int) -> bool:
+    """Load a checkpoint onto the compute device (its host milliseconds in
+    the `checkpoint_read_ms` gauge); False, with the JAX CLI's message, when
+    its particle count is not the run's."""
+    import time
+
+    from multi_adapter_particles_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    state, step, ckpt_n = load_checkpoint(path, particles.compute.device)
+    if ckpt_n != num_particles:
+        print(
+            f"error: checkpoint has {ckpt_n} particles but "
+            f"-numparticles is {num_particles}; pass "
+            f"-numparticles {ckpt_n} to resume",
+            file=sys.stderr,
+        )
+        return False
+    particles.compute.restore(state)
+    particles.compute.step_count = step
+    particles.share_handles()
+    particles.compute.wait_for_gpu()
+    particles.metrics.gauge("checkpoint_read_ms",
+                            (time.perf_counter() - t0) * 1e3)
+    return True
+
+
+def _interactive(particles, steps: int, overlay, stream, gui: bool) -> None:
+    """The key-driven frame loop (JAX `app.py:480-515`): poll, quit, the
+    draw toggle, the control keys, the camera drag and keys, one frame. A
+    control key that raises, or a frame whose reconfiguration raises (fused
+    mode with one role moved), prints its error and the loop goes on."""
+    from multi_adapter_particles_torch.runtime.controls import apply_key
+    from multi_adapter_particles_torch.runtime.input import TerminalInput
+
+    with TerminalInput(stream=stream) as ti:
+        frames = 0
+        while steps <= 0 or frames < steps:
+            inp = ti.poll()
+            if inp.quit:
+                break
+            if inp.toggle_draw:
+                particles.draw_enabled = not particles.draw_enabled
+            for key in inp.pressed:
+                try:
+                    msg = apply_key(particles, key)
+                except Exception as e:  # reported; the loop goes on
+                    traceback.print_exc()
+                    print(f"error: key {key!r}: {e}", file=sys.stderr)
+                    continue
+                if msg and gui:
+                    print(msg)
+            camera = particles.render.camera
+            if inp.mouse_dx or inp.mouse_dy:
+                camera.drag(inp.mouse_dx, inp.mouse_dy)
+            for key in inp.pressed:
+                camera.key_down(key)
+            try:
+                particles.draw()
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+            camera.update(particles.metrics.frame_timer.average)
+            for key in inp.pressed:
+                camera.key_up(key)
+            overlay(particles)
+            frames += 1
 
 
 def main(argv: Optional[List[str]] = None,
-         on_exit: Optional[Callable] = None) -> int:
+         on_exit: Optional[Callable] = None, input_stream=None) -> int:
     """Run the CLI; returns the exit status. `on_exit(particles)`, when
     given, is called with the drained `ParticlesApp` after the last frame
-    (for an embedding program that checks the final state and frame)."""
+    (for an embedding program that checks the final state and frame).
+    `input_stream` replaces stdin as `-interactive`'s key source."""
     app_cfg = AppConfig()
     extra: dict = {}
     parser = build_parser(app_cfg, extra)
@@ -330,10 +473,7 @@ def main(argv: Optional[List[str]] = None,
 
     force = extra.get("force", "central_well")
     if force == "p3m":
-        err = probe_p3m(app_cfg, extra, compute_ad.device)
-        if err:
-            print(f"error: {err}", file=sys.stderr)
-            return 2
+        probe_p3m(app_cfg, extra, compute_ad.device)
 
     sim_cfg = SimConfig(
         num_particles=app_cfg.num_particles,
@@ -368,6 +508,7 @@ def main(argv: Optional[List[str]] = None,
         seed=extra.get("seed", 0),
         draw_enabled=extra.get("draw", True),
         profile_every=extra.get("profile_every", 0),
+        debug=extra.get("debug", False),
         fused=extra.get("fused", False),
         # a -metrics dump with empty stage rows is useless: time the stages
         # with CUDA events (non-stalling) whenever one is asked for
@@ -375,6 +516,31 @@ def main(argv: Optional[List[str]] = None,
     )
     if "probe_s" in extra:
         particles.metrics.gauge("probe_s", extra["probe_s"])
+    if "timer_window_every" in extra:
+        particles.metrics.gauge("timer_window_every",
+                                extra["timer_window_every"])
+    if sim_cfg.force_model == "p3m" and sim_cfg.p3m_near_mode == "slots":
+        warn_slot_overflow(particles, sim_cfg)
+
+    if "resume" in extra and not _resume(particles, extra["resume"],
+                                         app_cfg.num_particles):
+        particles.shutdown()
+        return 2
+
+    server = None
+    if "serve" in extra:
+        from multi_adapter_particles_torch.utils.dashboard import (
+            DashboardServer,
+        )
+
+        try:
+            server = DashboardServer(particles, port=extra["serve"])
+        except OSError as e:
+            print(f"error: -serve {extra['serve']}: cannot serve the "
+                  f"dashboard ({e})", file=sys.stderr)
+            particles.shutdown()
+            return 2
+        print(f"dashboard: http://127.0.0.1:{server.port}/", flush=True)
 
     diag = None
     if extra.get("diag_every"):
@@ -384,19 +550,45 @@ def main(argv: Optional[List[str]] = None,
 
         diag = DiagnosticsProbe(sim_cfg, extra["diag_every"],
                                 potential_mode=diag_mode)
+    ckpt_every = extra.get("checkpoint_every", 0)
 
     def overlay(p: ParticlesApp):
         if diag is not None:
             # one host sync a sample (float() pulls the scalars); the
             # cadence keeps it off the frames in between
             diag.maybe_publish(p.frame_count, p.compute.state, p.metrics)
+        if server is not None:
+            server.drain()
+            # live viewer: push the frame to any connected /stream client
+            # (free when none; rate-limited inside)
+            server.publish_frame(p.render.last_frame)
         if app_cfg.gui and p.frame_count % 30 == 0:
             print(f"--- frame {p.frame_count} ---")
             print(p.metrics.render_text())
+        if "dashboard" in extra and p.frame_count % DASHBOARD_EVERY == 0:
+            from multi_adapter_particles_torch.utils import dashboard
+
+            dashboard.write_html(p, extra["dashboard"],
+                                 frame=p.render.last_frame)
+        if (ckpt_every and "checkpoint" in extra
+                and p.frame_count % ckpt_every == 0):
+            _save_checkpoint(p, extra["checkpoint"], app_cfg.num_particles)
 
     target_fps = 60.0 if app_cfg.vsync else None
+    prof = None
+    if "trace" in extra:
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.__enter__()
     try:
-        if steps <= 0:
+        if extra.get("interactive"):
+            _interactive(particles, steps, overlay, input_stream,
+                         app_cfg.gui)
+        elif steps <= 0:
             while True:
                 particles.draw()
                 overlay(particles)
@@ -404,11 +596,31 @@ def main(argv: Optional[List[str]] = None,
             particles.run(steps, frame_callback=overlay, target_fps=target_fps)
     except KeyboardInterrupt:
         pass
+    finally:
+        if prof is not None:
+            import os
+
+            particles.compute.wait_for_gpu()
+            particles.render.wait_for_gpu()
+            prof.__exit__(None, None, None)
+            os.makedirs(extra["trace"], exist_ok=True)
+            prof.export_chrome_trace(os.path.join(extra["trace"],
+                                                  "trace.json"))
+        if server is not None:
+            server.close()
     particles.shutdown()
     if on_exit is not None:
         on_exit(particles)
 
     print(particles.metrics.render_text())
+    if "dashboard" in extra:
+        from multi_adapter_particles_torch.utils import dashboard
+
+        dashboard.write_html(particles, extra["dashboard"],
+                             frame=particles.render.last_frame)
+    if "checkpoint" in extra:
+        _save_checkpoint(particles, extra["checkpoint"],
+                         app_cfg.num_particles)
     if "dumpframe" in extra and particles.render.last_frame is not None:
         write_frame(particles.render.last_frame, extra["dumpframe"])
     if "metrics" in extra:

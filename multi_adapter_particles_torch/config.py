@@ -3,9 +3,7 @@
 The port's own copy of the JAX package's `config.py` (that package cannot
 be imported without jax): the same fields, defaults and `resolved_counts`.
 Every force model is accepted here so configs round-trip between the two
-packages; the port's engine runs all four, p3m with its tree near field
-only (`p3m_near_mode="slots"` raises in the engine: ROADMAP queue 1 item
-10).
+packages; the port's engine runs all four, p3m with either near field.
 
 The reference has compile-time defines (`defines.h`), a CLI (`ArgParser`,
 `Particles.cpp:248-270`) and runtime GUI toggles with prev-value change
@@ -153,7 +151,8 @@ class AppConfig:
     fullscreen: bool = False
     # The Intel command-queue throttle extension analog: request
     # max-performance scheduling for the compute role (ExtensionHelper.h:138).
-    # It has no CUDA meaning: a no-op placeholder kept for config parity.
+    # On CUDA: the compute engine steps on a stream of the highest priority
+    # (utils/extension.py); nothing on the CPU.
     use_queue_extension: bool = True
 
     def resolved_counts(self) -> Tuple[int, int, int]:

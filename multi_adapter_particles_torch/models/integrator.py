@@ -17,12 +17,12 @@ Force models:
   sum with its padding mask. The engine runs the kernels of
   `ops/allpairs.py` instead (on the CPU, their plain twins), as the JAX
   engine runs its Pallas kernels; `make_accel_fn_for` makes the same choice.
-- `pm_grid` (`ops/pm.py`) and `p3m` (`ops/p3m.py`, the tree near field of
+- `pm_grid` (`ops/pm.py`) and `p3m` (`ops/p3m.py`: the tree near field of
   `ops/treeforce.py`, whose sweep kernels run on a CUDA state and their
-  plain twins on a CPU state) with g_const = mass * interaction_scale, as
-  the JAX package's `make_accel_fn_for` passes it. Only the p3m tree near
-  field is ported: `p3m_near_mode` "slots", and "auto" (which means slots
-  until the CLI's startup probe resolves it), raise.
+  plain twins on a CPU state, or the slot near field, torch ops) with
+  g_const = mass * interaction_scale, as the JAX package's
+  `make_accel_fn_for` passes it. `p3m_near_mode` "auto" means slots until
+  the CLI's startup probe resolves it, as in the JAX package.
 
 The op order is the JAX package's (`models/integrator.py:39-139`), so a CPU
 run tracks the JAX package's to float32 rounding.
@@ -175,7 +175,8 @@ def make_step(
     """The `step(state, num_sim=None, out=None) -> ParticleState` of a
     config's force model (`accel_fn` overrides it: position [4, Np] ->
     accel [3, Np]). With `out` the result is written into that state's
-    tensors (which must not be `state`'s)."""
+    tensors (which must not be `state`'s). `step.accel_fn` is the force
+    function (the slot near field keeps its overflow count there)."""
     if accel_fn is None:
         accel_fn = make_accel_fn_for(config)
 
@@ -191,4 +192,5 @@ def make_step(
         out.velocity.copy_(new.velocity)
         return out
 
+    step.accel_fn = accel_fn
     return step

@@ -1,26 +1,42 @@
 """P³M (particle-particle particle-mesh): exact-at-all-separations gravity.
 
-The port of the JAX package's `ops/p3m.py` in its tree near-field mode:
-an Ewald split of the softened pair factor s(r) = (r²+eps²)^(-3/2) into
+The port of the JAX package's `ops/p3m.py`: an Ewald split of the softened
+pair factor s(r) = (r²+eps²)^(-3/2) into
 
     s_long  = g_l(r; σ_eff)   the field of a Gaussian-smoothed source,
                               solved on the mesh (this module)
-    s_short = s - s_long      summed pairwise over the block-pair list of
-                              `ops/treeforce.py` (exactly 0 past r_c)
+    s_short = s - s_long      summed pairwise by one of two near fields
 
 with σ_eff = r_c / 4.5. The mesh convolves the analytic long-range
 acceleration kernels tabulated at σ_tab = sqrt(σ_eff² - h²/3), so the
 variance the CIC deposit and interpolation add composes to exactly σ_eff.
 
+The near fields (`near_mode`):
+
+- **tree**: the block-pair list of `ops/treeforce.py` (exact on any
+  density contrast; its sweeps are CUDA kernels);
+- **slots**: the static-K 27-cell sweep (`near_field_correction`), torch
+  ops as the JAX package's are XLA. Particles are binned by a stable sort
+  on their near-cell id into a [Gn³, K] slot table, empty slots parked at
+  1e9 (where s_short underflows to 0, so the sweep needs no masks); the
+  27 neighbour cells are shifted slices of the slot planes padded by one
+  parked cell; the sweep runs over slabs of z-planes so that no
+  temporary exceeds `_SWEEP_TEMP_BYTES`; slot forces go back to particle
+  order by a permutation scatter (each index written once). A particle
+  out of the box, or past the capacity K of its cell, gets no
+  correction (it keeps the smooth mesh force); the overflow count,
+  sum over cells of max(count - K, 0), is returned as a 0-d tensor. The
+  binning sort is stable, where the JAX package's is not, so which
+  particles of an overflowing cell lose their slot is defined by their
+  order; with no overflow the slot sets are the same. Nothing on this
+  path reads the device from the host, so a CUDA graph captures it.
+
 The diagnostics gauge's potential splits the same way: the mesh convolves
 the analytic potential kernel -erf(r/(√2σ_tab))/r, and the tree sweeps the
 short remainder (`treeforce.short_potential_cheb`). `with_potential` adds
 it to the force; `p3m_potential_with_overflow` and
-`p3m_potential_total_with_overflow` compute it without the force work.
-
-Not here yet: the static-K slot near field (`near_mode="slots"`, and
-`"auto"`, which resolves to slots without the CLI's startup probe), ROADMAP
-queue 1 item 10.
+`p3m_potential_total_with_overflow` compute it without the force work
+(tree mode only: the slot sweep has no potential channel).
 """
 
 from __future__ import annotations
@@ -181,13 +197,112 @@ def _accel_long(rho: Tensor, grid: int, box: float, g_const: float,
     return tuple(pm._irfft_pruned(fr * k, grid) * scale for k in kernels)
 
 
-def _require_tree(near_mode: str) -> None:
-    """Raise unless `near_mode` is the ported tree near field."""
-    if near_mode == "slots":
-        raise NotImplementedError(
-            "the p3m slot near field is not ported to "
-            "multi_adapter_particles_torch yet (ROADMAP queue 1 item 10)")
-    if near_mode != "tree":
+def _short_factor(d2: Tensor, eps2: float, sigma_eff: float) -> Tensor:
+    """s_short(r) = s_exact - g_l(r; σ_eff): accel = g s_short r_vec for
+    the pair correction (the JAX package's `_short_factor`). Past r_c =
+    4.5 σ_eff it has decayed to a few 1e-4 of s_exact; against a parked
+    1e9 slot it underflows to a vanishing force."""
+    inv = torch.rsqrt(d2 + pm._f32(eps2))
+    return inv * inv * inv - _g_long(d2, sigma_eff)
+
+
+_PARK = 1.0e9
+# bytes of one [cells, K, K] pair temporary of the slot sweep; a slab of
+# z-planes is sized to stay under it (about a dozen such temporaries are
+# alive at once, so a slab peaks near 1 GiB)
+_SWEEP_TEMP_BYTES = 1 << 26
+
+
+def _bin_particles(position: Tensor, gn: int, hn: float, capacity: int):
+    """Stable sort by near cell -> the slot table.
+
+    Returns (slots [3, Gn³, K] with empty slots parked at 1e9, the sorted
+    cell ids (out-of-box particles at Gn³), the sort permutation, the cell
+    bounds [Gn³ + 1], the overflow count as a 0-d int64 tensor)."""
+    n = position.shape[1]
+    ncell = gn * gn * gn
+    # the cell coordinate as the JAX package's compiled x / hn + gn / 2
+    # rounds it (one fma with the float32 reciprocal of hn)
+    ib = torch.floor(torch.clamp(pm.scaled_cells(position[:3], hn, gn / 2),
+                                 -1.0, float(gn))).long()
+    inbox = torch.all((ib >= 0) & (ib <= gn - 1), dim=0)
+    cid = ib[2] * gn * gn + ib[1] * gn + ib[0]
+    cid = torch.where(inbox, cid, torch.full_like(cid, ncell))
+    scid, order = torch.sort(cid, stable=True)
+    bounds = pm._segment_bounds(scid, ncell)
+    counts = bounds[1:] - bounds[:-1]
+    overflow = torch.clamp(counts - capacity, min=0).sum()
+    k = torch.arange(capacity, device=position.device)[None, :]
+    slot_idx = torch.where(k < counts[:, None], bounds[:-1, None] + k, n)
+    spos = torch.cat([position[:3, order],
+                      position.new_full((3, 1), _PARK)], dim=1)
+    slots = spos[:, slot_idx.reshape(-1)].reshape(3, ncell, capacity)
+    return slots, scid, order, bounds, overflow
+
+
+def _near_sweep(slots: Tensor, gn: int, capacity: int, g_const: float,
+                eps2: float, r_c: float) -> Tensor:
+    """27-offset shifted-slice pair sweep -> slot forces [3, Gn³, K].
+
+    Each neighbour cell is a shifted slice of the slot planes padded by one
+    parked cell on every side; sources run along the last axis and are
+    summed there. The cells are swept a slab of z-planes at a time."""
+    k = capacity
+    sigma = r_c * _SIGMA_PER_CUTOFF
+    comp = slots.reshape(3, gn, gn, gn, k)
+    pads = slots.new_full((3, gn + 2, gn + 2, gn + 2, k), _PARK)
+    pads[:, 1:-1, 1:-1, 1:-1] = comp
+    out = torch.empty_like(comp)
+    plane = gn * gn * k * k * 4
+    dz_slab = max(1, min(gn, _SWEEP_TEMP_BYTES // max(plane, 1)))
+    for z0 in range(0, gn, dz_slab):
+        z1 = min(gn, z0 + dz_slab)
+        own = [comp[c, z0:z1][..., :, None] for c in range(3)]
+        acc = [None, None, None]
+        for dz in (0, 1, 2):
+            for dy in (0, 1, 2):
+                for dx in (0, 1, 2):
+                    nb = [pads[c, z0 + dz:z1 + dz, dy:dy + gn, dx:dx + gn]
+                          [..., None, :] for c in range(3)]
+                    dv = [nb[c] - own[c] for c in range(3)]
+                    d2 = dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2]
+                    s = _short_factor(d2, eps2, sigma)
+                    for c in range(3):
+                        part = torch.sum(s * dv[c], dim=-1)
+                        acc[c] = part if acc[c] is None else acc[c] + part
+        for c in range(3):
+            out[c, z0:z1] = acc[c]
+    return out.reshape(3, gn * gn * gn, k) * pm._f32(g_const)
+
+
+def near_field_correction(position: Tensor, box: float, g_const: float,
+                          eps2: float, r_c: float, near_grid: int,
+                          capacity: int):
+    """Short-range pairwise correction -> (accel [3, N], overflow count as
+    a 0-d int64 tensor). `near_grid` must satisfy box / near_grid >= r_c,
+    so the 27-cell neighbourhood covers the cutoff (`near_grid_for`)."""
+    n = position.shape[1]
+    gn = near_grid
+    ncell = gn * gn * gn
+    slots, scid, order, bounds, overflow = _bin_particles(
+        position, gn, box / gn, capacity)
+    slot_force = _near_sweep(slots, gn, capacity, g_const, eps2, r_c)
+    # sorted particle i sits in slot (scid[i], i - bounds[scid[i]]); past
+    # the capacity, or out of the box, it gets no correction
+    live = scid < ncell
+    cell = torch.where(live, scid, torch.zeros_like(scid))
+    krank = torch.arange(n, device=position.device) - bounds[cell]
+    ok = live & (krank < capacity)
+    row = torch.where(ok, cell * capacity + krank, torch.zeros_like(krank))
+    f_sorted = torch.where(ok[None, :],
+                           slot_force.reshape(3, ncell * capacity)[:, row],
+                           0.0)
+    accel = torch.empty_like(f_sorted).index_copy_(1, order, f_sorted)
+    return accel, overflow
+
+
+def _check_near_mode(near_mode: str) -> None:
+    if near_mode not in ("tree", "slots"):
         raise ValueError(f"unknown near_mode {near_mode!r}")
 
 
@@ -205,21 +320,31 @@ def p3m_accel_with_overflow(
     with_potential: bool = False,
     half_force: bool = False,
 ):
-    """-> (accel [3, N], dropped block pairs): mesh long range + the tree
-    near field (`near_mode="tree"`). `capacity` belongs to the slot near
-    field, which is not ported. `with_potential` (the diagnostics gauge)
-    also returns the per-particle softened pair potential u_i = g Σ_{j≠i}
+    """-> (accel [3, N], overflow): mesh long range + a near field.
+    `near_mode="tree"`: the tree sweep, overflow = dropped block pairs (an
+    int). `"slots"`: the static-K sweep over cells of capacity
+    `capacity`, overflow = particles past it (a 0-d int64 tensor, no host
+    read). `with_potential` (the diagnostics gauge, tree only) also
+    returns the per-particle softened pair potential u_i = g Σ_{j≠i}
     -1/sqrt(r_ij² + eps²), split the same Ewald way -> (accel, u [N],
     dropped); the total potential energy is 0.5 Σu. `half_force` is
     dropped there: the fused sweep is the directed one."""
     validate_cutoff_cells(cutoff_cells)
-    _require_tree(near_mode)
+    _check_near_mode(near_mode)
+    if with_potential and near_mode != "tree":
+        raise ValueError(
+            "with_potential requires near_mode='tree' (the slot sweep has "
+            "no potential channel)")
     from multi_adapter_particles_torch.ops.treeforce import near_field_tree
 
     r_c, gn = near_grid_for(grid, box, cutoff_cells)
     rho = pm.deposit_cic(position, grid, box)
     a_far = pm._interp(_accel_long(rho, grid, box, g_const, r_c), position,
                        grid, box)
+    if near_mode == "slots":
+        a_near, overflow = near_field_correction(
+            position, box, g_const, softening_squared, r_c, gn, capacity)
+        return a_far + a_near, overflow
     near = near_field_tree(
         position, box, g_const, softening_squared, r_c, gn,
         pair_budget=pair_budget, sub_pair_budget=sub_pair_budget,
@@ -235,7 +360,7 @@ def p3m_accel_with_overflow(
 
 
 def p3m_accel(position: Tensor, **kw) -> Tensor:
-    """-> accel [3, N] (the dropped-pair count dropped)."""
+    """-> accel [3, N] (the overflow count dropped)."""
     acc, _ = p3m_accel_with_overflow(position, **kw)
     return acc
 
@@ -334,17 +459,27 @@ def make_accel_fn(
 ) -> Callable[[Tensor], Tensor]:
     """Adapter matching the integrator's accel_fn signature. "auto" means
     slots here, as in the JAX package (the CLI's startup probe resolves it
-    to tree where slots would overflow); slots raise."""
+    to tree where slots would overflow). With slots, each call copies its
+    overflow count into `accel_fn.overflow`, a 0-d int64 tensor on the
+    state's device made at the first call (a copy, so a captured step
+    updates it at every replay); it stays None for the tree."""
     if near_mode == "auto":
         near_mode = "slots"
-    _require_tree(near_mode)
+    _check_near_mode(near_mode)
 
     def accel_fn(position: Tensor) -> Tensor:
-        return p3m_accel(
+        acc, overflow = p3m_accel_with_overflow(
             position, grid=grid, box=box, g_const=mass,
             softening_squared=softening_squared, cutoff_cells=cutoff_cells,
             capacity=capacity, near_mode=near_mode, pair_budget=pair_budget,
             sub_pair_budget=sub_pair_budget, half_force=half_force,
         )
+        if near_mode == "slots":
+            if accel_fn.overflow is None:
+                accel_fn.overflow = torch.zeros(
+                    (), dtype=torch.int64, device=position.device)
+            accel_fn.overflow.copy_(overflow)
+        return acc
 
+    accel_fn.overflow = None
     return accel_fn

@@ -26,8 +26,17 @@ Here:
   device — the `Compute::CopyState` live-reassignment path
   (`Compute.cpp:303-410`) as one tensor copy per plane.
 
-The Intel queue-throttle extension (`ExtensionHelper`) has no CUDA
-meaning; `use_queue_extension` is accepted and does nothing.
+The Intel queue-throttle extension (`ExtensionHelper`,
+`utils/extension.py`): while it is active on a CUDA device the step runs
+on a stream of the highest priority. That stream waits for the event
+recorded at the end of the previous step, which follows everything queued
+on the current stream before it (the previous frame's render, the last
+reader of the buffer this step writes), and the current stream waits for
+the step, so the render of state N runs beside the step to N+1 and the
+next render sees N+1. A new state (`restore`, migration), and the first
+step on that stream after steps on the current one (a toggle), wait for
+everything queued before them. A stage timer's "simulate" stage is timed
+on that stream, from the step's start to its end.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from multi_adapter_particles_torch.models import init as pinit
 from multi_adapter_particles_torch.models import integrator
 from multi_adapter_particles_torch.models.state import ParticleState
 from multi_adapter_particles_torch.ops.central_well import central_well_step
+from multi_adapter_particles_torch.utils.extension import ExtensionHelper
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 from multi_adapter_particles_torch.utils.timers import sync
 
@@ -86,11 +96,13 @@ class ComputeEngine:
         metrics: Optional[MetricsRegistry] = None,
         prev: Optional["ComputeEngine"] = None,
         seed: int = 0,
+        extension: Optional[ExtensionHelper] = None,
     ):
         self.config = sim_config
         self.device = torch.device(device)
         self.metrics = metrics or MetricsRegistry()
-        # raises for a part not ported yet (the p3m slot near field)
+        self.extension = extension
+        self._events = None  # (stepped, released), made at first use
         self._step = integrator.make_step(sim_config)
         self.step_count = 0  # the shared fence value analog
 
@@ -109,13 +121,47 @@ class ComputeEngine:
     def _set_state(self, state: ParticleState) -> None:
         self.state = state
         self._spare = state.empty_like()  # the other half of the pair
+        self._ordered = False  # the next prioritized step waits for all
+
+    def _stream(self) -> Optional[torch.cuda.Stream]:
+        if self.extension is None or self.device.type != "cuda":
+            return None
+        return self.extension.stream()
 
     # -- frame ops ---------------------------------------------------------------
-    def simulate(self, num_sim: Optional[int] = None) -> ParticleState:
+    def simulate(self, num_sim: Optional[int] = None,
+                 stage_timer=None) -> ParticleState:
         """One async step into the spare buffer, then swap. Returns the new
-        state (also kept on self)."""
+        state (also kept on self). `stage_timer` (an `EventStageTimer`
+        whose frame is open) gets the "simulate" mark where the step ran."""
         out = self._spare
-        step_into(self.config, self._step, self.state, out, num_sim)
+        stream = self._stream()
+        if stream is None:
+            step_into(self.config, self._step, self.state, out, num_sim)
+            if stage_timer is not None:
+                stage_timer.mark("simulate")
+            self._ordered = False  # a step after a toggle waits for all
+        else:
+            cur = torch.cuda.current_stream(self.device)
+            if self._events is None:
+                self._events = (torch.cuda.Event(), torch.cuda.Event())
+            stepped, released = self._events
+            if self._ordered:
+                stream.wait_event(released)
+            else:
+                stream.wait_stream(cur)
+            with torch.cuda.stream(stream):
+                if stage_timer is not None:
+                    stage_timer.begin()
+                step_into(self.config, self._step, self.state, out, num_sim)
+                if stage_timer is not None:
+                    stage_timer.mark("simulate")
+            # two events recorded again every step: a wait takes the
+            # event's last record when it is queued
+            stepped.record(stream)
+            cur.wait_event(stepped)
+            released.record(cur)
+            self._ordered = True
         self._spare, self.state = self.state, out
         self.step_count += 1
         self.metrics.count("interactions", interactions(
@@ -130,6 +176,12 @@ class ComputeEngine:
 
     def get_fence_value(self) -> int:
         return self.step_count
+
+    @property
+    def overflow(self) -> Optional[torch.Tensor]:
+        """The slot near field's overflow count of the last step (a 0-d
+        device tensor), None for the other force models."""
+        return getattr(self._step.accel_fn, "overflow", None)
 
     def wait_for_gpu(self) -> None:
         """Drain: hard device sync (`Compute::WaitForGpu`)."""

@@ -30,11 +30,15 @@ CUDA graph:
   `.launches` counters are put back after it and advanced by the captured
   frame's launches at every replay: the counters count launches on the
   device in both modes. `launches_per_frame` and `replays` report them.
+- **Extension**: fused frames run on the current stream whatever the
+  queue-throttle extension says (`utils/extension.py`): one program on one
+  device leaves no second stream for a priority to beat.
 
-Which force models capture is fixed (`CAPTURED`), decided from the model up
-front and never by catching a capture error; the others run the same frame
-function uncaptured. The `fused_graph` gauge says which way a frame ran. On
-the CPU nothing is captured.
+Which force models capture is fixed (`CAPTURED`, by `capture_key`),
+decided from the configuration up front and never by catching a capture
+error; the others run the same frame function uncaptured. The
+`fused_graph` gauge says which way a frame ran. On the CPU nothing is
+captured.
 """
 
 from __future__ import annotations
@@ -61,16 +65,31 @@ from multi_adapter_particles_torch.runtime.render_engine import _present_probe
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 from multi_adapter_particles_torch.utils.timers import sync
 
-# Force models whose step a CUDA graph captures, and why it can: nothing on
+# Steps a CUDA graph captures (by `capture_key`), and why it can: nothing on
 # the step's path reads the device from the host or copies to it.
 CAPTURED = {
     "central_well": "one kernel launch into the spare state",
     "all_pairs": "the accel kernel, then the Euler tail as torch ops",
     "pm_grid": "torch sort, cumsum and index ops, and cuFFT (its plans and "
                "the cached kernel spectrum made by the eager first frame)",
+    "p3m:slots": "pm_grid's mesh path, then the slot binning (a stable "
+                 "sort, searchsorted, gathers), the 27 shifted-slice sweeps "
+                 "over fixed slabs and a scatter; the overflow count stays "
+                 "on the device",
 }
-# Not captured: p3m. The tree sweep reads int(counts.max()) on the host
-# (ops/treeforce.py) and the list build uses torch.nonzero, which syncs.
+# Not captured: p3m with the tree near field. The tree sweep reads
+# int(counts.max()) on the host (ops/treeforce.py) and the list build uses
+# torch.nonzero, which syncs.
+
+
+def capture_key(config: SimConfig) -> str:
+    """The `CAPTURED` key of a configuration's step: the force model, and
+    for p3m its near field ("auto" is slots, as `p3m.make_accel_fn` reads
+    it)."""
+    if config.force_model != "p3m":
+        return config.force_model
+    mode = config.p3m_near_mode
+    return "p3m:" + ("slots" if mode == "auto" else mode)
 
 # The kernel wrappers a fused frame can launch (their `.launches` counters).
 COUNTED = (central_well_step, composite_tiles, sort_kv_stable,
@@ -104,8 +123,7 @@ class FusedEngine:
         self.camera = camera or Camera(position=render_config.camera_position)
         self.renderer = renderer or Renderer(render_config)
         self.use_graph = (self.device.type == "cuda"
-                          and sim_config.force_model in CAPTURED)
-        # raises for a part not ported yet (the p3m slot near field)
+                          and capture_key(sim_config) in CAPTURED)
         self._step = integrator.make_step(sim_config)
         self.step_count = 0
         self.frame_count = 0
@@ -243,6 +261,13 @@ class FusedEngine:
 
     def get_fence_value(self) -> int:
         return self.step_count
+
+    @property
+    def overflow(self) -> Optional[torch.Tensor]:
+        """The slot near field's overflow count of the last step (a 0-d
+        device tensor, refreshed by every replay), None for the other force
+        models."""
+        return getattr(self._step.accel_fn, "overflow", None)
 
     def wait_for_gpu(self) -> None:
         sync(self.state.position)

@@ -5,11 +5,13 @@ shows "simulate ms" / "render ms" (`include/D3D12GpuTimer.h:117-160`,
 `Particles.cpp:399-409`). The JAX package reads the XLA profiler for that
 (`runtime/gputimer.py` there). On CUDA the stream itself keeps time:
 `EventStageTimer` records an event at the start of every frame and after
-each stage, on the compute device's current stream, and resolves them only
-once the device has passed them (`Event.query()`), so it never stalls the
-pipeline. Each stage sample is the device time between the previous mark
-and its own; the frame sample is the device time from one frame's start to
-the next frame's start. Stage samples feed the registry's 20-sample EMA
+each stage, on the stream the stage ran on (the compute device's current
+stream, or the split step's high-priority stream, `utils/extension.py`),
+and resolves them only once the device has passed them (`Event.query()`),
+so it never stalls the pipeline. Each stage sample is the device time
+between the previous mark (or a `begin` on the stage's own stream) and its
+own; the frame sample is the device time from one frame's start to the
+next frame's start. Stage samples feed the registry's 20-sample EMA
 stages ("simulate", "render"); the last WINDOW frame samples are kept for
 a median.
 
@@ -39,7 +41,7 @@ class EventStageTimer:
         self.metrics = metrics
         self.device = torch.device(device)
         self.frame_ms: deque = deque(maxlen=WINDOW)
-        self._marks: List[Tuple[str, torch.cuda.Event]] = []
+        self._marks: List[Tuple[Optional[str], torch.cuda.Event]] = []
         self._pending: deque = deque()
         self._prev_start: Optional[torch.cuda.Event] = None
         self._frames = 0
@@ -52,8 +54,14 @@ class EventStageTimer:
     def begin_frame(self) -> None:
         self._marks = [("start", self._event())]
 
+    def begin(self) -> None:
+        """Start of the next stage, on the current stream: a stage on a
+        stream of its own starts here, not at the previous mark."""
+        self._marks.append((None, self._event()))
+
     def mark(self, stage: str) -> None:
-        """End of `stage` (started at the previous mark)."""
+        """End of `stage` (started at the previous mark or `begin`), on
+        the current stream."""
         self._marks.append((stage, self._event()))
 
     def end_frame(self) -> None:
@@ -62,8 +70,10 @@ class EventStageTimer:
         self.poll()
 
     def poll(self) -> None:
-        """Resolve every pending frame the device has finished."""
-        while self._pending and self._pending[0][-1][1].query():
+        """Resolve every pending frame the device has finished (all its
+        marks: stages on two streams may end in either order)."""
+        while self._pending and all(ev.query()
+                                    for _, ev in self._pending[0]):
             marks = self._pending.popleft()
             start = marks[0][1]
             self._frames += 1
@@ -73,7 +83,7 @@ class EventStageTimer:
             self._prev_start = start
             prev = start
             for stage, ev in marks[1:]:
-                if counted:
+                if counted and stage is not None:
                     self.metrics.stage(stage).add_sample(
                         prev.elapsed_time(ev) / 1e3
                     )

@@ -19,8 +19,16 @@ simulates — the reference's stale-by-one contract (fences `Render.cpp:925`,
 `fused=True` runs the fused single-program frame instead
 (`runtime/fused.py`): one engine in both roles on one device.
 
+Live reconfiguration counts each rebuild in the `reconfigurations` counter
+and keeps its drain + rebuild + migrate host milliseconds (synced at both
+ends) in the `reconfig_ms` gauge. `debug=True` runs the validation layer
+(`utils/debug.py`) after every frame. The queue-throttle extension
+(`utils/extension.py`) follows `AppConfig.use_queue_extension`, picked up
+at the next split step (fused frames run on the current stream). At `shutdown` the slot near field's overflow count of
+the last step is published as the `p3m_overflow` gauge.
+
 Not ported yet, and raising: mesh compute and sharded render (ROADMAP
-queue 1 item 14), the debug validation layer (item 13).
+queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from multi_adapter_particles_torch.runtime.gputimer import EventStageTimer
 from multi_adapter_particles_torch.runtime.pacing import FrameLatencyQueue
 from multi_adapter_particles_torch.runtime.render_engine import RenderEngine
 from multi_adapter_particles_torch.render.renderer import Renderer
+from multi_adapter_particles_torch.utils import debug as dbg
+from multi_adapter_particles_torch.utils.extension import ExtensionHelper
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 
 
@@ -67,11 +77,12 @@ class ParticlesApp:
         ("simulate ms" / "render ms", `runtime/gputimer.py`) when the
         compute device is a GPU. `profile_every` K > 0 instead times both
         stages with a hard sync every K-th frame (split mode only). `fused`
-        runs the fused single-program frame on one device."""
+        runs the fused single-program frame on one device. `debug` checks
+        the state and the buffer hand-off after every frame (one host read
+        a frame; `DebugValidationError` on a fault)."""
         if mesh_devices > 1 or shard_render:
             raise _not_ported("mesh compute / sharded render", "item 14")
-        if debug:
-            raise _not_ported("the debug validation layer", "item 13")
+        self.debug = debug
         self.app = app_config or AppConfig()
         self.sim_config = sim_config or SimConfig(
             num_particles=self.app.num_particles
@@ -105,6 +116,9 @@ class ParticlesApp:
         self._prev_compute_index = compute_ad.index
         self._prev_render_index = render_ad.index
         self._prev_fullscreen = self.app.fullscreen
+        self._prev_use_extension = self.app.use_queue_extension
+        self.extension = ExtensionHelper(
+            compute_ad.device, enabled=self.app.use_queue_extension)
 
         self.fused_engine: Optional[FusedEngine] = None
         if fused:
@@ -115,7 +129,8 @@ class ParticlesApp:
             self.compute = self.render = self.fused_engine
         else:
             self.compute = ComputeEngine(
-                self.sim_config, compute_ad.device, self.metrics, seed=seed
+                self.sim_config, compute_ad.device, self.metrics, seed=seed,
+                extension=self.extension,
             )
             self.render = RenderEngine(
                 self._active_render_config(), render_ad.device, self.metrics
@@ -188,13 +203,12 @@ class ParticlesApp:
             st = self.metrics.stage("simulate")
             self.compute.wait_for_gpu()
             st.begin()
-            self.compute.simulate(sim_arg)
+            self.compute.simulate(sim_arg, stage_timer=timer)
             self.compute.wait_for_gpu()
             st.end()
         else:
-            self.compute.simulate(sim_arg)
+            self.compute.simulate(sim_arg, stage_timer=timer)
         if timer is not None:
-            timer.mark("simulate")
             timer.end_frame()
 
         self._display_positions = self.compute.positions
@@ -213,6 +227,12 @@ class ParticlesApp:
                 )
                 self.pacing.push(src)
 
+        if self.debug:
+            where = f"frame {self.frame_count}"
+            dbg.validate_handoff(self.compute, self.render,
+                                 self._display_positions, where)
+            dbg.validate_state(self.compute.state,
+                               self.sim_config.num_particles, where)
         self.frame_count += 1
         self._handle_reconfiguration()
 
@@ -233,6 +253,11 @@ class ParticlesApp:
             # launch ahead, bounded in flight; no present, so no dup raise
             self.pacing.push(eng.positions)
         self._display_positions = eng.positions
+        if self.debug:
+            where = f"frame {self.frame_count} (fused)"
+            dbg.validate_fused_handoff(eng, where)
+            dbg.validate_state(eng.state, self.sim_config.num_particles,
+                               where)
         self.frame_count += 1
         self._handle_reconfiguration()
 
@@ -244,6 +269,13 @@ class ParticlesApp:
         self.render_adapter = self.adapters[index]
 
     def _handle_reconfiguration(self) -> None:
+        # extension toggle only: the next split step asks for its stream
+        # again; fused frames stay on the current stream
+        # (`Particles.cpp:533-537`)
+        if self.app.use_queue_extension != self._prev_use_extension:
+            self._prev_use_extension = self.app.use_queue_extension
+            self.extension.set_enabled(self.app.use_queue_extension)
+
         cchange = self.compute_adapter.index != self._prev_compute_index
         rchange = self.render_adapter.index != self._prev_render_index
         # fullscreen/resolution change: drain + render-engine rebuild at
@@ -252,6 +284,7 @@ class ParticlesApp:
         if not (cchange or rchange or fschange):
             return
 
+        t0 = time.perf_counter()
         # Drain all in-flight work on both engines (Particles.cpp:467-471).
         self.pacing.drain()
         self.render.wait_for_gpu()
@@ -259,6 +292,7 @@ class ParticlesApp:
 
         if self.fused_engine is not None:
             self._rebuild_fused()
+            self._count_reconfiguration(t0)
             return
 
         if rchange or fschange:
@@ -279,15 +313,32 @@ class ParticlesApp:
         if cchange:
             # New engine on the new device, migrating state (CopyState).
             self._restart_timer()
+            self.extension = self._new_extension()
             self.compute = ComputeEngine(
                 self.sim_config,
                 self.compute_adapter.device,
                 self.metrics,
                 prev=self.compute,
+                extension=self.extension,
             )
             self._prev_compute_index = self.compute_adapter.index
 
         self.share_handles()
+        self._count_reconfiguration(t0)
+
+    def _new_extension(self) -> ExtensionHelper:
+        """The extension helper for the compute role's (new) device."""
+        return ExtensionHelper(self.compute_adapter.device,
+                               enabled=self.app.use_queue_extension)
+
+    def _count_reconfiguration(self, t0: float) -> None:
+        """Wait for the rebuilt engines, then count the reconfiguration and
+        keep its host milliseconds since `t0` (before the drain)."""
+        self.compute.wait_for_gpu()
+        self.render.wait_for_gpu()
+        self.metrics.count("reconfigurations")
+        ms = self.metrics.gauges.setdefault("reconfig_ms", [])
+        ms.append((time.perf_counter() - t0) * 1e3)
 
     def _carry_renderer(self, rcfg: RenderConfig) -> Renderer:
         """A renderer at `rcfg` that keeps the current one's settings and
@@ -309,8 +360,12 @@ class ParticlesApp:
         """Fused mode binds both roles to ONE device: a change moves both
         together, into a new engine that migrates the state and keeps the
         camera and the learned dup window (the JAX orchestrator's fused
-        reconfiguration)."""
+        reconfiguration). A change that moves one role only raises
+        `ValueError` and is undone: both adapters go back to the engine's,
+        and the next frame runs as before."""
         if self.compute_adapter.device != self.render_adapter.device:
+            self.compute_adapter = self.adapters[self._prev_compute_index]
+            self.render_adapter = self.adapters[self._prev_render_index]
             raise ValueError(
                 "fused mode needs compute and render on the same device; "
                 "move both adapters together (or restart split)")
@@ -318,6 +373,7 @@ class ParticlesApp:
         rcfg = self._active_render_config()
         if self.compute_adapter.device != old.device:
             self._restart_timer()
+            self.extension = self._new_extension()
         self.fused_engine = FusedEngine(
             self.sim_config, rcfg, self.compute_adapter.device, self.metrics,
             prev=old, camera=old.camera, renderer=self._carry_renderer(rcfg))
@@ -353,3 +409,6 @@ class ParticlesApp:
             self.stage_timer.close()
         self.render.wait_for_gpu()
         self.compute.wait_for_gpu()
+        overflow = self.compute.overflow
+        if overflow is not None:
+            self.metrics.gauge("p3m_overflow", int(overflow))

@@ -1,11 +1,27 @@
 """A/B timing of the torch port's main-path frames between checkouts, on
 one CUDA GPU.
 
-    python3 multi_adapter_particles_torch/tools/frame_ab.py ROOT [ROOT ...]
+    python3 multi_adapter_particles_torch/tools/frame_ab.py \
+        [--scenes LABEL,...] [--steps K] ROOT[+noext] [ROOT[+noext] ...]
 
 Each ROOT is a checkout of the repository (this one, or an unpacked
 `git archive` of another commit); each runs in a fresh process, in the
-order given, so list two as A B B A to cancel drift. For each it prints one
+order given, so list two as A B B A to cancel drift. `ROOT+noext` runs
+that checkout with the queue-throttle extension off (`-noext`), to time
+the split step on the current stream against its high-priority stream.
+`--scenes` keeps only the scenes named (labels below), `--steps` sets
+every kept scene's `-steps`.
+
+    python3 multi_adapter_particles_torch/tools/frame_ab.py --toggle ROOT
+
+times the split 4M frame of one checkout with the extension on and off in
+one process: ROUNDS rounds of two blocks of BLOCK frames (on, off; the
+order flips every round), each block synced at both ends and timed with
+CUDA events. It prints the per-block ms a frame of each setting, their
+medians, the change of "on" against "off", the rounds "on" won, each
+side's quartile spread (`summary`), and the host ms a frame took to
+issue each block (`*_issue_ms`: near the frame's device time when the
+host bounds it). For each it prints one
 JSON line for the reference's default scene (4,194,304 particles, central
 well, 1024x1024, device init, seed 0), split loop and, where the checkout
 has it, the fused frame (`-fused`), the fused frame of 262,144 particles
@@ -32,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 N, SIDE, STEPS, WINDOW = 4_194_304, 1024, 40, 10
 # (label, particles, width, height, fused, force model, steps)
@@ -41,13 +58,15 @@ SCENES = (("split", N, SIDE, SIDE, False, "central_well", STEPS),
           ("allpairs1m", 1_048_576, SIDE, SIDE, False, "all_pairs", 8))
 
 
-def _cli(app, n, width, height, fused: bool, force: str, steps: int) -> dict:
+def _cli(app, n, width, height, fused: bool, force: str, steps: int,
+         ext: bool) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "m.json")
         rc = app.main(["-numparticles", str(n), "-width", str(width),
                        "-height", str(height), "-steps", str(steps),
                        "-force", force, "-novsync", "-nogui", "-metrics",
-                       path] + (["-fused"] if fused else []))
+                       path] + (["-fused"] if fused else [])
+                      + ([] if ext else ["-noext"]))
         if rc != 0:
             raise SystemExit(f"app.main returned {rc}")
         with open(path) as f:
@@ -57,9 +76,10 @@ def _cli(app, n, width, height, fused: bool, force: str, steps: int) -> dict:
             "simulate_ms": m["stages_ms"]["simulate"]}
 
 
-def _profile(n, width, height, fused: bool, force: str, **sim) -> dict:
-    """Busy share and kernels a frame over WINDOW steady frames (`sim`:
-    more SimConfig fields)."""
+def _profile(n, width, height, fused: bool, force: str, ext: bool,
+             **sim) -> dict:
+    """Busy share and kernels a frame over WINDOW steady frames (`ext`:
+    the queue-throttle extension on; `sim`: more SimConfig fields)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -71,7 +91,9 @@ def _profile(n, width, height, fused: bool, force: str, **sim) -> dict:
     from multi_adapter_particles_torch.runtime.orchestrator import ParticlesApp
 
     kw = {"fused": True} if fused else {}
-    p = ParticlesApp(AppConfig(num_particles=n, vsync=False, gui=False),
+    app_kw = {} if ext else {"use_queue_extension": False}
+    p = ParticlesApp(AppConfig(num_particles=n, vsync=False, gui=False,
+                               **app_kw),
                      SimConfig(num_particles=n, force_model=force, **sim),
                      RenderConfig(width=width, height=height), **kw)
     for _ in range(5):
@@ -100,8 +122,75 @@ def _profile(n, width, height, fused: bool, force: str, **sim) -> dict:
             "window_frame_ms": window_ms / WINDOW}
 
 
-def measure(root: str) -> dict:
-    """The numbers of one checkout (run in its own process)."""
+ROUNDS, BLOCK = 12, 25
+
+
+def toggle(root: str) -> dict:
+    """The split 4M frame with the extension on against off, in one
+    process (the `--toggle` mode)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from multi_adapter_particles_torch.config import (
+        AppConfig,
+        RenderConfig,
+        SimConfig,
+    )
+    from multi_adapter_particles_torch.runtime.orchestrator import ParticlesApp
+
+    p = ParticlesApp(AppConfig(num_particles=N, vsync=False, gui=False),
+                     SimConfig(num_particles=N),
+                     RenderConfig(width=SIDE, height=SIDE))
+    for _ in range(5):
+        p.draw()
+    ms = {True: [], False: []}
+    issue = {True: [], False: []}
+    for r in range(ROUNDS):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            p.app.use_queue_extension = on
+            p.draw()   # the toggle takes effect from the next frame
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(BLOCK):
+                p.draw()
+            issue[on].append((time.perf_counter() - t0) * 1e3 / BLOCK)
+            end.record()
+            torch.cuda.synchronize()
+            ms[on].append(start.elapsed_time(end) / BLOCK)
+    p.shutdown()
+    return {"root": root, "device": torch.cuda.get_device_name(0),
+            "rounds": ROUNDS, "block": BLOCK, "on_ms": ms[True],
+            "off_ms": ms[False], **summary(ms[True], ms[False]),
+            "on_issue_ms": issue[True], "off_issue_ms": issue[False],
+            "on_issue_median_ms": statistics.median(issue[True]),
+            "off_issue_median_ms": statistics.median(issue[False])}
+
+
+def summary(on_ms, off_ms) -> dict:
+    """Medians of the paired blocks, the change of "on" against "off",
+    the rounds "on" was faster in, and each side's quartile spread (the
+    distance between its quartiles) as a share of its median."""
+    def spread(xs):
+        q = statistics.quantiles(xs, n=4)
+        return (q[2] - q[0]) / statistics.median(xs)
+
+    on, off = statistics.median(on_ms), statistics.median(off_ms)
+    return {"on_median_ms": on, "off_median_ms": off,
+            "on_vs_off": on / off - 1,
+            "on_faster": sum(a < b for a, b in zip(on_ms, off_ms)),
+            "on_spread": spread(on_ms), "off_spread": spread(off_ms)}
+
+
+def measure(spec: str, labels, steps) -> dict:
+    """The numbers of one checkout (run in its own process). `spec`: ROOT
+    or ROOT+noext; `labels`: the scenes to run; `steps`: their -steps, or
+    None for each scene's own."""
+    root, noext = (spec[:-len("+noext")], True) if spec.endswith(
+        "+noext") else (spec, False)
+    root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
 
@@ -109,19 +198,33 @@ def measure(root: str) -> dict:
 
     if not torch.cuda.is_available():
         raise SystemExit("frame_ab.py needs a CUDA GPU")
-    out = {"root": root, "device": torch.cuda.get_device_name(0)}
+    out = {"root": root, "ext": not noext,
+           "device": torch.cuda.get_device_name(0)}
     has_fused = "fused" not in getattr(app, "_LATER_FLAGS", {})
     for label, *scene in SCENES:
-        if scene[3] and not has_fused:
+        if label not in labels or (scene[3] and not has_fused):
             continue
-        for k, v in {**_cli(app, *scene), **_profile(*scene[:5])}.items():
+        if steps is not None:
+            scene[5] = steps
+        cli = _cli(app, *scene, ext=not noext)
+        for k, v in {**cli, **_profile(*scene[:5], ext=not noext)}.items():
             out[f"{label}_{k}"] = v
     return out
 
 
 def main(argv) -> int:
+    labels, steps = [s[0] for s in SCENES], None
+    while argv[:1] in (["--scenes"], ["--steps"]):
+        if argv[0] == "--scenes":
+            labels = argv[1].split(",")
+        else:
+            steps = int(argv[1])
+        argv = argv[2:]
+    if len(argv) == 2 and argv[0] == "--toggle":
+        print(json.dumps(toggle(argv[1])), flush=True)
+        return 0
     if len(argv) == 2 and argv[0] == "--one":
-        print("AB " + json.dumps(measure(os.path.abspath(argv[1]))),
+        print("AB " + json.dumps(measure(argv[1], labels, steps)),
               flush=True)
         return 0
     if not argv:
@@ -131,8 +234,10 @@ def main(argv) -> int:
                          text=True)
     print(smi.stdout.strip(), flush=True)
     for root in argv:
-        proc = subprocess.run([sys.executable, __file__, "--one", root],
-                              capture_output=True, text=True)
+        opts = ["--scenes", ",".join(labels)] + (
+            [] if steps is None else ["--steps", str(steps)])
+        proc = subprocess.run([sys.executable, __file__, *opts, "--one",
+                               root], capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)

@@ -91,6 +91,16 @@ def test_port_never_imports_jax():
         "import multi_adapter_particles_torch.ops.p3m\n"
         "import multi_adapter_particles_torch.ops.pm\n"
         "import multi_adapter_particles_torch.presets\n"
+        "import multi_adapter_particles_torch.runtime.controls\n"
+        "import multi_adapter_particles_torch.runtime.input\n"
+        "import multi_adapter_particles_torch.runtime.fused\n"
+        "import multi_adapter_particles_torch.utils.checkpoint\n"
+        "import multi_adapter_particles_torch.utils.debug\n"
+        "import multi_adapter_particles_torch.utils.extension\n"
+        "import multi_adapter_particles_torch.utils.probecache\n"
+        "import multi_adapter_particles_torch.utils.overlay\n"
+        "import multi_adapter_particles_torch.utils.dashboard\n"
+        "import multi_adapter_particles_torch.utils.timers\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('multi_adapter_particles_tpu')]\n"
         "assert not bad, bad\n"
@@ -98,6 +108,23 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_stage_timer_equals_jax_package():
+    """`utils/timers.py::StageTimer` is the JAX class: the same EMA on the
+    same samples, bit for bit."""
+    from multi_adapter_particles_tpu.utils.timers import StageTimer as J
+    from multi_adapter_particles_torch.utils.timers import StageTimer as T
+
+    rng = np.random.default_rng(0)
+    for window in (1, 20, 64):
+        a, b = T("x", window=window), J("x", window=window)
+        assert a.alpha == b.alpha and a.name == b.name
+        for s in rng.random(50):
+            a.add_sample(float(s))
+            b.add_sample(float(s))
+            assert a.ema_seconds == b.ema_seconds
+            assert a.milliseconds == b.milliseconds
 
 
 def test_state_numpy_round_trip_and_layout():
@@ -283,8 +310,6 @@ class TestCli:
 
     @pytest.mark.parametrize("argv", [
         ["-fused", "-shardrender"], ["-meshdevices", "4"],
-        ["-probecache", "off"],
-        ["-dashboard", "d.html"], ["-checkpoint", "x.npz"],
     ])
     def test_later_flags_exit_nonzero(self, argv, capsys):
         from multi_adapter_particles_torch import app

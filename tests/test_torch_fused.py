@@ -139,9 +139,11 @@ class TestFusedMode:
                          fused=True)
 
     def test_captured_models_are_fixed(self):
-        """Which models capture is decided up front: p3m (host syncs in the
-        tree walk) is not among them, and nothing captures on the CPU."""
-        assert set(CAPTURED) == {"central_well", "all_pairs", "pm_grid"}
+        """Which models capture is decided up front: p3m with the tree near
+        field (host syncs in the tree walk) is not among them, p3m with the
+        slot near field is, and nothing captures on the CPU."""
+        assert set(CAPTURED) == {"central_well", "all_pairs", "pm_grid",
+                                 "p3m:slots"}
         assert not _app(True).fused_engine.use_graph
 
 

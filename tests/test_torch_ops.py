@@ -142,18 +142,19 @@ class TestCentralWellTwin:
                                    rtol=2e-5, atol=2e-5)
 
     def test_force_models_not_ported_raise(self):
-        """pm_grid and p3m's tree near field are ported; p3m's slot near
-        field (which "auto" means without the CLI's startup probe) is
-        not."""
-        for mode in ("auto", "slots"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                integrator.make_step(SimConfig(num_particles=256,
-                                               force_model="p3m",
-                                               p3m_near_mode=mode))
+        """Every force model and p3m near field is ported: each makes a
+        step (p3m's "auto" is the slot near field without the CLI's startup
+        probe); a near mode that is neither raises."""
         for kw in (dict(force_model="pm_grid"),
-                   dict(force_model="p3m", p3m_near_mode="tree")):
+                   dict(force_model="p3m", p3m_near_mode="tree"),
+                   dict(force_model="p3m", p3m_near_mode="slots"),
+                   dict(force_model="p3m", p3m_near_mode="auto")):
             assert callable(integrator.make_step(
                 SimConfig(num_particles=256, **kw)))
+        from multi_adapter_particles_torch.ops import p3m
+
+        with pytest.raises(ValueError, match="near_mode"):
+            p3m.make_accel_fn(1.0, near_mode="mesh")
 
 
 class TestCompositeTwin:

@@ -140,21 +140,6 @@ class TestTreeP3M:
         assert _rel(got.numpy(), np.asarray(n3)) < 1e-6
         assert _rel(got.numpy(), np.asarray(directed)) < 1e-6
 
-    @pytest.mark.parametrize("kw", [dict(near_mode="slots"),
-                                    dict(near_mode="slots",
-                                         with_potential=True)])
-    def test_later_slices_raise(self, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            p3m.p3m_accel_with_overflow(torch.zeros((4, 128)),
-                                        **{**KW, **kw})
-
-    @pytest.mark.parametrize("mode", ["auto", "slots"])
-    def test_engine_refuses_slot_near_field(self, mode):
-        cfg = SimConfig(num_particles=256, force_model="p3m",
-                        p3m_near_mode=mode)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            integrator.make_step(cfg)
-
     @pytest.mark.parametrize("half", [False, True])
     def test_make_accel_fn_for_matches_jax(self, half):
         """g_const = mass * interaction_scale, tree_half_force reaching the
@@ -331,17 +316,6 @@ class TestCli:
                               "-pmgrid", "64", "-steps", "1"])
         assert rc == 0 and seen["cfg"].p3m_near_mode == "tree"
         assert "near-field auto probe -> tree" in capsys.readouterr().out
-
-    @pytest.mark.parametrize("argv", [
-        ["-p3mnear", "slots"],
-        # a capacity that covers the scene: the probe picks slots
-        ["-p3mcapacity", "100000", "-pmgrid", "64"],
-    ])
-    def test_slot_near_field_exits_2(self, argv, capsys):
-        rc = app.main(["-force", "p3m", "-numparticles", "2048", "-steps",
-                       "1"] + argv + CPU)
-        assert rc == 2
-        assert "slot near field" in capsys.readouterr().err
 
     def test_pm_grid_runs(self):
         rc, seen = self._run(["-force", "pm_grid", "-pmgrid", "32", "-pmbox",

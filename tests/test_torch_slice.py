@@ -131,9 +131,10 @@ def test_live_reassignment_keeps_trajectory():
     assert b.compute.get_fence_value() == 4
 
 
-@pytest.mark.parametrize("kw", [dict(fused=True, debug=True),
+@pytest.mark.parametrize("kw", [dict(fused=True, mesh_devices=2),
                                 dict(mesh_devices=2),
-                                dict(shard_render=True), dict(debug=True)])
+                                dict(shard_render=True),
+                                dict(debug=True, shard_render=True)])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ParticlesApp(AppConfig(num_particles=256), **kw)
