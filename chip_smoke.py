@@ -8,7 +8,9 @@ through its kernels and produced a sane frame; then the conservation
 diagnostics (`-diagnostics K`) on those scenes, whose P3M gauge runs the
 tree sweep's three potential variants, with finite gauges and no dropped
 pairs; then the fused single-program frame (`-fused`, captured CUDA
-graphs) against the split loop from the same seed.
+graphs) against the split loop from the same seed; last the one-process
+mesh (`-meshdevices`, `-shardrender`, `-preset 1m-mesh8`, the
+`meshdevices` control) on D logical shards of the card.
 
     python3 chip_smoke.py
 
@@ -68,7 +70,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    chunk twice, bitwise; a render chunk captured in a CUDA graph with the
    sort and replayed on new positions, bitwise the eager call; times of
    the call (CUDA events) and of each launch (torch.profiler) beside the
-   plain version and the composite_rows kernel, the bound
+   plain version and the composite_rows kernel, the bound; then the golden
+   corpus' adversarial scenes (coincident stacks, one depth plane, culled
+   and giant sprites) through `Renderer.render_mesh` at 2 and 4 shards of
+   the card, placed across a shard boundary: the sort and composite_tiles
+   kernels bitwise the plain path (frame, truncated, spans)
 5. main path: `multi_adapter_particles_torch.app.main`, launch counters
    (composite_tiles and the sort at least 4 a frame, once a render chunk
    each; gather_rows and composite_rows none)
@@ -204,6 +210,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     peak memory; then `-force p3m -p3mnear slots` at 262,144 on the demo
     init: the overflow warning, `p3m_overflow` equal to the host count, and
     split vs fused (captured) bitwise
+29. the one-process mesh, D logical shards of cuda:0 (an adapter list of D
+    `cuda:0` entries and the CPU swapped in for `enumerate_adapters` here
+    only; no mesh over distinct GPUs is measured): `-preset 1m-mesh8` cut
+    to 3 steps from 20, bitwise the one-device `-rectpair` run, 8
+    rectangle launches a step; the mesh and one-device step ms, the
+    all-gather, the rectangle kernel at the shard shapes (131,072 x 1M,
+    131,072 x 131,072) beside its bound; the ring one step within rtol
+    1e-4 / atol 1e-3; the 4M central well at 1024^2 on 4 shards with
+    `-shardrender` and with the gather, each frame and state bitwise the
+    one-device split run, frame ms of the three; pm_grid 4M (G=128,
+    dist_fft) and the p3m tree 1M (G=192) on 4 shards against one device
+    (rtol 1e-5 / atol 1e-3, dropped equal, RMS under 1%); the
+    `meshdevices` control 4 -> 2 -> 1 -> 4 at 262,144 all-pairs, bitwise a
+    bare run, its drain + reshard ms; the whole phase within 60 s
 
 The kernels line (before the last) has one entry per kernel with its
 launches on its main path (for composite_rows and the row gather, off the
@@ -3643,6 +3663,416 @@ def phase_slots(dev):
     return out
 
 
+# -- phase 4c (mesh): the golden corpus' adversarial scenes ------------------
+# (scene, size, intensity, columns it starts before the first shard
+# boundary at column 128), as tests/test_torch_render_corpus.py builds them
+def _corpus_scenes():
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    stacks = rng.uniform(-200, 200, size=(6, 3)).astype(np.float32)
+    coincident = np.zeros((48, 4), np.float32)
+    coincident[:, :3] = np.repeat(stacks, 8, axis=0)
+    coincident[:, 3] = rng.uniform(0, 12, size=48).astype(np.float32)
+    gx, gy = np.meshgrid(np.linspace(-240, 240, 9, dtype=np.float32),
+                         np.linspace(-120, 120, 5, dtype=np.float32))
+    plane = np.zeros((gx.size, 4), np.float32)
+    plane[:, 0], plane[:, 1] = gx.ravel(), gy.ravel()
+    plane[:, 3] = np.arange(gx.size, dtype=np.float32) % 13
+    giant = np.zeros((12, 4), np.float32)
+    giant[:, 3] = np.arange(12, dtype=np.float32)
+    giant[:4, :3] = [(0.0, 0.0, 2000.0), (300.0, 100.0, 1700.0),
+                     (0.0, 0.0, 1400.0), (-350.0, -160.0, 1350.0)]
+    giant[4:, :3] = np.random.default_rng(21).uniform(
+        -300, 300, size=(8, 3)).astype(np.float32)
+    return {"coincident": (coincident, 6.0, 0.5, 28),
+            "equal_depth": (plane, 9.0, 0.8, 20),
+            "behind_and_giant": (giant, 8.0, 0.4, 6)}
+
+
+def phase_tiles_mesh(dev):
+    """The corpus' adversarial scenes (coincident stacks, one depth plane,
+    culled and giant sprites) through `Renderer.render_mesh` at D = 2 and
+    4 shards of the card, straddling a shard boundary: the sort and
+    composite_tiles kernels bitwise the plain path."""
+    import numpy as np
+    import torch
+
+    from multi_adapter_particles_torch.config import RenderConfig
+    from multi_adapter_particles_torch.models.state import (
+        PAD_POSITION,
+        ParticleState,
+    )
+    from multi_adapter_particles_torch.ops.composite import (
+        composite_tiles_plain,
+    )
+    from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable_plain
+    from multi_adapter_particles_torch.parallel import make_mesh
+    from multi_adapter_particles_torch.parallel.mesh import shard
+    from multi_adapter_particles_torch.render.camera import Camera
+    from multi_adapter_particles_torch.render.renderer import Renderer
+
+    log("phase 4c (mesh): the corpus' adversarial scenes through "
+        "render_mesh at D = 2 and 4 shards of the card, kernels vs plain")
+    for name, (scene, size, intensity, before) in _corpus_scenes().items():
+        for d in (2, 4):
+            full = np.full((128 * d, 4), PAD_POSITION, np.float32)
+            full[:, 3] = 0.0
+            full[128 - before:128 - before + scene.shape[0]] = scene
+            st = ParticleState.from_aos(full, np.zeros((128 * d, 3),
+                                                       np.float32),
+                                        device=dev)
+            mesh = make_mesh([dev] * d)
+            sh = shard(st.position, mesh)
+            outs = []
+            for plain in (False, True):
+                r = Renderer(RenderConfig(width=256, height=128))
+                if plain:
+                    r.composite, r.sort = (composite_tiles_plain,
+                                           sort_kv_stable_plain)
+                out = r.render_mesh(sh, Camera(), size, intensity, mesh)
+                if r.raise_dup_for(out):
+                    out = r.render_mesh(sh, Camera(), size, intensity, mesh)
+                outs.append(out)
+            torch.cuda.synchronize()
+            k, p = outs
+            if not torch.equal(k.frame, p.frame):
+                fail(f"render_mesh {name} D={d}: the kernels' frame differs "
+                     f"from the plain path's ({int((k.frame != p.frame).sum())}"
+                     " values)")
+            ki, pi = [tuple(int(getattr(o, f)) for f in (
+                "truncated", "span_y", "span_x")) for o in outs]
+            if ki != pi or ki[0] != 0:
+                fail(f"render_mesh {name} D={d}: (truncated, span_y, span_x)"
+                     f" {ki} vs plain {pi}")
+            if float(k.frame.max()) <= 0.0:
+                fail(f"render_mesh {name} D={d}: black frame")
+            log(f"  {name}, D={d}: bitwise the plain path, spans "
+                f"({ki[1]}, {ki[2]}), max {float(k.frame.max()):.4f}")
+
+
+# -- phase 29: the one-process mesh -------------------------------------------
+N_MESH = 1_048_576         # -preset 1m-mesh8: all_pairs on 8 shards
+MESH_STEPS = 3             # the preset's 20 steps, cut to 3
+MESH_FRAMES = 8            # the 4M central-well runs (the timer skips 3)
+N_MESH_RESCALE = 262_144   # live rescale 4 -> 2 -> 1 -> 4
+N_MESH_TREE = 1_048_576    # p3m tree on 4 shards (G = 192, B = 512)
+MESH_TREE_GRID = 192
+MESH_BUDGET_S = 60.0       # the phase's wall-clock budget
+
+
+def _mesh_adapters(d):
+    """d logical shards of cuda:0, then the CPU: the adapter list phase 29
+    swaps in for `devices.enumerate_adapters` (one card holds every
+    shard)."""
+    import torch
+
+    from multi_adapter_particles_torch.runtime import devices
+
+    name = torch.cuda.get_device_name(0)
+    gpu = torch.device("cuda", 0)
+    ads = [devices.AdapterInfo(i, gpu, "gpu", f"{name} (shard {i})")
+           for i in range(d)]
+    return ads + [devices.AdapterInfo(d, torch.device("cpu"), "cpu",
+                                      "cpu (id 0)")]
+
+
+class _Shards:
+    """Within: `devices.enumerate_adapters()` lists d shards of the card."""
+
+    def __init__(self, d):
+        self.d = d
+
+    def __enter__(self):
+        from multi_adapter_particles_torch.runtime import devices
+
+        self.old = devices.enumerate_adapters
+        devices.enumerate_adapters = lambda: _mesh_adapters(self.d)
+
+    def __exit__(self, *exc):
+        from multi_adapter_particles_torch.runtime import devices
+
+        devices.enumerate_adapters = self.old
+
+
+def _mesh_init(dev, n):
+    from multi_adapter_particles_torch.models import init as pinit
+
+    import torch
+
+    return pinit.initialize_particles_device(
+        n, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+
+def _equal_states(label, got, want):
+    import torch
+
+    for name in ("position", "velocity"):
+        a, b = getattr(got, name), getattr(want, name)
+        if not torch.equal(a, b):
+            fail(f"{label}: {name} differs ({int((a != b).sum())} values)")
+
+
+def _mesh_preset(dev):
+    """-preset 1m-mesh8 (cut to MESH_STEPS) vs the one-device -rectpair
+    run, bitwise; the step and the rectangle kernel timed at the shard
+    shapes; the ring schedule one step against the directed step."""
+    import torch
+
+    from multi_adapter_particles_torch.config import SimConfig
+    from multi_adapter_particles_torch.models import integrator
+    from multi_adapter_particles_torch.ops.allpairs import all_pairs_accel
+    from multi_adapter_particles_torch.parallel import (
+        make_mesh,
+        make_sharded_step,
+        shard_state,
+    )
+    from multi_adapter_particles_torch.parallel import mesh as M
+
+    size = ["-width", str(WIDTH), "-height", str(HEIGHT)]
+    with _Shards(8):
+        _zero_counters()
+        metrics, seen = _run_app(["-preset", "1m-mesh8", "-numparticles",
+                                  str(N_MESH), "-steps", str(MESH_STEPS)]
+                                 + size, MESH_STEPS)
+        launches = _read_counters()
+    log(f"  -preset 1m-mesh8 ({N_MESH:,} all_pairs, 8 shards, bit-stable), "
+        f"depth cut to {MESH_STEPS} steps from 20: "
+        f"{metrics['gauges']['mode_banner']!r}, launches {launches}")
+    if launches["all_pairs_rect"] != 8 * MESH_STEPS:
+        fail(f"the mesh launched the rectangle kernel "
+             f"{launches['all_pairs_rect']} times, not 8 a step")
+    if launches["all_pairs_half"] or launches["central_well"]:
+        fail("the mesh step ran another force kernel")
+    for name in ("sort_kv_stable", "composite_tiles"):
+        if launches[name] < MESH_STEPS:
+            fail(f"{name}: {launches[name]} launches in {MESH_STEPS} frames")
+    _, one = _run_app(["-force", "all_pairs", "-rectpair", "-numparticles",
+                       str(N_MESH), "-steps", str(MESH_STEPS), "-nogui",
+                       "-novsync"] + size, MESH_STEPS)
+    if not torch.equal(seen["position"], one["position"]):
+        fail("the 8-shard trajectory is not bitwise the one-device -rectpair "
+             "run's")
+    log(f"  positions after {MESH_STEPS} steps: bitwise the one-device "
+        "-rectpair run's")
+
+    cfg = SimConfig(num_particles=N_MESH, force_model="all_pairs",
+                    all_pairs_half=False)
+    st = _mesh_init(dev, N_MESH)
+    mesh = make_mesh([dev] * 8)
+    sst = shard_state(st, mesh)
+    mstep = make_sharded_step(cfg, mesh)
+    spare = sst.empty_like()
+    ostep = integrator.make_step(cfg)
+    out1 = st.empty_like()
+    mesh_ms = time_ms(lambda: mstep(sst, out=spare), reps=2, warmup=1)
+    one_ms = time_ms(lambda: ostep(st, out=out1), reps=2, warmup=1)
+    shards = list(sst.position.shards)
+    gather_ms = time_ms(lambda: M.over_groups(mesh, None, M.all_gather,
+                                              shards, dim=1), reps=10)
+    log(f"  step ms (CUDA events): mesh {mesh_ms:.3f} (the gather + 8 "
+        f"rectangle launches of 131,072 x {N_MESH:,} + Euler), one device "
+        f"-rectpair {one_ms:.3f}; the all-gather alone {gather_ms:.4f}")
+
+    phys = _ap_phys(N_MESH)
+    t = shards[0]
+    mhz = busy_clock_mhz(lambda: all_pairs_accel(t, sources=st.position,
+                                                 **phys), reps=4)
+    shapes = {}
+    for src, reps in ((st.position, 3), (t, 10)):
+        label = f"{t.shape[1]}x{src.shape[1]}"
+        ms = time_ms(lambda: all_pairs_accel(t, sources=src, **phys),
+                     reps=reps)
+        bound = issue_bound_ms(t.shape[1] * src.shape[1]
+                               * INSTR["all_pairs_rect"], mhz)
+        shapes[label] = {"ms": ms, "bound_ms": bound, "mhz": mhz}
+        log(f"  rectangle kernel at the shard shape {label}: {ms:.4f} ms, "
+            f"bound {bound:.4f} ms (FP32 issue, {mhz:.0f} MHz) -> "
+            f"{bound / ms:.1%} of it")
+
+    ring = make_sharded_step(cfg, mesh, bit_stable=False)
+    got = ring(sst).gather(dev)
+    want = ostep(st)
+    torch.cuda.synchronize()
+    check_close("ring (bit_stable=False) vs one device, positions",
+                got.position, want.position, 1e-4, 1e-3)
+    check_close("ring vs one device, velocities", got.velocity,
+                want.velocity, 1e-4, 1e-3)
+    return {"mesh_step_ms": mesh_ms, "one_device_step_ms": one_ms,
+            "gather_ms": gather_ms, "rect": shapes,
+            "launches": launches}
+
+
+def _mesh_render(dev):
+    """4M central well at 1024^2 on 4 shards: -shardrender and the gather
+    path, each frame and state bitwise the one-device split run's."""
+    import statistics
+
+    import torch
+
+    argv = ["-numparticles", str(N_MAIN), "-steps", str(MESH_FRAMES),
+            "-novsync", "-nogui", "-width", str(WIDTH), "-height",
+            str(HEIGHT)]
+    runs, counts = {}, {}
+    for label, extra in (("sharded", ["-meshdevices", "4", "-shardrender"]),
+                         ("gather", ["-meshdevices", "4"]), ("one", [])):
+        with _Shards(4):
+            _zero_counters()
+            runs[label] = _run_app(argv + extra, MESH_FRAMES)
+            counts[label] = _read_counters()
+    ms = {k: statistics.median(m["gauges"]["device_frame_ms"])
+          for k, (m, _) in runs.items()}
+    for label in ("sharded", "gather"):
+        got, want = runs[label][1], runs["one"][1]
+        if not torch.equal(got["position"], want["position"]):
+            fail(f"4M central well, {label} mesh: state differs")
+        if not torch.equal(got["frame"], want["frame"]):
+            fail(f"4M central well, {label} mesh: frame differs from the "
+                 "one-device split frame")
+        c = counts[label]
+        if c["central_well"] != 4 * MESH_FRAMES:
+            fail(f"{label}: central-well kernel launched {c['central_well']}"
+                 f" times, not 4 a frame")
+        if not (c["sort_kv_stable"] == c["composite_tiles"]
+                >= 4 * MESH_FRAMES):
+            fail(f"{label}: sort / composite_tiles launches {c}")
+    log(f"  4M central well, 1024^2, 4 shards: -shardrender and the gather "
+        f"path each bitwise the one-device split run (frame and state) "
+        f"after {MESH_FRAMES} frames; frame ms (CUDA events, median): "
+        f"sharded {ms['sharded']:.3f}, gather {ms['gather']:.3f}, one "
+        f"device {ms['one']:.3f}; launches {counts['sharded']}")
+    return {"frame_ms": ms, "launches": counts["sharded"]}
+
+
+def _mesh_forces(dev):
+    """pm_grid (dist_fft) at 4M and the p3m tree at 1M on 4 shards, one
+    step each, against the one-device step; `dropped` bitwise."""
+    from multi_adapter_particles_torch.config import SimConfig
+    from multi_adapter_particles_torch.models import integrator
+    from multi_adapter_particles_torch.ops import p3m
+    from multi_adapter_particles_torch.ops.treeforce import near_sweep
+    from multi_adapter_particles_torch.parallel import (
+        make_mesh,
+        make_sharded_step,
+        shard_state,
+    )
+
+    import torch
+
+    mesh = make_mesh([dev] * 4)
+    pm_cfg = SimConfig(num_particles=N_MAIN, force_model="pm_grid",
+                       pm_grid_size=PM_GRID, pm_distributed_fft=True)
+    st = _mesh_init(dev, N_MAIN)
+    want = integrator.make_step(pm_cfg)(st)
+    step = make_sharded_step(pm_cfg, mesh)
+    got, pm_ms = timed(lambda: step(shard_state(st, mesh)))
+    got = got.gather(dev)
+    check_close(f"pm_grid {N_MAIN:,} G={PM_GRID}, dist_fft on 4 shards vs one"
+                " device, positions", got.position, want.position, 1e-5, 1e-3)
+    del st, want, got
+    torch.cuda.empty_cache()
+
+    tcfg = SimConfig(num_particles=N_MESH_TREE, force_model="p3m",
+                     p3m_near_mode="tree", pm_grid_size=MESH_TREE_GRID,
+                     tree_half_force=False)
+    st = _mesh_init(dev, N_MESH_TREE)
+    _, dropped = p3m.p3m_accel_with_overflow(
+        st.position, grid=MESH_TREE_GRID, box=tcfg.pm_box,
+        g_const=tcfg.mass * tcfg.interaction_scale,
+        softening_squared=tcfg.softening_squared,
+        cutoff_cells=tcfg.p3m_cutoff_cells, near_mode="tree")
+    want = integrator.make_step(tcfg)(st)
+    step = make_sharded_step(tcfg, mesh)
+    near_sweep.launches = 0
+    got, tree_ms = timed(lambda: step(shard_state(st, mesh)))
+    sweeps = near_sweep.launches
+    got = got.gather(dev)
+    if sweeps != 4:
+        fail(f"p3m tree on 4 shards: {sweeps} directed sweeps, not one a "
+             "shard")
+    if step.overflow != dropped:
+        fail(f"p3m tree on 4 shards: dropped {step.overflow}, one device "
+             f"{dropped}")
+    check_close(f"p3m tree {N_MESH_TREE:,} G={MESH_TREE_GRID} on 4 shards vs"
+                " the one-device directed step, positions", got.position,
+                want.position, 1e-5, 1e-3)
+    dv = (got.velocity - want.velocity).double()
+    rms = float(dv.pow(2).mean().sqrt()) / float(
+        (want.velocity - st.velocity).abs().max())
+    log(f"  p3m tree: dropped {dropped} on every shard and on one device; "
+        f"velocity RMS difference {rms:.3e} of the step's max |dv| (gate "
+        "1%, the JAX suite's P3M RMS gate); "
+        f"step ms: pm_grid {pm_ms:.2f}, p3m tree {tree_ms:.2f} (first "
+        "call, host walk included)")
+    if not rms < 0.01:  # the JAX suite's P3M RMS gate, 1%
+        fail(f"p3m tree on 4 shards: RMS {rms:.3e} of the step's max |dv|")
+    return {"pm_step_ms": pm_ms, "tree_step_ms": tree_ms,
+            "dropped": int(dropped), "tree_rms": rms}
+
+
+def _mesh_rescale(dev):
+    """All-pairs 262,144 (bit-stable) through the meshdevices control 4 ->
+    2 -> 1 -> 4, bitwise a bare one-device run; drain + reshard ms."""
+    from multi_adapter_particles_torch.config import (
+        AppConfig,
+        RenderConfig,
+        SimConfig,
+    )
+    from multi_adapter_particles_torch.runtime.compute_engine import (
+        ComputeEngine,
+    )
+    from multi_adapter_particles_torch.runtime.controls import apply_control
+    from multi_adapter_particles_torch.runtime.orchestrator import (
+        ParticlesApp,
+    )
+
+    cfg = SimConfig(num_particles=N_MESH_RESCALE, force_model="all_pairs",
+                    all_pairs_half=False)
+    with _Shards(4):
+        app = ParticlesApp(
+            AppConfig(num_particles=N_MESH_RESCALE, vsync=False, gui=False),
+            cfg, RenderConfig(width=512, height=512), compute_adapter=0,
+            mesh_devices=4)
+        ref = ComputeEngine(cfg, dev, seed=0)
+        app.draw()
+        ref.simulate()
+        for k in (2, 1, 4):
+            apply_control(app, "meshdevices", k)
+            app.draw()
+            ref.simulate()
+        app.shutdown()
+    if app.compute.mesh.size != 4:
+        fail("the rescale did not end on 4 shards")
+    _equal_states("live rescale 4 -> 2 -> 1 -> 4", app.compute.state,
+                  ref.state)
+    ms = app.metrics.gauges["reconfig_ms"]
+    log(f"  live rescale 4 -> 2 -> 1 -> 4 @{N_MESH_RESCALE:,} all_pairs: "
+        f"bitwise a bare one-device run after 4 steps; drain + reshard ms "
+        + ", ".join(f"{x:.2f}" for x in ms))
+    return {"reconfig_ms": ms}
+
+
+def phase_mesh(dev):
+    import torch
+
+    t0 = time.perf_counter()
+    log("phase 29: the one-process mesh — D logical shards of cuda:0 (one "
+        "card holds every shard; no mesh over distinct GPUs is measured)")
+    out = {"preset": _mesh_preset(dev)}
+    torch.cuda.empty_cache()
+    out["render"] = _mesh_render(dev)
+    torch.cuda.empty_cache()
+    out["forces"] = _mesh_forces(dev)
+    torch.cuda.empty_cache()
+    out["rescale"] = _mesh_rescale(dev)
+    wall = time.perf_counter() - t0
+    out["wall_s"] = wall
+    log(f"  phase 29: {wall:.1f} s wall (budget {MESH_BUDGET_S:.0f} s)")
+    if wall > MESH_BUDGET_S:
+        fail(f"phase 29 took {wall:.1f} s, over its {MESH_BUDGET_S:.0f} s")
+    return out
+
+
 def main() -> int:
     phase_device()
     import torch
@@ -3654,6 +4084,7 @@ def main() -> int:
     comp, main_call = phase_composite(dev)
     tiles = phase_tiles(dev, main_call)
     del main_call
+    phase_tiles_mesh(dev)
     torch.cuda.empty_cache()
     sort, gather_args = phase_sort(dev)
     gather = phase_gather(dev, gather_args)
@@ -3708,6 +4139,8 @@ def main() -> int:
     utilities = phase_utilities(dev)
     torch.cuda.empty_cache()
     slots = phase_slots(dev)
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(dev)
 
     def entry(name, source, replaces, launches, stats):
         """`replaces`: the TPU kernel's file:line from the repository root
@@ -3782,6 +4215,7 @@ def main() -> int:
         f"@1M: {json.dumps(var_1m)}")
     log(f"half-pair generations, kernel vs twin: {json.dumps(gen_check)}; "
         f"@1M: {json.dumps(gen_1m)}")
+    log(f"mesh (D shards of one card): {json.dumps(mesh, default=str)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

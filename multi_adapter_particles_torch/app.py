@@ -19,13 +19,13 @@ metrics JSON, hard-sync stage profiling, the conservation gauges
 (diagnostics, diagmode), the key-driven loop (interactive), the
 validation layer (debug), a torch.profiler trace (trace; timerwindow is
 accepted and has no effect), checkpoints (checkpoint, checkpointevery,
-resume) and the dashboard (dashboard, serve). For `-force p3m` the JAX CLI's startup probe runs on
+resume), the dashboard (dashboard, serve) and the one-process mesh
+(meshdevices, shardrender: compute sharded over N devices of the compute
+adapter's platform, the render gathered or sharded too). For `-force p3m` the JAX CLI's startup probe runs on
 the port's own device init: it resolves `-p3mnear auto` to the slot or the
 tree near field, picks the grid when `-pmgrid` is absent and sizes the
-tree's pair budgets, optionally through the probe cache. The multi-device
-flags and the preset that needs them belong to a slice not ported yet, and
-`-compilecache` has no CUDA counterpart: they exit with status 2 and say
-so.
+tree's pair budgets, optionally through the probe cache. `-compilecache`
+has no CUDA counterpart: it exits with status 2 and says so.
 """
 
 from __future__ import annotations
@@ -38,15 +38,6 @@ from typing import Callable, List, Optional
 from multi_adapter_particles_torch.config import AppConfig, RenderConfig, SimConfig
 from multi_adapter_particles_torch.utils.argparser import ArgParser
 
-# Flags of the JAX package's CLI whose slice is not ported yet, with the
-# ROADMAP queue 1 item that brings each.
-_LATER_FLAGS = {
-    "meshdevices": "item 14",
-    "shardrender": "item 14",
-    "compilecache": "(no CUDA counterpart)",
-}
-# flags among those that take a value
-_LATER_VALUED = {"meshdevices", "compilecache"}
 # frames between two -dashboard page writes
 DASHBOARD_EVERY = 30
 
@@ -215,15 +206,17 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
               lambda v: extra.__setitem__("resume", v))
     p.add_flag("listadapters", "print the adapter list and exit",
                lambda: extra.__setitem__("list_adapters", True))
+    p.add_int("meshdevices", "run compute on a mesh of N devices (sharded "
+              "sim) of the compute adapter's platform",
+              lambda v: extra.__setitem__("mesh_devices", v))
+    p.add_flag("shardrender", "with -meshdevices: shard the RENDER role "
+               "over the mesh too (image-pair gather replaces the "
+               "position copy)",
+               lambda: extra.__setitem__("shard_render", True))
 
-    for name, item in _LATER_FLAGS.items():
-        msg = f"-{name}: not yet ported (ROADMAP queue 1 {item})"
-        if item.startswith("("):
-            msg = f"-{name}: not ported {item}"
-        if name in _LATER_VALUED:
-            p.add_str(name, msg, lambda v, m=msg: not_ported.append(m))
-        else:
-            p.add_flag(name, msg, lambda m=msg: not_ported.append(m))
+    # the one flag of the JAX CLI the port refuses: the XLA compile cache
+    msg = "-compilecache: not ported (no CUDA counterpart)"
+    p.add_str("compilecache", msg, lambda v: not_ported.append(msg))
     return p
 
 
@@ -329,7 +322,7 @@ def warn_slot_overflow(particles, sim_cfg: SimConfig) -> None:
     from multi_adapter_particles_torch.ops.p3m import host_overflow_count
 
     ov = host_overflow_count(
-        particles.compute.positions.cpu().numpy(), sim_cfg.pm_grid_size,
+        particles.compute.state.position.cpu().numpy(), sim_cfg.pm_grid_size,
         sim_cfg.pm_box, sim_cfg.p3m_cutoff_cells, sim_cfg.p3m_capacity)
     if ov:
         print(
@@ -499,21 +492,28 @@ def main(argv: Optional[List[str]] = None,
     )
     steps = extra.get("steps", 600)
 
-    particles = ParticlesApp(
-        app_cfg,
-        sim_cfg,
-        render_cfg,
-        compute_adapter=extra.get("compute_adapter"),
-        render_adapter=extra.get("render_adapter"),
-        seed=extra.get("seed", 0),
-        draw_enabled=extra.get("draw", True),
-        profile_every=extra.get("profile_every", 0),
-        debug=extra.get("debug", False),
-        fused=extra.get("fused", False),
-        # a -metrics dump with empty stage rows is useless: time the stages
-        # with CUDA events (non-stalling) whenever one is asked for
-        async_timers="metrics" in extra,
-    )
+    try:
+        particles = ParticlesApp(
+            app_cfg,
+            sim_cfg,
+            render_cfg,
+            compute_adapter=extra.get("compute_adapter"),
+            render_adapter=extra.get("render_adapter"),
+            seed=extra.get("seed", 0),
+            draw_enabled=extra.get("draw", True),
+            profile_every=extra.get("profile_every", 0),
+            debug=extra.get("debug", False),
+            fused=extra.get("fused", False),
+            # a -metrics dump with empty stage rows is useless: time the
+            # stages with CUDA events (non-stalling) whenever one is asked
+            # for
+            async_timers="metrics" in extra,
+            mesh_devices=extra.get("mesh_devices", 0),
+            shard_render=extra.get("shard_render", False),
+        )
+    except ValueError as e:  # a mesh larger than the platform, fused + mesh
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     if "probe_s" in extra:
         particles.metrics.gauge("probe_s", extra["probe_s"])
     if "timer_window_every" in extra:

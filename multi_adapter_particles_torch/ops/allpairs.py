@@ -54,6 +54,8 @@ HALF_SCRATCH_BYTES = 1 << 30
 
 # elements of one [Ni, tj] pair plane in the twins (bounds their memory)
 _PLANE_ELEMS = 1 << 24
+# source tile of the rectangle's twin
+_PLAIN_TJ = 2048
 
 
 def _pair_terms(xi, yi, zi, src, eps2):
@@ -87,13 +89,17 @@ def all_pairs_accel_plain(
     [4, Nj], default position) -> [4, Ni], in position's dtype."""
     src = position if sources is None else sources
     ni, nj = position.shape[1], src.shape[1]
-    xi, yi, zi = (position[k][:, None] for k in range(3))
     acc = torch.zeros((3, ni), dtype=position.dtype, device=position.device)
-    tj = max(128, _PLANE_ELEMS // max(ni, 1))
-    for j0 in range(0, nj, tj):
-        tx, ty, tz = _pair_terms(xi, yi, zi, src[:3, j0:j0 + tj],
-                                 softening_squared)
-        acc += torch.stack([tx.sum(1), ty.sum(1), tz.sum(1)])
+    # fixed source tiles: a target's sum does not depend on how many
+    # targets share the call (the mesh's bit-stable step runs 1/D of them)
+    ti = _PLANE_ELEMS // _PLAIN_TJ
+    for i0 in range(0, ni, ti):
+        xi, yi, zi = (position[k, i0:i0 + ti][:, None] for k in range(3))
+        for j0 in range(0, nj, _PLAIN_TJ):
+            tx, ty, tz = _pair_terms(xi, yi, zi, src[:3, j0:j0 + _PLAIN_TJ],
+                                     softening_squared)
+            acc[:, i0:i0 + ti] += torch.stack([tx.sum(1), ty.sum(1),
+                                               tz.sum(1)])
     return _finish(acc, float(mass) * float(interaction_scale))
 
 

@@ -738,12 +738,15 @@ def tree_lists(position: Tensor, box: float, r_c: float, near_grid: int,
                pair_chunk: Optional[int] = None,
                sub_pair_budget: Optional[int] = None,
                half_force: bool = False,
-               half_pairs: bool = False) -> TreeLists:
+               half_pairs: bool = False,
+               block_owner_fn=None) -> TreeLists:
     """The tree walk of `near_field_tree`: Morton sort and parking, block
     AABBs, the [nb, nb] adjacency, its compaction under the budget (halved
     where the Newton-3rd gate holds, or for the potential gauge's
-    `half_pairs`) and, for blocks wider than the sweep, the sub-block
-    expansion (halved again inside parent diagonals under `half_pairs`)."""
+    `half_pairs`), the pairs whose target block `block_owner_fn` does not
+    own taken out (after the budget, so `dropped` is the global count)
+    and, for blocks wider than the sweep, the sub-block expansion (halved
+    again inside parent diagonals under `half_pairs`)."""
     if half_force and half_pairs:
         raise ValueError("half_force (the force sweep) and half_pairs (the "
                          "potential gauge) halve different sweeps")
@@ -786,8 +789,10 @@ def tree_lists(position: Tensor, box: float, r_c: float, near_grid: int,
     # half_force is the caller's (SimConfig.tree_half_force, as in the JAX
     # package); PERF.md §7 has the two sweeps' measured times. The
     # potential gauge's half_pairs halves the list too, but its directed
-    # sweep weights the diagonal pairs instead.
-    n3 = bool(half_force) and block <= _SWEEP_MAX_BLOCK
+    # sweep weights the diagonal pairs instead. An owner function turns
+    # the halved force sweep off: its j-side crosses target ownership.
+    n3 = (bool(half_force) and block <= _SWEEP_MAX_BLOCK
+          and block_owner_fn is None)
     halved = n3 or bool(half_pairs)
     if halved:
         m = m & (col[None, :] >= col[:, None])
@@ -805,12 +810,16 @@ def tree_lists(position: Tensor, box: float, r_c: float, near_grid: int,
     sweep_i, sweep_j = listed // nb, listed % nb
     spos = torch.stack([sx, sy, sz, torch.zeros_like(sx)])
     sweep_block, sweep_nb, bounds = block, nb, None
-    pairs = int(listed.numel())
+    wide = not n3 and block > _SWEEP_MAX_BLOCK
+    if block_owner_fn is not None and not wide:
+        owned = block_owner_fn(sweep_i)
+        sweep_i, sweep_j = sweep_i[owned], sweep_j[owned]
+    pairs = int(sweep_i.numel())
     if not n3:
-        if block > _SWEEP_MAX_BLOCK:
+        if wide:
             sweep_i, sweep_j, sweep_nb, pairs, shortfall = _expand(
                 sweep_i, sweep_j, nb, block, sx, sy, sz, live_flat, rc2,
-                sub_pair_budget, half_pairs)
+                sub_pair_budget, half_pairs, block_owner_fn)
             sweep_block = _SWEEP_MAX_BLOCK
             dropped += shortfall
         bounds = pm._segment_bounds(sweep_i, sweep_nb)
@@ -876,22 +885,24 @@ def near_field_tree(
     the directed one's to float32 rounding but whose entries are no longer
     per-particle; `total_only` (requires `potential_only`) returns the
     scalar Σu (a 0-d tensor: the block-order sum, no un-sort). Budgets keep
-    their directed-count meaning under `half_pairs`. The mesh
-    (`block_owner_fn`) belongs to a later slice and raises."""
+    their directed-count meaning under `half_pairs`.
+
+    `block_owner_fn` (mesh runs): maps target block ids (an int tensor) to
+    "this rank owns these targets"; pairs of blocks it does not own are
+    not swept, so the result is a PARTIAL near field (its other targets 0,
+    and so u) that sums over the mesh to the whole one, each block owned
+    once. It selects the directed force sweep. `dropped` stays the global
+    count, the same on every rank."""
     _variant(with_potential, potential_only, half_pairs)
     if total_only and not potential_only:
         raise ValueError("total_only requires potential_only=True")
     if half_force and with_potential:
         raise ValueError("half_force is a force-trace option "
                          "(with_potential computes its own channels)")
-    if block_owner_fn is not None:
-        raise NotImplementedError(
-            "block_owner_fn (mesh runs) is not ported to "
-            "multi_adapter_particles_torch yet (ROADMAP queue 1 item 14)")
     lists = tree_lists(position, box, r_c, near_grid, block=block,
                        pair_budget=pair_budget, pair_chunk=pair_chunk,
                        sub_pair_budget=sub_pair_budget, half_force=half_force,
-                       half_pairs=half_pairs)
+                       half_pairs=half_pairs, block_owner_fn=block_owner_fn)
     acc = tree_sweep(lists, eps2, r_c, with_potential=with_potential,
                      potential_only=potential_only)
     if not with_potential:
@@ -899,11 +910,15 @@ def near_field_tree(
     # Every live particle picked up u_short(0) from its own self pair once
     # (half of it under half_pairs, whose diagonal pairs weigh 1/2), and
     # co-parked dead lanes from each other: subtract the one, zero the
-    # others, in sorted order.
+    # others (and, on a mesh, the blocks of other ranks), in sorted order.
     u_self = potential_self(eps2, r_c * _SIGMA_PER_CUTOFF, acc.device)
     if half_pairs:
         u_self *= 0.5
-    acc_u = torch.where(lists.live, acc[3] - u_self, 0.0)
+    gate = lists.live
+    if block_owner_fn is not None:
+        ids = torch.arange(lists.nb, device=acc.device)
+        gate = gate & block_owner_fn(ids).repeat_interleave(lists.block)
+    acc_u = torch.where(gate, acc[3] - u_self, 0.0)
     scale = pm._f32(g_const)
     if potential_only:
         u_scale = scale * 2.0 if half_pairs else scale
@@ -931,14 +946,16 @@ def unsort(lists: TreeLists, acc: Tensor, g_const: float) -> Tensor:
 
 
 def _expand(i_idx, j_idx, nb, block, sx, sy, sz, live_flat, rc2,
-            sub_pair_budget, half_pairs=False):
+            sub_pair_budget, half_pairs=False, owner=None):
     """Split each listed wide block pair into split² sub-block pairs at the
     sweep width, drop those whose sub-AABBs are farther apart than r_c
     (and, under `half_pairs`, the sub-pairs j < i that a parent diagonal
-    pair expands to), sort i-major (stable) and truncate to
-    `sub_pair_budget` (a directed count, halved here under `half_pairs`).
-    -> (sweep_i with dead entries at sweep_nb, sweep_j, sweep_nb, live
-    sub-pairs kept, live sub-pairs past the budget)."""
+    pair expands to, and those whose parent target block `owner` does not
+    own), sort i-major (stable) and truncate to `sub_pair_budget` (a
+    directed count, halved here under `half_pairs`). -> (sweep_i with dead
+    entries at sweep_nb, sweep_j, sweep_nb, live sub-pairs kept, live
+    sub-pairs past the budget). The shortfall counts the sub-pairs of
+    every owner (the global count, the same on every rank)."""
     split = block // _SWEEP_MAX_BLOCK
     sweep_nb = nb * split
     a_off = torch.arange(split, device=i_idx.device)
@@ -953,10 +970,13 @@ def _expand(i_idx, j_idx, nb, block, sx, sy, sz, live_flat, rc2,
         # parent i < j pairs always give j_e > i_e: this prunes only
         # inside parent diagonals
         near_e = near_e & (j_e >= i_e)
+    live_e = int(near_e.sum())
+    if owner is not None:
+        near_e = near_e & owner(i_e // split)
+    kept = int(near_e.sum()) if owner is not None else live_e
     i_e = torch.where(near_e, i_e, sweep_nb)
     sweep_i, order = torch.sort(i_e, stable=True)
     sweep_j = j_e[order]
-    live_e = int(near_e.sum())
     shortfall = 0
     if sub_pair_budget is not None:
         keep = max(2, sub_pair_budget)
@@ -966,8 +986,9 @@ def _expand(i_idx, j_idx, nb, block, sx, sy, sz, live_flat, rc2,
             keep = (keep + sweep_nb) // 2 + 2
         keep = int(min(i_e.shape[0], keep))
         shortfall = max(live_e - keep, 0)
+        kept = min(kept, keep)
         sweep_i, sweep_j = sweep_i[:keep], sweep_j[:keep]
-    return sweep_i, sweep_j, sweep_nb, live_e - shortfall, shortfall
+    return sweep_i, sweep_j, sweep_nb, kept, shortfall
 
 
 # -- host probes (numpy copies of the device walk's pruning rule) -------------

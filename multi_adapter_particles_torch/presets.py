@@ -3,8 +3,7 @@
 The port's copy of the JAX package's `presets.py` (the same dict, so
 `-preset NAME` means the same run in both CLIs). Each preset is a dict of
 (AppConfig fields, extra CLI keys) applied by `-preset NAME`; later flags
-override. The presets whose slices are not ported yet are refused with the
-ROADMAP queue 1 item that brings them.
+override. Every preset of the JAX package runs on the port.
 """
 
 from __future__ import annotations
@@ -75,21 +74,12 @@ PRESETS = {
 }
 
 
-# Presets of slices not ported yet, with their ROADMAP queue 1 items.
-NOT_PORTED = {
-    "1m-mesh8": "item 14",
-}
-
-
 def apply_preset(name: str, app_cfg, extra: dict) -> Optional[str]:
     """Apply preset `name` to `app_cfg` / `extra`. Returns None, or the
-    error for a preset that is unknown or not ported yet (nothing applied)."""
+    error for an unknown preset (nothing applied)."""
     if name not in PRESETS:
         return (f"unknown preset {name!r}; available: "
                 f"{', '.join(sorted(PRESETS))}")
-    if name in NOT_PORTED:
-        return (f"-preset {name}: not yet ported (ROADMAP queue 1 "
-                f"{NOT_PORTED[name]})")
     p = PRESETS[name]
     for k, v in p["app"].items():
         setattr(app_cfg, k, v)

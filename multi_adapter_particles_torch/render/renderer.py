@@ -37,7 +37,9 @@ What changed against the JAX package, and why it is the same result:
   below 2^24): the same order.
 
 `truncated` counts sprite-tile entries outside the dup_y x dup_x candidate
-window.
+window. States past `chunk_threshold` render in id-ordered chunks folded
+through the associative composite (`_chunked_fold`); `Renderer.render_mesh`
+does the same with each chunk a rank's shard on its own device.
 """
 
 from __future__ import annotations
@@ -380,11 +382,10 @@ class Renderer:
         # the same frame immediately.
         self.auto_raise_dup = auto_raise_dup
         self.last_truncated = 0
-        # Per-frame scalar cache: a static camera and unchanged
+        # Per-frame scalar cache, per device: a static camera and unchanged
         # size/intensity reuse the same device scalars instead of six small
         # host->device copies per frame.
-        self._arg_key = None
-        self._arg_dev = None
+        self._args = {}
         # States above the threshold render in `chunk_size`-particle chunks
         # folded through the associative composite (bounded memory at any
         # N); the JAX package's sizes, so the 4M default renders as 4 x 1M.
@@ -481,13 +482,77 @@ class Renderer:
     def _device_args(self, camera, particle_size, particle_intensity, device):
         """Camera/scalar device arguments through the per-frame cache."""
         host = self.frame_args(camera, particle_size, particle_intensity)
-        akey = (host[0].tobytes(), *host[1:], str(device))
-        if akey != self._arg_key:
-            self._arg_dev = (torch.tensor(host[0], device=device), *(
+        akey = (host[0].tobytes(), *host[1:])
+        hit = self._args.get(str(device))
+        if hit is None or hit[0] != akey:
+            hit = (akey, (torch.tensor(host[0], device=device), *(
                 torch.tensor(x, dtype=torch.float32, device=device)
-                for x in host[1:]))
-            self._arg_key = akey
-        return self._arg_dev
+                for x in host[1:])))
+            self._args[str(device)] = hit
+        return hit[1]
+
+    def render_mesh(
+        self,
+        position,
+        camera: Camera,
+        particle_size: float,
+        particle_intensity: float,
+        mesh,
+        num_draw: Optional[int] = None,
+        seg_q: Optional[int] = None,
+        device=None,
+    ) -> FrameOutput:
+        """Mesh-sharded frame of `position` (a `parallel.mesh.Sharded`
+        [4, N] over `mesh`): each rank renders its id-contiguous columns
+        on its own device to a premultiplied (color, transmittance) pair
+        (`_render(..., return_trans=True)` with its global id offset and
+        its slice of the num_draw prefix), and the pairs fold in id order
+        on `device` (default: the first rank's) — `_chunked_fold`'s
+        association at chunk = N / D, so the frame is bitwise the chunked
+        one at that partition. Truncated counts sum and spans take the
+        max. Only image pairs cross devices, O(pixels x ranks) whatever N
+        (the reference copies every position to its render adapter,
+        `Render.cpp:814`)."""
+        cfg = self.config
+        n = position.shape[1]
+        d = mesh.size
+        if n % (d * 128):
+            raise ValueError(
+                f"render_mesh needs the padded particle count ({n}) "
+                f"divisible by devices x lanes ({d} x 128); pad the state "
+                "(models/state.py pads to 128 lanes — choose a mesh whose "
+                "size divides the lane count)")
+        cn = n // d
+        self._last_n = n
+        self._last_sort_n = cn
+        nd = int(n if num_draw is None else num_draw)
+        device = torch.device(mesh.devices[0] if device is None else device)
+        kw = dict(width=cfg.width, height=cfg.height,
+                  seg_q=self.resolve_seg_q(cn, seg_q), dup_y=self.dup_y,
+                  dup_x=self.dup_x, near=cfg.near, blend=self.blend,
+                  return_trans=True, composite=self.composite,
+                  sort=self.sort)
+        cf = tf = trunc = sy = sx = None
+        for r, chunk in enumerate(position.shards):
+            args = self._device_args(camera, particle_size,
+                                     particle_intensity, chunk.device)
+            out = _render(chunk, *args, _chunk_draw(nd, r * cn, cn), r * cn,
+                          **kw)
+            c, t = out.frame.to(device), out.trans.to(device)
+            if cf is None:
+                cf, tf = c, t
+                trunc, sy, sx = (x.to(device) for x in (
+                    out.truncated, out.span_y, out.span_x))
+            else:
+                cf = c + cf * t[..., None]
+                tf = tf * t
+                trunc = trunc + out.truncated.to(device)
+                sy = torch.maximum(sy, out.span_y.to(device))
+                sx = torch.maximum(sx, out.span_x.to(device))
+        frame = torch.clamp(cf, 0.0, 1.0)
+        if cfg.frame_uint8:
+            frame = (frame * 255.0 + 0.5).to(torch.uint8)
+        return FrameOutput(frame, trunc, sy, sx)
 
     def raise_dup_for(self, out: FrameOutput) -> bool:
         """Grow the dup window to a frame's measured max sprite span (three

@@ -22,8 +22,8 @@ each frame. An adapter change is applied at the end of the next frame
 (drain, state migration, engine rebuild); in fused mode both roles must
 move before that frame, or its rebuild raises `ValueError`.
 
-`meshdevices` (the JAX package's mesh rescale) raises
-`NotImplementedError`: the multi-device paths are ROADMAP queue 1 item 14.
+`meshdevices` rescales the compute mesh live (`set_mesh_devices`: drain,
+reshard, resume; <= 1 goes back to one device), applied at once.
 """
 
 from __future__ import annotations
@@ -104,9 +104,8 @@ def apply_control(particles, name: str, value) -> str:
         particles.set_render_adapter(idx)
         return f"render adapter -> {idx}"
     if name == "meshdevices":
-        raise NotImplementedError(
-            "meshdevices: the multi-device paths are not ported to "
-            "multi_adapter_particles_torch yet (ROADMAP queue 1 item 14)")
+        particles.set_mesh_devices(int(value))
+        return f"mesh devices -> {int(value)}"
     raise KeyError(f"unknown control {name!r}")
 
 

@@ -27,8 +27,12 @@ ends) in the `reconfig_ms` gauge. `debug=True` runs the validation layer
 at the next split step (fused frames run on the current stream). At `shutdown` the slot near field's overflow count of
 the last step is published as the `p3m_overflow` gauge.
 
-Not ported yet, and raising: mesh compute and sharded render (ROADMAP
-queue 1 item 14).
+`mesh_devices` > 1 runs the compute role on a mesh of that many devices of
+the compute adapter's platform (`parallel.MeshComputeEngine`); the render
+role gathers the shards, or with `shard_render` renders sharded over the
+same mesh (`Renderer.render_mesh`). `set_mesh_devices` (the `meshdevices`
+control) rescales the mesh live: drain, reshard, resume. A compute-adapter
+change collapses the mesh back to one device.
 """
 
 from __future__ import annotations
@@ -37,6 +41,11 @@ import time
 from typing import List, Optional
 
 from multi_adapter_particles_torch.config import AppConfig, RenderConfig, SimConfig
+from multi_adapter_particles_torch.parallel import (
+    MeshComputeEngine,
+    Sharded,
+    make_mesh,
+)
 from multi_adapter_particles_torch.runtime import devices as devmod
 from multi_adapter_particles_torch.runtime.compute_engine import ComputeEngine
 from multi_adapter_particles_torch.runtime.fused import FusedEngine
@@ -47,13 +56,6 @@ from multi_adapter_particles_torch.render.renderer import Renderer
 from multi_adapter_particles_torch.utils import debug as dbg
 from multi_adapter_particles_torch.utils.extension import ExtensionHelper
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to multi_adapter_particles_torch yet "
-        f"(ROADMAP queue 1 {item})"
-    )
 
 
 class ParticlesApp:
@@ -79,10 +81,11 @@ class ParticlesApp:
         stages with a hard sync every K-th frame (split mode only). `fused`
         runs the fused single-program frame on one device. `debug` checks
         the state and the buffer hand-off after every frame (one host read
-        a frame; `DebugValidationError` on a fault)."""
-        if mesh_devices > 1 or shard_render:
-            raise _not_ported("mesh compute / sharded render", "item 14")
+        a frame; `DebugValidationError` on a fault). `mesh_devices` > 1
+        and `shard_render`: see the module docstring."""
         self.debug = debug
+        self.mesh_devices = mesh_devices
+        self.shard_render = shard_render
         self.app = app_config or AppConfig()
         self.sim_config = sim_config or SimConfig(
             num_particles=self.app.num_particles
@@ -107,7 +110,8 @@ class ParticlesApp:
             # fused = the single-adapter async-compute analog: an
             # unspecified assignment binds both roles to one device
             render_ad = compute_ad
-        if fused and compute_ad.device != render_ad.device:
+        if fused and (mesh_devices > 1
+                      or compute_ad.device != render_ad.device):
             raise ValueError("fused mode needs a single shared device (the "
                              "async-compute analog)")
         self.compute_adapter = compute_ad
@@ -128,10 +132,15 @@ class ParticlesApp:
                 compute_ad.device, self.metrics, seed=seed)
             self.compute = self.render = self.fused_engine
         else:
-            self.compute = ComputeEngine(
-                self.sim_config, compute_ad.device, self.metrics, seed=seed,
-                extension=self.extension,
-            )
+            if mesh_devices > 1:
+                self.compute = MeshComputeEngine(
+                    self.sim_config, self._make_mesh(mesh_devices),
+                    self.metrics, seed=seed)
+            else:
+                self.compute = ComputeEngine(
+                    self.sim_config, compute_ad.device, self.metrics,
+                    seed=seed, extension=self.extension,
+                )
             self.render = RenderEngine(
                 self._active_render_config(), render_ad.device, self.metrics
             )
@@ -148,20 +157,70 @@ class ParticlesApp:
         the runtime fullscreen toggle is on (`Render.cpp:287-413`)."""
         return self.render_config.resolved(self.app.fullscreen)
 
+    def _make_mesh(self, k: int):
+        """A k-rank mesh over the adapters of the compute platform."""
+        found = [a.device for a in self.adapters
+                 if a.platform == self.compute_adapter.platform][:k]
+        if len(found) < k:
+            raise ValueError(
+                f"mesh of {k} requested but only {len(found)} "
+                f"{self.compute_adapter.platform} devices exist")
+        return make_mesh(found)
+
     # -- handle brokering (`Particles::ShareHandles`, Particles.cpp:191-208) ----
     def share_handles(self) -> None:
         self._display_positions = self.compute.positions
-        self.async_mode = (
-            self.compute_adapter.device == self.render_adapter.device
-        )
-        self.metrics.gauge(
-            "mode_banner",
-            "Single Adapter with Async Compute (fused single-program)"
-            if self.fused_engine is not None
-            else devmod.mode_banner(self.compute_adapter, self.render_adapter),
-        )
+        if self.mesh_devices > 1:
+            self.async_mode = False
+            sharded_render = self.shard_render and isinstance(
+                self.render, RenderEngine)
+            if sharded_render:
+                self.render.mesh = self.compute.mesh
+            self.metrics.gauge(
+                "mode_banner",
+                f"Multi-Chip Mesh Compute ({self.mesh_devices} devices)"
+                + (" + sharded render" if sharded_render
+                   else " + render consume"))
+            self.metrics.gauge("mesh", f"{self.mesh_devices}x1 particles-axis")
+        else:
+            if isinstance(self.render, RenderEngine):
+                self.render.mesh = None  # one device again: the gather path
+            self.async_mode = (
+                self.compute_adapter.device == self.render_adapter.device
+            )
+            self.metrics.gauge(
+                "mode_banner",
+                "Single Adapter with Async Compute (fused single-program)"
+                if self.fused_engine is not None
+                else devmod.mode_banner(self.compute_adapter,
+                                        self.render_adapter),
+            )
         self.metrics.gauge("compute_device", self.compute_adapter.description)
         self.metrics.gauge("render_device", self.render_adapter.description)
+
+    # -- elastic mesh rescale (the JAX package's runtime shard rebalancing) -----
+    def set_mesh_devices(self, k: int) -> None:
+        """Live-rescale the compute role to a k-device mesh (or back to one
+        device with k <= 1): drain, reshard, resume. Counted like any
+        reconfiguration (`reconfigurations`, `reconfig_ms`)."""
+        if self.fused_engine is not None:
+            raise ValueError("fused mode needs a single shared device (the "
+                             "async-compute analog)")
+        mesh = self._make_mesh(k) if k > 1 else None
+        t0 = time.perf_counter()
+        self.pacing.drain()
+        self.render.wait_for_gpu()
+        self.compute.wait_for_gpu()
+        if mesh is not None:
+            self.compute = MeshComputeEngine(
+                self.sim_config, mesh, self.metrics, prev=self.compute)
+        else:
+            self.compute = ComputeEngine(
+                self.sim_config, self.compute_adapter.device, self.metrics,
+                prev=self.compute, extension=self.extension)
+        self.mesh_devices = k
+        self.share_handles()
+        self._count_reconfiguration(t0)
 
     # -- per-frame pipeline -------------------------------------------------------
     def draw(self) -> None:
@@ -225,6 +284,8 @@ class ParticlesApp:
                     if self.draw_enabled and self.render.last_frame is not None
                     else self._display_positions
                 )
+                if isinstance(src, Sharded):  # the mesh's last launch
+                    src = src.shards[-1]
                 self.pacing.push(src)
 
         if self.debug:
@@ -311,7 +372,12 @@ class ParticlesApp:
             self._prev_fullscreen = self.app.fullscreen
 
         if cchange:
-            # New engine on the new device, migrating state (CopyState).
+            # New engine on the new device, migrating state (CopyState). A
+            # compute-adapter change while a mesh is active collapses the
+            # mesh back to one device: its bookkeeping goes first.
+            if self.mesh_devices > 1:
+                self.mesh_devices = 0
+                self.metrics.gauges.pop("mesh", None)
             self._restart_timer()
             self.extension = self._new_extension()
             self.compute = ComputeEngine(

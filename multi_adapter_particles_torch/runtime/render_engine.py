@@ -18,8 +18,13 @@ queue fills from the cross-adapter shared heap each frame
   (async); `present()` blocks on it with ONE host read of a 4-element
   tensor (fence anchor + truncated + span_y + span_x).
 
-The mesh-sharded render of the JAX package is not ported (ROADMAP queue 1
-item 14); the orchestrator raises for it.
+- positions sharded over a mesh (`parallel.mesh.Sharded`, from a
+  `MeshComputeEngine`) are gathered onto the render device: the copy
+  queue becomes a gather of the shards (never zero-copy);
+- with `mesh` set (the orchestrator's `-shardrender`), a frame renders
+  sharded over that mesh instead (`Renderer.render_mesh`): no position
+  copy, the ranks' (color, transmittance) image pairs are the only
+  traffic, counted in `transfer_bytes` as the JAX package counts them.
 """
 
 from __future__ import annotations
@@ -72,29 +77,40 @@ class RenderEngine:
         self._local: Optional[torch.Tensor] = None
         self._local_owned = False
         self._frame: Optional[FrameOutput] = None
+        # When set (orchestrator, -shardrender), frames render sharded over
+        # this mesh (renderer.render_mesh).
+        self.mesh = None
 
     # -- copy stage (the copy-queue analog) -------------------------------------
     def copy_simulation_results(
-        self, shared_positions: torch.Tensor, num_copy: Optional[int] = None
+        self, shared_positions, num_copy: Optional[int] = None
     ) -> torch.Tensor:
         """Pull sim results into the render device's local buffer.
 
         Same device, full count: identity (async mode, zero copies).
         Otherwise a copy of exactly the first `num_copy` columns (rounded
-        up to the 128 multiple); the tail stays stale.
+        up to the 128 multiple); the tail stays stale. Sharded positions
+        are gathered (the same copy, from every shard it spans).
         """
         n = shared_positions.shape[1]
         nc = n if num_copy is None else min(int(num_copy), n)
         nc = min(-(-nc // 128) * 128, n)  # lane-align the slice boundary
+        sharded = not isinstance(shared_positions, torch.Tensor)
 
-        if shared_positions.device == self.device and nc >= n:
+        if (not sharded and shared_positions.device == self.device
+                and nc >= n):
             self._local = shared_positions  # zero-copy async mode: an ALIAS
             self._local_owned = False
             return self._local
 
         self.metrics.count("transfer_bytes", float(nc) * 16.0)
+        if sharded:
+            incoming = shared_positions.gather(self.device, nc)
+        else:
+            incoming = shared_positions[:, :nc]
         if nc >= n:
-            self._local = shared_positions.to(self.device, copy=True)
+            self._local = (incoming if sharded
+                           else incoming.to(self.device, copy=True))
             self._local_owned = True
             return self._local
         if (
@@ -105,19 +121,34 @@ class RenderEngine:
             # never splice into an alias of the compute state
             self._local = parked_position(n, self.device)
             self._local_owned = True
-        self._local[:, :nc].copy_(shared_positions[:, :nc])
+        self._local[:, :nc].copy_(incoming)
         return self._local
 
     # -- draw stage ----------------------------------------------------------------
     def draw(
         self,
-        shared_positions: torch.Tensor,
+        shared_positions,
         app: AppConfig,
         num_copy: Optional[int] = None,
         num_draw: Optional[int] = None,
     ) -> FrameOutput:
         """Record + launch one frame (async). The reference's
         `Render::Draw` (`Render.cpp:839-935`) minus the OS present."""
+        n = shared_positions.shape[1]
+        if self.mesh is not None and (num_copy is None or num_copy >= n):
+            # Sharded render: shards rasterize in place and the image-pair
+            # fold replaces the copy stage. A num_copy below N (the
+            # stale-tail knob) needs the local buffer: the gather path.
+            self._frame = self.renderer.render_mesh(
+                shared_positions, self.camera,
+                particle_size=app.particle_size,
+                particle_intensity=app.particle_intensity,
+                mesh=self.mesh, num_draw=num_draw, device=self.device,
+            )
+            h, w = self.config.height, self.config.width
+            self.metrics.count("transfer_bytes",
+                               float(self.mesh.size * h * w * 16))
+            return self._frame
         local = self.copy_simulation_results(shared_positions, num_copy)
         self._frame = self.renderer.render_arrays(
             local,

@@ -475,7 +475,7 @@ document.getElementById('frame').addEventListener('click', e => {{
             try:
                 self.messages.append(apply_control(self.particles, name, value))
                 applied += 1
-            except (KeyError, ValueError, NotImplementedError) as e:
+            except (KeyError, ValueError) as e:
                 self.messages.append(f"control error: {e}")
                 print(f"dashboard: control error: {e}", file=sys.stderr)
         return applied

@@ -49,16 +49,20 @@ def validate_state(state, num_particles: Optional[int] = None,
             )
 
 
-def _ptr(t: torch.Tensor):
+def _ptr(t):
+    """A tensor's storage, or the tuple of a sharded plane's storages."""
+    if not isinstance(t, torch.Tensor):
+        return tuple(_ptr(s) for s in t.shards)
     return (t.device, t.untyped_storage().data_ptr())
 
 
-def validate_handoff(compute, render, display_positions: torch.Tensor,
+def validate_handoff(compute, render, display_positions,
                      where: str = "") -> None:
     """Split mode: `display_positions` is the compute engine's newest
     state and not the spare buffer its next step writes; a render engine
-    that owns its local copy shares storage with neither compute buffer."""
-    state = compute.state.position
+    that owns its local copy shares storage with neither compute buffer.
+    A mesh engine's buffers are its sharded planes."""
+    state = compute.positions
     spare = compute._spare.position
     if _ptr(display_positions) != _ptr(state):
         raise DebugValidationError(

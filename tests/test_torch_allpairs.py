@@ -357,13 +357,16 @@ class TestCli:
         assert seen["cfg"].interaction_scale == 1.0 / 512  # auto 1/N
         assert seen["draw"] is False
 
-    @pytest.mark.parametrize("argv", [["-preset", "1m-mesh8"]])
+    @pytest.mark.parametrize("argv", [["-compilecache", "/tmp/x"]])
     def test_later_slices_exit_2(self, argv, capsys):
+        """Every preset runs on the port (`-preset 1m-mesh8` included,
+        tests/test_torch_render_mesh.py); the one JAX flag left refused is
+        `-compilecache`, which has no CUDA counterpart."""
         from multi_adapter_particles_torch import app
 
         assert app.main(argv + ["-steps", "1", "-computeadapter",
                                 str(cpu_adapter_index())]) == 2
-        assert "not yet ported" in capsys.readouterr().err
+        assert "no CUDA counterpart" in capsys.readouterr().err
 
     def test_unknown_preset_exits_2(self, capsys):
         from multi_adapter_particles_torch import app
@@ -373,4 +376,3 @@ class TestCli:
 
     def test_presets_equal_jax_package(self):
         assert presets.PRESETS == jpresets.PRESETS
-        assert set(presets.NOT_PORTED) < set(presets.PRESETS)

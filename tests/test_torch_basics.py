@@ -309,10 +309,18 @@ class TestCli:
         assert "-computeadapter" in err and "-listadapters" in err
 
     @pytest.mark.parametrize("argv", [
-        ["-fused", "-shardrender"], ["-meshdevices", "4"],
+        ["-fused", "-meshdevices", "2"], ["-meshdevices", "4"],
     ])
     def test_later_flags_exit_nonzero(self, argv, capsys):
+        """The mesh flags run (tests/test_torch_parallel.py); a mesh the
+        platform cannot hold, or fused mode on a mesh, exits 1 with the
+        orchestrator's message."""
         from multi_adapter_particles_torch import app
+        from multi_adapter_particles_torch.runtime.devices import (
+            cpu_adapter_index,
+        )
 
-        assert app.main(argv + ["-steps", "1"]) == 2
-        assert "not yet ported" in capsys.readouterr().err
+        assert app.main(argv + ["-steps", "1", "-computeadapter",
+                                str(cpu_adapter_index())]) == 1
+        err = capsys.readouterr().err
+        assert "single shared device" in err or "mesh of 4 requested" in err

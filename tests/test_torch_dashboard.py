@@ -349,7 +349,7 @@ def test_widgets_post_through_the_control_registry():
         assert srv.drain() == 2
         assert app.app.particle_size == 4.5
         assert app.app.particle_intensity == 0.25
-        assert any("item 14" in m for m in srv.messages)
+        assert any("mesh of 2 requested" in m for m in srv.messages)
     finally:
         srv.close()
         app.shutdown()

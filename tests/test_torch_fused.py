@@ -294,7 +294,6 @@ class TestCli:
     def test_4m_fused_preset_applies(self):
         """`-preset 4m-fused` is no longer refused: it sets fused mode (and
         4M particles, which a later flag overrides here)."""
-        assert "4m-fused" not in presets.NOT_PORTED
         seen = {}
         rc = tapp_cli.main(
             ["-preset", "4m-fused", "-numparticles", "1024", "-steps", "2",

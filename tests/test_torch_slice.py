@@ -133,8 +133,13 @@ def test_live_reassignment_keeps_trajectory():
 
 @pytest.mark.parametrize("kw", [dict(fused=True, mesh_devices=2),
                                 dict(mesh_devices=2),
-                                dict(shard_render=True),
-                                dict(debug=True, shard_render=True)])
+                                dict(mesh_devices=2, shard_render=True),
+                                dict(debug=True, shard_render=True,
+                                     mesh_devices=4)])
 def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ParticlesApp(AppConfig(num_particles=256), **kw)
+    """The mesh runs on the port (tests/test_torch_parallel.py); on the one
+    CPU adapter a mesh does not fit, and fused mode takes no mesh: both
+    raise the JAX orchestrator's ValueError."""
+    with pytest.raises(ValueError, match="single shared device|requested"):
+        ParticlesApp(AppConfig(num_particles=256),
+                     compute_adapter=cpu_adapter_index(), **kw)

@@ -618,12 +618,11 @@ class TestWrappers:
          "requires potential_only"),
         (dict(with_potential=True, total_only=True), ValueError,
          "requires potential_only"),
-        (dict(block_owner_fn=lambda ids: ids >= 0), NotImplementedError,
-         "ROADMAP queue 1 item 14"),
     ])
     def test_later_variants_raise(self, kw, err, match):
-        """The combinations the JAX package refuses raise its ValueErrors;
-        the mesh variant belongs to a later slice."""
+        """The combinations the JAX package refuses raise its ValueErrors
+        (the mesh variant, `block_owner_fn`, runs:
+        tests/test_torch_parallel.py)."""
         p = torch.from_numpy(_clustered(256, seed=1))
         with pytest.raises(err, match=match):
             T.near_field_tree(p, BOX, MASS, EPS2, R_C, GN, **kw)
