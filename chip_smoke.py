@@ -8,9 +8,11 @@ through its kernels and produced a sane frame; then the conservation
 diagnostics (`-diagnostics K`) on those scenes, whose P3M gauge runs the
 tree sweep's three potential variants, with finite gauges and no dropped
 pairs; then the fused single-program frame (`-fused`, captured CUDA
-graphs) against the split loop from the same seed; last the one-process
+graphs) against the split loop from the same seed; then the one-process
 mesh (`-meshdevices`, `-shardrender`, `-preset 1m-mesh8`, the
-`meshdevices` control) on D logical shards of the card.
+`meshdevices` control) on D logical shards of the card; then a process
+group on the card (`parallel/bootstrap.py`, `tools/pod_worker.py`); last
+the native host init (`models/init.initialize_particles_host`).
 
     python3 chip_smoke.py
 
@@ -224,6 +226,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     (rtol 1e-5 / atol 1e-3, dropped equal, RMS under 1%); the
     `meshdevices` control 4 -> 2 -> 1 -> 4 at 262,144 all-pairs, bitwise a
     bare run, its drain + reshard ms; the whole phase within 60 s
+30. a process group on the one card (`tools/pod_worker.py` spawned, gloo:
+    the processes share the card, so CUDA tensors are staged through host
+    memory; the backend and its reason printed): 2 processes x 4 shards
+    run `-preset 1m-mesh8`'s bit-stable step for 3 steps, bitwise phase
+    29's one-process positions (and, in the worker, the one-device
+    `-rectpair` run), the rectangle kernel 4 launches a step on each
+    process's shards; the 4M central well stepped and rendered at 1024^2
+    across the 2 processes, bitwise the one-process `render_mesh` (8
+    shards) and within 2e-3 of one device, the central-well, sort and
+    composite_tiles kernels launched on each shard; 4 processes x 1 shard
+    run pm_grid 4M (G = 128, dist_fft) within rtol 1e-5 / atol 1e-3 of
+    one device; host-clock times logged (time-sliced, no gate); any worker
+    failing fails the run; the whole phase within 60 s (no NCCL over
+    distinct cards is measured)
+31. host init at the default scene: the native tiers (g++ at first use)
+    scalar and simd at 4,194,304, host ms on one thread and on every
+    core; bitwise the port's oracle at 512; `initialize_particles_host`
+    uploaded to cuda:0, 40 central-well kernel steps each within phase
+    3's 2e-5 of the plain twin, one 1024^2 frame finite and non-empty;
+    within 30 s
 
 The kernels line (before the last) has one entry per kernel with its
 launches on its main path (for composite_rows and the row gather, off the
@@ -457,7 +479,7 @@ def phase_build():
         for fut in libs:
             fut.result()
         log(f"  built/loaded the {len(sources)} kernel sources in "
-            f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR})")
+            f"{time.perf_counter() - t0:.2f} s ({_build.build_dir()})")
         for name, fut in reports:
             for line in fut.result():
                 log(f"  ptxas {name}: {line}")
@@ -3900,7 +3922,7 @@ def _mesh_preset(dev):
                 want.velocity, 1e-4, 1e-3)
     return {"mesh_step_ms": mesh_ms, "one_device_step_ms": one_ms,
             "gather_ms": gather_ms, "rect": shapes,
-            "launches": launches}
+            "launches": launches}, seen["position"]
 
 
 def _mesh_render(dev):
@@ -4058,7 +4080,8 @@ def phase_mesh(dev):
     t0 = time.perf_counter()
     log("phase 29: the one-process mesh — D logical shards of cuda:0 (one "
         "card holds every shard; no mesh over distinct GPUs is measured)")
-    out = {"preset": _mesh_preset(dev)}
+    out = {}
+    out["preset"], position = _mesh_preset(dev)
     torch.cuda.empty_cache()
     out["render"] = _mesh_render(dev)
     torch.cuda.empty_cache()
@@ -4070,7 +4093,199 @@ def phase_mesh(dev):
     log(f"  phase 29: {wall:.1f} s wall (budget {MESH_BUDGET_S:.0f} s)")
     if wall > MESH_BUDGET_S:
         fail(f"phase 29 took {wall:.1f} s, over its {MESH_BUDGET_S:.0f} s")
-    return out
+    return out, position
+
+
+# -- phase 30: a process group on the one card --------------------------------
+POD_BUDGET_S = 60.0        # the phase's wall-clock budget
+POD_TIMEOUT_S = 50         # each spawn of workers
+POD_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+
+
+def _pod(world: int, shards: int, args) -> dict:
+    """`world` processes of `tools/pod_worker.py`, `shards` shards of
+    cuda:0 each; fails unless every one exits 0 with BOOTSTRAP_OK. Returns
+    the primary's POD_RESULT."""
+    import socket
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in POD_ENV}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "multi_adapter_particles_torch.tools.pod_worker",
+         str(port), str(rank), str(world), "--shards", str(shards),
+         "--device", "cuda:0", *args], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=POD_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        fail(f"pod workers ({world} x {shards}) passed {POD_TIMEOUT_S} s:\n"
+             + "\n".join(o[-2000:] for o in outs))
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or "BOOTSTRAP_OK" not in out:
+            fail(f"pod worker {rank} of {world} exited {p.returncode}:\n"
+                 f"{out[-4000:]}")
+    line = [x for x in outs[0].splitlines() if x.startswith("POD_RESULT ")]
+    return json.loads(line[-1][len("POD_RESULT "):])
+
+
+def phase_pod(position_1m):
+    """2 processes x 4 shards of cuda:0 (gloo, staged through host memory):
+    -preset 1m-mesh8's bit-stable step for MESH_STEPS steps bitwise phase
+    29's one-process positions (`position_1m`), the 4M central well
+    rendered across the processes bitwise the one-process render_mesh; 4
+    processes x 1 shard: pm_grid dist_fft at 4M, G = PM_GRID, within rtol
+    1e-5 / atol 1e-3 of one device. Times are time-sliced across the
+    processes: logged, gated on nothing."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    log("phase 30: a process group on the one card — 2 processes x 4 shards "
+        "and 4 x 1 of cuda:0 (`tools/pod_worker.py`; NCCL over distinct "
+        "cards is not measured)")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "positions.npy")
+        two = _pod(2, 4, ["--only", "allpairs,render", "--n", str(N_MESH),
+                          "--steps", str(MESH_STEPS), "--render-n",
+                          str(N_MAIN), "--width", str(WIDTH), "--height",
+                          str(HEIGHT), "--out", out])
+        got = torch.from_numpy(np.load(out))
+    if not torch.equal(got, position_1m.cpu()):
+        fail("the 2-process mesh's all-pairs positions are not bitwise "
+             "phase 29's one-process -preset 1m-mesh8 run's")
+    log(f"  backend {two['backend']}: {two['reason']}")
+    ap, rd = two["allpairs"], two["render"]
+    log(f"  all-pairs {N_MESH:,} on 2 x 4 shards, {MESH_STEPS} steps: "
+        f"bitwise the one-device -rectpair run (in the worker) and phase "
+        f"29's -preset 1m-mesh8 positions; step {ap['step_ms']:.1f} ms, "
+        f"process all-gather {ap['gather_ms']:.2f} ms (host clock, "
+        f"time-sliced)")
+    log(f"  central well {N_MAIN:,} rendered at {WIDTH}x{HEIGHT} across the "
+        f"2 processes: bitwise the one-process render_mesh (8 shards), "
+        f"{rd['vs_one_device_max_err']:.3e} from one device; frame "
+        f"{rd['frame_ms']:.1f} ms (host clock, time-sliced); the primary's "
+        f"launches on its 4 shards: all-pairs {ap['launches']}, render "
+        f"{rd['launches']}")
+    if ap["launches"]["all_pairs_rect"] != 4 * MESH_STEPS:
+        fail(f"all-pairs: the primary's 4 shards launched the rectangle "
+             f"kernel {ap['launches']['all_pairs_rect']} times in "
+             f"{MESH_STEPS} steps, not 4 a step")
+    if rd["launches"]["central_well"] != 4 or not (
+            rd["launches"]["sort_kv_stable"]
+            == rd["launches"]["composite_tiles"] >= 4):
+        fail(f"render: the primary's 4 shards launched {rd['launches']}")
+    four = _pod(4, 1, ["--only", "pm", "--pm-n", str(N_MAIN), "--pm-grid",
+                       str(PM_GRID)])
+    log(f"  pm_grid {N_MAIN:,} G={PM_GRID} dist_fft on 4 processes x 1 shard:"
+        f" max abs err {four['pm']['max_abs_err']:.3e} vs one device (rtol "
+        f"1e-5, atol 1e-3); step {four['pm']['step_ms']:.1f} ms (host "
+        "clock, time-sliced)")
+    wall = time.perf_counter() - t0
+    log(f"  phase 30: {wall:.1f} s wall (budget {POD_BUDGET_S:.0f} s)")
+    if wall > POD_BUDGET_S:
+        fail(f"phase 30 took {wall:.1f} s, over its {POD_BUDGET_S:.0f} s")
+    return {"two": two, "four": four, "wall_s": wall}
+
+
+# -- phase 31: host init at the default scene ---------------------------------
+HOST_BUDGET_S = 30.0
+HOST_STEPS = 40
+
+
+def phase_host_init(dev):
+    """The native init tiers at 4,194,304 (host ms, one thread and every
+    core), bitwise the port's oracle at 512, the upload, HOST_STEPS
+    central-well kernel steps each against its plain twin, one frame."""
+    import numpy as np
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.config import RenderConfig
+    from multi_adapter_particles_torch.models import init as pinit
+    from multi_adapter_particles_torch.models import oracle
+    from multi_adapter_particles_torch.native import fastinit
+    from multi_adapter_particles_torch.ops.central_well import (
+        central_well_step,
+        central_well_step_plain,
+    )
+    from multi_adapter_particles_torch.render.camera import Camera
+    from multi_adapter_particles_torch.render.renderer import Renderer
+
+    t0 = time.perf_counter()
+    cores = os.cpu_count() or 1
+    log(f"phase 31: host init tiers at {N_MAIN:,} (native, g++ at first use)"
+        f", {cores} host cores")
+    _, build_ms = _host_ms(lambda: fastinit.initialize_particles(
+        8, variant="scalar"))
+    ms = {}
+    for variant in ("scalar", "simd"):
+        for chunks in (1, cores):
+            _, ms[f"{variant}/{chunks}"] = _host_ms(
+                lambda: fastinit.initialize_particles(
+                    N_MAIN, variant=variant, seed=0, chunks=chunks))
+        a = fastinit.initialize_particles(512, variant=variant, seed=7)
+        b = oracle.initialize_particles(512, variant=variant, seed=7)
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            fail(f"native {variant} is not bitwise the oracle at 512")
+    log(f"  native build + first call {build_ms:.0f} ms; host ms at "
+        f"{N_MAIN:,} (variant/chunks): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in ms.items())
+        + "; scalar and simd bitwise the port's oracle at 512 (chunks 1)")
+    st, up_ms = _host_ms(lambda: pinit.initialize_particles_host(
+        N_MAIN, variant="scalar", seed=0, device=dev))
+    phys = dict(dt=C.TIMESTEP, damping=C.DAMPING, mass=C.PARTICLE_MASS,
+                softening_squared=C.SOFTENING_SQUARED)
+    p, v = st.position, st.velocity
+    central_well_step.launches = 0
+    err = 0.0
+    for _ in range(HOST_STEPS):
+        kp, kv = central_well_step(p, v, **phys)
+        pp, pv = central_well_step_plain(p, v, **phys)
+        for got, want in ((kp, pp), (kv, pv)):
+            e = (got - want).abs()
+            if bool((e > 2e-5 + 2e-5 * want.abs()).any()):
+                fail(f"central well on the host-init scene: out of rtol / "
+                     f"atol 2e-5 (max abs err {float(e.max()):.3e})")
+            err = max(err, float(e.max()))
+        p, v = kp, kv
+    if central_well_step.launches != HOST_STEPS:
+        fail(f"{central_well_step.launches} central-well launches, not "
+             f"{HOST_STEPS}")
+    frame = Renderer(RenderConfig(width=WIDTH, height=HEIGHT)).render(
+        p, Camera(), C.INITIAL_PARTICLE_SIZE, C.INITIAL_PARTICLE_INTENSITY)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(frame).all()) or float(frame.max()) <= 0.0:
+        fail("the host-init scene's frame is empty or not finite")
+    wall = time.perf_counter() - t0
+    log(f"  initialize_particles_host(scalar) + upload to {dev}: "
+        f"{up_ms:.1f} ms; {HOST_STEPS} central-well kernel steps each "
+        f"within 2e-5 of the twin (max abs err {err:.3e}); {WIDTH}x{HEIGHT}"
+        f" frame finite, max {float(frame.max()):.4f}; {wall:.1f} s wall "
+        f"(budget {HOST_BUDGET_S:.0f} s)")
+    if wall > HOST_BUDGET_S:
+        fail(f"phase 31 took {wall:.1f} s, over its {HOST_BUDGET_S:.0f} s")
+    return {"build_ms": build_ms, "host_ms": ms, "upload_ms": up_ms,
+            "max_abs_err": err, "wall_s": wall}
+
+
+def _host_ms(fn):
+    """(fn(), host-clock ms, the device drained after)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def main() -> int:
@@ -4140,7 +4355,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     slots = phase_slots(dev)
     torch.cuda.empty_cache()
-    mesh = phase_mesh(dev)
+    mesh, mesh_position = phase_mesh(dev)
+    torch.cuda.empty_cache()
+    pod = phase_pod(mesh_position)
+    del mesh_position
+    host_init = phase_host_init(dev)
 
     def entry(name, source, replaces, launches, stats):
         """`replaces`: the TPU kernel's file:line from the repository root
@@ -4216,6 +4435,8 @@ def main() -> int:
     log(f"half-pair generations, kernel vs twin: {json.dumps(gen_check)}; "
         f"@1M: {json.dumps(gen_1m)}")
     log(f"mesh (D shards of one card): {json.dumps(mesh, default=str)}")
+    log(f"process group on the one card: {json.dumps(pod)}; host init: "
+        f"{json.dumps(host_init)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,9 @@ adapter's platform, the render gathered or sharded too). For `-force p3m` the JA
 the port's own device init: it resolves `-p3mnear auto` to the slot or the
 tree near field, picks the grid when `-pmgrid` is absent and sizes the
 tree's pair budgets, optionally through the probe cache. `-compilecache`
-has no CUDA counterpart: it exits with status 2 and says so.
+picks where the kernels' built libraries live (the port's compile cost is
+the kernel build): auto (`build/torch_kernels/`), off (a fresh temporary
+directory for the run) or a directory.
 """
 
 from __future__ import annotations
@@ -78,14 +80,14 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
     p.add_int("numcopy", "# particles transferred per frame", unlink_and_set("num_copy"))
     p.add_int("numdraw", "# particles drawn per frame", unlink_and_set("num_draw"))
 
-    not_ported = extra.setdefault("not_ported", [])
+    flag_errors = extra.setdefault("flag_errors", [])
 
     def preset(name):
         from multi_adapter_particles_torch.presets import apply_preset
 
         err = apply_preset(name, app, extra)
         if err:
-            not_ported.append(err)
+            flag_errors.append(err)
 
     p.add_str("preset", "named benchmark config (see presets.py; later "
               "flags override it)", preset)
@@ -213,10 +215,12 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
                "over the mesh too (image-pair gather replaces the "
                "position copy)",
                lambda: extra.__setitem__("shard_render", True))
-
-    # the one flag of the JAX CLI the port refuses: the XLA compile cache
-    msg = "-compilecache: not ported (no CUDA counterpart)"
-    p.add_str("compilecache", msg, lambda v: not_ported.append(msg))
+    p.add_str("compilecache",
+              "where built kernel libraries live: auto (default, "
+              "build/torch_kernels/) | off (a fresh temporary directory "
+              "for this run) | a directory — warm launches load the "
+              "libraries instead of rebuilding them",
+              lambda v: extra.__setitem__("compile_cache", v))
     return p
 
 
@@ -431,9 +435,17 @@ def main(argv: Optional[List[str]] = None,
     unmatched = parser.parse(argv)
     if unmatched:
         print(f"warning: unmatched args {unmatched}", file=sys.stderr)
-    if extra["not_ported"]:
-        for msg in extra["not_ported"]:
+    if extra["flag_errors"]:
+        for msg in extra["flag_errors"]:
             print(f"error: {msg}", file=sys.stderr)
+        return 2
+
+    from multi_adapter_particles_torch.ops import _build
+
+    try:
+        _build.set_build_dir(extra.get("compile_cache", "auto"))
+    except OSError as e:
+        print(f"error: -compilecache: {e}", file=sys.stderr)
         return 2
 
     # Heavy imports after flag parsing so `-?` is instant.

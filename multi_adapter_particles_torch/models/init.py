@@ -1,14 +1,19 @@
-"""Device-side particle initialization.
+"""Particle initialization, on the device or through the host tiers.
 
 The reference initializes particles on the CPU (`Compute.cpp:667-923`) and
-uploads them. `initialize_particles_device` runs the same
-rejection-accumulation algorithm (`Compute.cpp:690-695`) on the target
-device instead, drawing from an explicit `torch.Generator`.
+uploads them. The equivalents:
 
-The JAX package draws the same algorithm from `jax.random` threefry
-(`models/init.py:95,124` there), which torch cannot reproduce, so the two
-packages agree in distribution, not bit for bit; a parity test hands the
-JAX state across with `ParticleState.from_numpy` instead.
+- `initialize_particles_device` runs the same rejection-accumulation
+  algorithm (`Compute.cpp:690-695`) on the target device, drawing from an
+  explicit `torch.Generator`. The JAX package draws it from `jax.random`
+  threefry (`models/init.py:95,124` there), which torch cannot reproduce,
+  so the two packages agree in distribution, not bit for bit; a parity
+  test hands the JAX state across with `ParticleState.from_numpy`.
+- `initialize_particles_host` runs an RNG tier of the reference ('orig' /
+  'scalar' / 'simd') through the NumPy oracle (`models/oracle.py`) or the
+  native C++ engine (`native/`), then places the state with
+  `ParticleState.from_aos`: the upload path. Its states are bitwise the
+  JAX package's `initialize_particles_host`.
 
 Both produce two counter-orbiting clusters at (+/-0.75*spread, 0, 0)
 (`Compute.cpp:832-844`).
@@ -56,6 +61,15 @@ def _cluster_deltas(count: int, generator: torch.Generator, device
     return delta
 
 
+def _current_cuda(caller: str, alt: str = "") -> torch.device:
+    """The current CUDA device; raises where there is none (the port never
+    falls back to the CPU unasked)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}: no CUDA device; pass device='cpu' "
+                           f"{alt}to init on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def initialize_particles_device(
     num_particles: int,
     generator: Optional[torch.Generator] = None,
@@ -72,14 +86,9 @@ def initialize_particles_device(
     raises where there is no CUDA device. It never falls back to the CPU.
     """
     if device is None:
-        if generator is not None:
-            device = generator.device
-        elif torch.cuda.is_available():
-            device = torch.device("cuda", torch.cuda.current_device())
-        else:
-            raise RuntimeError(
-                "initialize_particles_device: no CUDA device; pass "
-                "device='cpu' (or a CPU generator) to init on the CPU")
+        device = (generator.device if generator is not None
+                  else _current_cuda("initialize_particles_device",
+                                     "(or a CPU generator) "))
     device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -106,3 +115,33 @@ def initialize_particles_device(
     velocity = torch.zeros((3, np_pad), dtype=torch.float32, device=device)
     velocity[:, :n] = vel.T
     return ParticleState(position, velocity)
+
+
+def initialize_particles_host(
+    num_particles: int,
+    variant: str = "orig",
+    seed: int = 0,
+    spread: float = C.PARTICLE_SPREAD,
+    initial_speed: float = C.INITIAL_PARTICLE_SPEED,
+    use_native: Optional[bool] = None,
+    device=None,
+) -> ParticleState:
+    """Host-side init through an RNG tier, placed on `device` (default the
+    current CUDA device; the CPU only when named): the staging-buffer
+    upload's analog, the JAX package's `initialize_particles_host`.
+
+    `use_native` None routes the LCG tiers ('scalar', 'simd') to the native
+    engine, bitwise the oracle there, and 'orig' to the oracle (native
+    'orig', std::mt19937, is deterministic but another stream than NumPy's
+    MT19937); True forces native, False the oracle (per-particle Python,
+    minutes at 4M). A native build failure raises."""
+    device = torch.device(device if device is not None
+                          else _current_cuda("initialize_particles_host"))
+    if use_native or (use_native is None and variant in ("scalar", "simd")):
+        from multi_adapter_particles_torch.native import fastinit as gen
+    else:
+        from multi_adapter_particles_torch.models import oracle as gen
+    pos, vel = gen.initialize_particles(
+        num_particles, variant=variant, seed=seed, spread=spread,
+        initial_speed=initial_speed)
+    return ParticleState.from_aos(pos, vel, device=device)

@@ -3,7 +3,7 @@
 The port of the JAX package's `parallel/dist_fft.py`: the PM field solve
 split over the mesh's inner axis (its D ranks), each stage a torch FFT op
 on 1/D of the pencils, the data moved by the collectives of
-`parallel/mesh.py`:
+`parallel/mesh.py` (between processes too, over a process group):
 
     partial deposits --reduce_scatter--> z-slabs [G/D, G, G]
     rfft(x) + fft(y)                     [G/D, 2G, G+1]
@@ -46,8 +46,8 @@ def make_kernel_slabs(mesh: M.Mesh, grid: int, box: float,
                       softening_squared: float) -> List[Tensor]:
     """The kernel spectrum of `ops/pm._potential_kernel_rfft` (phi(r) =
     -(|r|²+eps²)^(-1/2) on the doubled grid, min-image offsets), built in
-    numpy once; rank r gets the y-columns [2G, 2G/D, G+1] of its inner
-    index, on its device."""
+    numpy once; each of this process's ranks gets the y-columns [2G, 2G/D,
+    G+1] of its inner index, on its device."""
     g2 = 2 * grid
     h = box / grid
     m = np.arange(g2)
@@ -60,37 +60,30 @@ def make_kernel_slabs(mesh: M.Mesh, grid: int, box: float,
     n_inner = mesh.shape[M.AXIS]
     w = g2 // n_inner
     return [torch.from_numpy(np.ascontiguousarray(
-                kernel[:, (r % n_inner) * w:(r % n_inner + 1) * w])).to(dev)
-            for r, dev in enumerate(mesh.devices)]
-
-
-def convolve_slab(rho_parts: Sequence[Tensor], kernel_slabs: Sequence[Tensor],
-                  grid: int, devices: Sequence[torch.device]) -> List[Tensor]:
-    """One group of D ranks: their partial deposits [G, G, G] -> the
-    convolved phi [G, G, G] on every rank (see the module docstring)."""
-    g, g2 = grid, 2 * grid
-    slab = M.reduce_scatter(rho_parts, devices, dim=0)        # [G/D, G, G]
-    f = [torch.fft.fft(torch.fft.rfft(s, n=g2, dim=2), n=g2, dim=1)
-         for s in slab]                                        # [G/D, 2G, G+1]
-    f = M.all_to_all(f, devices, split_dim=1, concat_dim=0)   # [G, 2G/D, G+1]
-    f = [torch.fft.ifft(torch.fft.fft(x, n=g2, dim=0) * k, dim=0)[:g]
-         for x, k in zip(f, kernel_slabs)]                     # [G, 2G/D, G+1]
-    f = M.all_to_all(f, devices, split_dim=0, concat_dim=1)   # [G/D, 2G, G+1]
-    phi = [torch.fft.irfft(torch.fft.ifft(x, dim=1)[:, :g], n=g2,
-                           dim=2)[:, :, :g] for x in f]        # [G/D, G, G]
-    return [p.contiguous() for p in M.all_gather(phi, devices, dim=0)]
+                kernel[:, (r % n_inner) * w:(r % n_inner + 1) * w])).to(
+                    mesh.devices[r])
+            for r in mesh.local_ranks]
 
 
 def convolve_mesh(rho_parts: Sequence[Tensor],
                   kernel_slabs: Sequence[Tensor], grid: int,
                   mesh: M.Mesh) -> List[Tensor]:
-    """`convolve_slab` over each inner-axis group of the mesh (each slice
-    of a 2-D mesh solves its own copy) -> phi per rank."""
-    out: List[Tensor] = [None] * mesh.size
-    for g in mesh.groups(M.AXIS):
-        res = convolve_slab([rho_parts[r] for r in g],
-                            [kernel_slabs[r] for r in g], grid,
-                            [mesh.devices[r] for r in g])
-        for r, t in zip(g, res):
-            out[r] = t
-    return out
+    """This process's ranks' partial deposits [G, G, G] -> the convolved
+    phi [G, G, G] for each (see the module docstring), the pipeline run in
+    each inner-axis group of the mesh (each slice of a 2-D mesh solves its
+    own copy)."""
+    g, g2 = grid, 2 * grid
+
+    def over(fn, xs, **kw):
+        return M.over_groups(mesh, M.AXIS, fn, xs, **kw)
+
+    slab = over(M.reduce_scatter, rho_parts, dim=0)            # [G/D, G, G]
+    f = [torch.fft.fft(torch.fft.rfft(s, n=g2, dim=2), n=g2, dim=1)
+         for s in slab]                                        # [G/D, 2G, G+1]
+    f = over(M.all_to_all, f, split_dim=1, concat_dim=0)       # [G, 2G/D, G+1]
+    f = [torch.fft.ifft(torch.fft.fft(x, n=g2, dim=0) * k, dim=0)[:g]
+         for x, k in zip(f, kernel_slabs)]                     # [G, 2G/D, G+1]
+    f = over(M.all_to_all, f, split_dim=0, concat_dim=1)       # [G/D, 2G, G+1]
+    phi = [torch.fft.irfft(torch.fft.ifft(x, dim=1)[:, :g], n=g2,
+                           dim=2)[:, :, :g] for x in f]        # [G/D, G, G]
+    return [p.contiguous() for p in over(M.all_gather, phi, dim=0)]

@@ -8,14 +8,19 @@ treats a whole mesh as one adapter:
 - `sharded` is the live `ShardedState`; each step writes the other half
   of a ping-pong pair of sharded states, never in place, so the render
   may read `positions` (the `Sharded` position planes) stale-by-one;
-- `state` is the whole state gathered onto the first rank's device (a
-  copy, made once per step when asked for): what `-diagnostics`,
-  `-checkpoint` and the debug layer read, as the JAX package's gauges
-  read its global array;
+- `state` is the whole state gathered onto this process's first rank's
+  device (a copy, made once per step when asked for): what
+  `-diagnostics`, `-checkpoint` and the debug layer read, as the JAX
+  package's gauges read its global array;
 - construction with `prev=` migrates the state of any other engine (one
   device or a mesh): the live adapter re-assignment and the elastic
   rescale (`Compute::CopyState`, `Compute.cpp:303-410`), bits moved, not
   recomputed.
+
+Over a mesh that spans a process group every process builds the engine
+from the same seed (the same whole state, each keeping its own ranks'
+columns) and calls `simulate` in step; `state`, `snapshot` and a
+migration gather across processes, so every process calls them too.
 """
 
 from __future__ import annotations
@@ -56,8 +61,8 @@ class MeshComputeEngine:
                 source if source is not None else prev.state, mesh)
             self.step_count = prev.get_fence_value()
         else:
-            # born on the first rank's device, as one device would be,
-            # then sharded (a one-time cost)
+            # born on this process's first rank's device, as one device
+            # would be, then sharded (a one-time cost)
             gen = torch.Generator(device=self.device).manual_seed(seed)
             state = shmod.shard_state(pinit.initialize_particles_device(
                 sim_config.num_particles, generator=gen, device=self.device
@@ -72,7 +77,8 @@ class MeshComputeEngine:
     # -- engine interface ------------------------------------------------------
     @property
     def device(self) -> torch.device:
-        return self.mesh.devices[0]
+        """This process's first rank's device."""
+        return self.mesh.local_devices[0]
 
     def simulate(self, num_sim: Optional[int] = None,
                  stage_timer=None) -> shmod.ShardedState:
@@ -111,8 +117,8 @@ class MeshComputeEngine:
         return self.step_count
 
     def wait_for_gpu(self) -> None:
-        """Drain every CUDA device of the mesh."""
-        for dev in set(self.mesh.devices):
+        """Drain this process's CUDA devices of the mesh."""
+        for dev in set(self.mesh.local_devices):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 

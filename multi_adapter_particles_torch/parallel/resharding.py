@@ -4,7 +4,9 @@ The port of the JAX package's `parallel/resharding.py`: the reference's
 live adapter re-assignment (`Particles.cpp:458-537` + `Compute::CopyState`,
 `Compute.cpp:303-410`) generalized to meshes. The caller drains first;
 `reshard_state` then moves bits, never recomputes them, so a trajectory
-continues bitwise across it.
+continues bitwise across it. Between two meshes of one process group the
+bits move through the process all-gather and each process's own shards
+(as `jax.device_put` does on a pod), so every process calls it.
 """
 
 from __future__ import annotations

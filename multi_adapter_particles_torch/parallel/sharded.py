@@ -33,6 +33,10 @@ kernels as one device:
 - **num_sim freeze**: particles at or past num_sim, rounded up to 64,
   keep their old state bit for bit, by global column index.
 
+Across a process group (`parallel/bootstrap.py`) each process steps its
+own ranks; only the collectives cross processes, so the step gives the
+bits of the same mesh in one process.
+
 The step returns a new `ShardedState`, or writes into `out` (the other
 half of a caller's ping-pong pair, never the input). After each p3m step
 `step.overflow` holds the near field's count: the slot overflow (a 0-d
@@ -76,12 +80,15 @@ class ShardedState:
         return self.position.shape[1]
 
     def shard(self, r: int) -> ParticleState:
-        """Rank r's columns as a one-device state (the same tensors)."""
-        return ParticleState(self.position.shards[r],
-                             self.velocity.shards[r])
+        """Rank r's columns as a one-device state (the same tensors); r is
+        one of this process's ranks."""
+        i = self.mesh.local_index(r)
+        return ParticleState(self.position.shards[i],
+                             self.velocity.shards[i])
 
     def gather(self, device) -> ParticleState:
-        """The whole state on `device` (a copy), in global order."""
+        """The whole state on `device` (a copy), in global order; across
+        processes an all-gather, which every process calls."""
         return ParticleState(self.position.gather(device),
                              self.velocity.gather(device))
 
@@ -97,11 +104,21 @@ class ShardedState:
 def shard_state(state: Union[ParticleState, ShardedState],
                 mesh: M.Mesh) -> ShardedState:
     """Place a state (one device, or another mesh) on `mesh`, particle-axis
-    sharded: a copy of the bits."""
+    sharded: a copy of the bits. Across processes every process passes the
+    same whole state (each draws it from the same seed) and keeps its own
+    ranks' columns."""
     if isinstance(state, ShardedState):
-        state = state.gather(mesh.devices[0])
+        state = state.gather(mesh.local_devices[0])
     return ShardedState(M.shard(state.position, mesh),
                         M.shard(state.velocity, mesh))
+
+
+def gather_positions(state: ShardedState, device) -> Tensor:
+    """All shards' positions -> one tensor on `device` (the render feed,
+    the copy-queue analog). Across processes an all-gather that every
+    process calls; `bootstrap.local_render_device()` names this process's
+    own device."""
+    return state.position.gather(device)
 
 
 def _partial_accel_fn(cfg: SimConfig) -> Callable[[Tensor, Tensor], Tensor]:
@@ -204,7 +221,7 @@ def make_sharded_step(
                             grid, box) for r, p in zip(rho, pos)]
         full = gathered(pos)
         near = []
-        for r, f in enumerate(full):
+        for r, f in zip(mesh.local_ranks, full):
             if cfg.p3m_near_mode == "tree":
                 a, step.overflow = near_field_tree(
                     f, box, g_const, cfg.softening_squared, r_c, gn,
@@ -219,7 +236,7 @@ def make_sharded_step(
         if cfg.p3m_near_mode == "tree":
             near = M.over_groups(mesh, None, M.all_reduce, near)
         out = []
-        for r, (af, an, p) in enumerate(zip(a_far, near, pos)):
+        for r, af, an, p in zip(mesh.local_ranks, a_far, near, pos):
             w = p.shape[1]
             out.append(af + an[:, r * w:(r + 1) * w])
         return out
@@ -243,10 +260,10 @@ def make_sharded_step(
                              f"{ndev}")
         w = n // ndev
         eff = integrator.live_count(num_sim, n)
-        olds = [state.shard(r) for r in range(ndev)]
-        outs = [out.shard(r) if out is not None else None
-                for r in range(ndev)]
-        lives = [max(0, min(eff - r * w, w)) for r in range(ndev)]
+        ranks = mesh.local_ranks
+        olds = [state.shard(r) for r in ranks]
+        outs = [out.shard(r) if out is not None else None for r in ranks]
+        lives = [max(0, min(eff - r * w, w)) for r in ranks]
         if cfg.force_model == "central_well":
             new = [_central_well(cfg, o, dst, live)
                    for o, dst, live in zip(olds, outs, lives)]

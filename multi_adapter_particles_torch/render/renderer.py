@@ -507,12 +507,16 @@ class Renderer:
         on its own device to a premultiplied (color, transmittance) pair
         (`_render(..., return_trans=True)` with its global id offset and
         its slice of the num_draw prefix), and the pairs fold in id order
-        on `device` (default: the first rank's) — `_chunked_fold`'s
-        association at chunk = N / D, so the frame is bitwise the chunked
-        one at that partition. Truncated counts sum and spans take the
-        max. Only image pairs cross devices, O(pixels x ranks) whatever N
-        (the reference copies every position to its render adapter,
-        `Render.cpp:814`)."""
+        on `device` (default: this process's first rank's) —
+        `_chunked_fold`'s association at chunk = N / D, so the frame is
+        bitwise the chunked one at that partition. Truncated counts sum
+        and spans take the max. Only image pairs cross devices, O(pixels
+        x ranks) whatever N (the reference copies every position to its
+        render adapter, `Render.cpp:814`). Over a process group each
+        process renders its own ranks, the pairs are all-gathered, and
+        every process folds the same frame (every process calls it)."""
+        from multi_adapter_particles_torch.parallel.mesh import gather_ranks
+
         cfg = self.config
         n = position.shape[1]
         d = mesh.size
@@ -526,29 +530,29 @@ class Renderer:
         self._last_n = n
         self._last_sort_n = cn
         nd = int(n if num_draw is None else num_draw)
-        device = torch.device(mesh.devices[0] if device is None else device)
+        device = torch.device(mesh.local_devices[0] if device is None
+                              else device)
         kw = dict(width=cfg.width, height=cfg.height,
                   seg_q=self.resolve_seg_q(cn, seg_q), dup_y=self.dup_y,
                   dup_x=self.dup_x, near=cfg.near, blend=self.blend,
                   return_trans=True, composite=self.composite,
                   sort=self.sort)
-        cf = tf = trunc = sy = sx = None
-        for r, chunk in enumerate(position.shards):
+        outs = []
+        for r, chunk in zip(mesh.local_ranks, position.shards):
             args = self._device_args(camera, particle_size,
                                      particle_intensity, chunk.device)
-            out = _render(chunk, *args, _chunk_draw(nd, r * cn, cn), r * cn,
-                          **kw)
-            c, t = out.frame.to(device), out.trans.to(device)
-            if cf is None:
-                cf, tf = c, t
-                trunc, sy, sx = (x.to(device) for x in (
-                    out.truncated, out.span_y, out.span_x))
-            else:
-                cf = c + cf * t[..., None]
-                tf = tf * t
-                trunc = trunc + out.truncated.to(device)
-                sy = torch.maximum(sy, out.span_y.to(device))
-                sx = torch.maximum(sx, out.span_x.to(device))
+            outs.append(_render(chunk, *args, _chunk_draw(nd, r * cn, cn),
+                                r * cn, **kw))
+        c, t, tr, spy, spx = (
+            [x.to(device) for x in gather_ranks(mesh, [getattr(o, f)
+                                                        for o in outs])]
+            for f in ("frame", "trans", "truncated", "span_y", "span_x"))
+        cf, trunc, sy, sx = c[0], tr[0], spy[0], spx[0]
+        for r in range(1, d):
+            cf = c[r] + cf * t[r][..., None]
+            trunc = trunc + tr[r]
+            sy = torch.maximum(sy, spy[r])
+            sx = torch.maximum(sx, spx[r])
         frame = torch.clamp(cf, 0.0, 1.0)
         if cfg.frame_uint8:
             frame = (frame * 255.0 + 0.5).to(torch.uint8)

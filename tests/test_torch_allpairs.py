@@ -357,16 +357,48 @@ class TestCli:
         assert seen["cfg"].interaction_scale == 1.0 / 512  # auto 1/N
         assert seen["draw"] is False
 
-    @pytest.mark.parametrize("argv", [["-compilecache", "/tmp/x"]])
-    def test_later_slices_exit_2(self, argv, capsys):
-        """Every preset runs on the port (`-preset 1m-mesh8` included,
-        tests/test_torch_render_mesh.py); the one JAX flag left refused is
-        `-compilecache`, which has no CUDA counterpart."""
+    @pytest.mark.parametrize("argv", [["-compilecache", "{file}"]])
+    def test_later_slices_exit_2(self, argv, capsys, tmp_path):
+        """Every flag of the JAX CLI runs on the port (`-compilecache`:
+        test_compilecache); what still exits 2 is a flag the port cannot
+        honour, here a `-compilecache` directory that is a file."""
         from multi_adapter_particles_torch import app
 
+        path = tmp_path / "a-file"
+        path.write_text("")
+        argv = [a.format(file=path) for a in argv]
         assert app.main(argv + ["-steps", "1", "-computeadapter",
                                 str(cpu_adapter_index())]) == 2
-        assert "no CUDA counterpart" in capsys.readouterr().err
+        assert "-compilecache" in capsys.readouterr().err
+
+    @pytest.mark.parametrize("spec", ["auto", "off", "dir"])
+    def test_compilecache(self, spec, tmp_path, monkeypatch):
+        """`-compilecache` picks where kernel libraries are built and
+        loaded: auto = build/torch_kernels/, off = a fresh temporary
+        directory, else the one named (created)."""
+        from multi_adapter_particles_torch import app
+        from multi_adapter_particles_torch.native import fastinit
+        from multi_adapter_particles_torch.ops import _build
+
+        monkeypatch.setattr(_build, "_build_dir", tmp_path / "before")
+        arg = str(tmp_path / "libs" / "here") if spec == "dir" else spec
+        seen = {}
+        rc = app.main(["-compilecache", arg, "-numparticles", "256",
+                       "-steps", "1", "-width", "32", "-height", "32",
+                       "-computeadapter", str(cpu_adapter_index())],
+                      on_exit=lambda p: seen.update(frames=p.frame_count))
+        assert rc == 0 and seen["frames"] == 1
+        where = _build.build_dir()
+        if spec == "auto":
+            assert where == _build.DEFAULT_BUILD_DIR
+        elif spec == "dir":
+            assert where == tmp_path / "libs" / "here"
+        else:
+            assert where not in (_build.DEFAULT_BUILD_DIR,
+                                 tmp_path / "before")
+            assert where.is_dir() and not list(where.iterdir())
+        if spec != "auto":  # a build lands there
+            assert _build.build_host(fastinit.SOURCE).parent == where
 
     def test_unknown_preset_exits_2(self, capsys):
         from multi_adapter_particles_torch import app
