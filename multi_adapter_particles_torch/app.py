@@ -17,9 +17,10 @@ force, interactionscale, rectpair / halfpair, the pm_grid / p3m knobs
 treedirected, probecache), adapter indices, frame size, frame dumping,
 metrics JSON, hard-sync stage profiling, the conservation gauges
 (diagnostics, diagmode), the key-driven loop (interactive), the
-validation layer (debug), a torch.profiler trace (trace; timerwindow is
-accepted and has no effect), checkpoints (checkpoint, checkpointevery,
-resume), the dashboard (dashboard, serve) and the one-process mesh
+validation layer (debug), a torch.profiler trace (trace, with the
+program's `particles.*` spans, below; timerwindow is accepted and has no
+effect), checkpoints (checkpoint, checkpointevery, resume), the
+dashboard (dashboard, serve) and the one-process mesh
 (meshdevices, shardrender: compute sharded over N devices of the compute
 adapter's platform, the render gathered or sharded too). For `-force p3m` the JAX CLI's startup probe runs on
 the port's own device init: it resolves `-p3mnear auto` to the slot or the
@@ -28,6 +29,16 @@ tree's pair budgets, optionally through the probe cache. `-compilecache`
 picks where the kernels' built libraries live (the port's compile cost is
 the kernel build): auto (`build/torch_kernels/`), off (a fresh temporary
 directory for the run) or a directory.
+
+`-trace DIR` writes DIR/trace.json, a chrome trace of the run's CPU and
+CUDA activity with the program's own spans as `particles.*` ranges
+(`runtime/trace.py`): `particles.frame` (one frame of the loop),
+`particles.wait` (the host blocked on the device: the frame-latency bound,
+present, a drain), `particles.step`, `particles.render.draw` and its stages
+`particles.render.copy`, `particles.render.project`,
+`particles.render.sort` and `particles.render.composite`,
+`particles.fused.capture`, `particles.reconfigure` and
+`particles.diagnostics`. Each kernel links to the span that launched it.
 """
 
 from __future__ import annotations
@@ -183,8 +194,11 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
                "debug layer analog; one host read a frame)",
                lambda: extra.__setitem__("debug", True))
     p.add_str("trace", "write a torch.profiler trace of the run (CPU and "
-              "CUDA activities) to DIR/trace.json; the profiler is known to "
-              "drop events inside long calls",
+              "CUDA activities) to DIR/trace.json, with the program's spans "
+              "as particles.* ranges: frame, wait, step, render.draw, "
+              "render.copy, render.project, render.sort, render.composite, "
+              "fused.capture, reconfigure, diagnostics; the profiler is "
+              "known to drop events inside long calls",
               lambda v: extra.__setitem__("trace", v))
     p.add_int("timerwindow",
               "has no effect here: accepted for the JAX CLI's trace "

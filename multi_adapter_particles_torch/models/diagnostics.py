@@ -34,6 +34,7 @@ from multi_adapter_particles_torch.config import SimConfig
 from multi_adapter_particles_torch.models import integrator
 from multi_adapter_particles_torch.models.state import ParticleState
 from multi_adapter_particles_torch.ops import p3m, pm, treeforce
+from multi_adapter_particles_torch.runtime import trace
 
 Tensor = torch.Tensor
 
@@ -253,7 +254,8 @@ class DiagnosticsProbe:
     Where the mesh gauge runs and the config carries no probed
     `p3m_pair_budget`, the first sample sizes the gauge's pair and sub-pair
     budgets from that state (`treeforce.host_tree_counts` at the gauge
-    grid, one host Morton sort), once for both gauge variants.
+    grid, one host Morton sort), once for both gauge variants. A sample
+    runs inside the `diagnostics` span (`runtime/trace.py`).
 
     `use_run_accel` (None = auto: on exactly for a pm_grid run with the
     mesh gauge) half-kicks with the run's own force
@@ -313,6 +315,11 @@ class DiagnosticsProbe:
                       accel: Optional[Tensor] = None) -> bool:
         if frame_count % self.every:
             return False
+        with trace.span("diagnostics"):
+            return self._publish(state, metrics, accel)
+
+    def _publish(self, state: ParticleState, metrics,
+                 accel: Optional[Tensor]) -> bool:
         t0 = time.perf_counter()
         if accel is None and self.use_run_accel:
             if self._run_accel is None:

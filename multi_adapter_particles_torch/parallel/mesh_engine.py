@@ -21,6 +21,9 @@ Over a mesh that spans a process group every process builds the engine
 from the same seed (the same whole state, each keeping its own ranks'
 columns) and calls `simulate` in step; `state`, `snapshot` and a
 migration gather across processes, so every process calls them too.
+
+A step runs inside the `step` span, a drain inside `wait`
+(`runtime/trace.py`).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from multi_adapter_particles_torch.models import init as pinit
 from multi_adapter_particles_torch.models.state import ParticleState
 from multi_adapter_particles_torch.parallel import sharded as shmod
 from multi_adapter_particles_torch.parallel.mesh import Mesh, Sharded
+from multi_adapter_particles_torch.runtime import trace
 from multi_adapter_particles_torch.runtime.compute_engine import interactions
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 
@@ -84,16 +88,17 @@ class MeshComputeEngine:
                  stage_timer=None) -> shmod.ShardedState:
         """One async step of every shard into the spare state, then swap.
         `stage_timer` gets the "simulate" mark after the last shard."""
-        out = self._spare
-        self._step(self.sharded, num_sim, out=out)
-        if stage_timer is not None:
-            stage_timer.mark("simulate")
-        self._spare, self.sharded = self.sharded, out
-        self._gathered = None
-        self.step_count += 1
-        self.metrics.count("interactions", interactions(
-            self.config, num_sim, self.sharded.padded_count))
-        return self.sharded
+        with trace.span("step"):
+            out = self._spare
+            self._step(self.sharded, num_sim, out=out)
+            if stage_timer is not None:
+                stage_timer.mark("simulate")
+            self._spare, self.sharded = self.sharded, out
+            self._gathered = None
+            self.step_count += 1
+            self.metrics.count("interactions", interactions(
+                self.config, num_sim, self.sharded.padded_count))
+            return self.sharded
 
     @property
     def positions(self) -> Sharded:
@@ -118,9 +123,10 @@ class MeshComputeEngine:
 
     def wait_for_gpu(self) -> None:
         """Drain this process's CUDA devices of the mesh."""
-        for dev in set(self.mesh.local_devices):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        with trace.span("wait"):
+            for dev in set(self.mesh.local_devices):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
 
     def snapshot(self) -> ParticleState:
         """Host-side copy of the whole state."""

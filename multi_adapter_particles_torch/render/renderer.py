@@ -40,6 +40,14 @@ What changed against the JAX package, and why it is the same result:
 window. States past `chunk_threshold` render in id-ordered chunks folded
 through the associative composite (`_chunked_fold`); `Renderer.render_mesh`
 does the same with each chunk a rank's shard on its own device.
+
+Every operation of a render runs inside one of three spans
+(`runtime/trace.py`): `render.project` (the device arguments, projection,
+colours, tile keys and the entry expansion; a chunk's slice and padding),
+`render.sort` (the sort, the tile starts and the virtual-row map) and
+`render.composite` (the composite, the chunk and rank folds, the clamp and
+the uint8 pack); `render_mesh`'s gather of the ranks' image pairs runs
+inside `render.copy`.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from multi_adapter_particles_torch.ops.composite import (  # noqa: F401
 )
 from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
 from multi_adapter_particles_torch.render.camera import Camera
+from multi_adapter_particles_torch.runtime import trace
 
 Tensor = torch.Tensor
 
@@ -183,111 +192,119 @@ def _render(
     num_tiles = gh * gw
     dup = dup_y * dup_x
 
-    cx, cy, hx, hy, w_clip = _project(
-        position, wvp, p00, p11, float(width), float(height), radius
-    )
-    _, cg, cb = _colors(position, id_offset)
+    with trace.span("render.project"):
+        cx, cy, hx, hy, w_clip = _project(
+            position, wvp, p00, p11, float(width), float(height), radius
+        )
+        _, cg, cb = _colors(position, id_offset)
 
-    ids = torch.arange(n, dtype=torch.int32, device=dev)
-    alive = (ids < num_draw) & (w_clip > near)
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        alive = (ids < num_draw) & (w_clip > near)
 
-    # Sprite pixel rect [x0, x1) x [y0, y1); pixel centers at +0.5.
-    px0 = _pixel_bound(cx - hx, width)
-    px1 = _pixel_bound(cx + hx, width)
-    py0 = _pixel_bound(cy - hy, height)
-    py1 = _pixel_bound(cy + hy, height)
-    nonempty = (px0 < px1) & (py0 < py1) & alive
+        # Sprite pixel rect [x0, x1) x [y0, y1); pixel centers at +0.5.
+        px0 = _pixel_bound(cx - hx, width)
+        px1 = _pixel_bound(cx + hx, width)
+        py0 = _pixel_bound(cy - hy, height)
+        py1 = _pixel_bound(cy + hy, height)
+        nonempty = (px0 < px1) & (py0 < py1) & alive
 
-    tx0 = px0 // TILE_W
-    tx1 = (px1 - 1) // TILE_W
-    ty0 = py0 // TILE_H
-    ty1 = (py1 - 1) // TILE_H
+        tx0 = px0 // TILE_W
+        tx1 = (px1 - 1) // TILE_W
+        ty0 = py0 // TILE_H
+        ty1 = (py1 - 1) // TILE_H
 
-    # Candidate tiles (ty0 + dy, tx0 + dx), one key plane per (dy, dx);
-    # sprites spanning more tiles lose their far tiles -> `truncated`.
-    # Keys are int32 tile ids; num_tiles marks "no tile".
-    key_planes = []
-    for dy in range(dup_y):
-        for dx in range(dup_x):
-            typ = ty0 + dy
-            txp = tx0 + dx
-            okp = nonempty & (typ <= ty1) & (txp <= tx1)
-            key_planes.append(torch.where(okp, typ * gw + txp, num_tiles))
-    span_h = ty1 - ty0 + 1
-    span_w = tx1 - tx0 + 1
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    trunc_p = (torch.clamp(span_h - dup_y, min=0) * span_w
-               + torch.clamp(span_w - dup_x, min=0)
-               * torch.clamp(span_h, max=dup_y))
-    truncated = torch.where(nonempty, trunc_p, zero_i).sum().to(torch.int32)
-    span_y = torch.where(nonempty, span_h, zero_i).max().to(torch.int32)
-    span_x = torch.where(nonempty, span_w, zero_i).max().to(torch.int32)
+        # Candidate tiles (ty0 + dy, tx0 + dx), one key plane per (dy, dx);
+        # sprites spanning more tiles lose their far tiles -> `truncated`.
+        # Keys are int32 tile ids; num_tiles marks "no tile".
+        key_planes = []
+        for dy in range(dup_y):
+            for dx in range(dup_x):
+                typ = ty0 + dy
+                txp = tx0 + dx
+                okp = nonempty & (typ <= ty1) & (txp <= tx1)
+                key_planes.append(torch.where(okp, typ * gw + txp,
+                                              num_tiles))
+        span_h = ty1 - ty0 + 1
+        span_w = tx1 - tx0 + 1
+        zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+        trunc_p = (torch.clamp(span_h - dup_y, min=0) * span_w
+                   + torch.clamp(span_w - dup_x, min=0)
+                   * torch.clamp(span_h, max=dup_y))
+        truncated = torch.where(nonempty, trunc_p, zero_i).sum().to(
+            torch.int32)
+        span_y = torch.where(nonempty, span_h, zero_i).max().to(torch.int32)
+        span_x = torch.where(nonempty, span_w, zero_i).max().to(torch.int32)
 
-    # Degenerate sprites never bin to a tile, but their params still ride
-    # the sort as payloads of sentinel entries; NaN/Inf there would poison
-    # composite pixels through `x * 0 == NaN`, so sanitize the geometry
-    # (the w-derived extents in the composite).
-    cx = torch.nan_to_num(cx, nan=0.0, posinf=0.0, neginf=0.0)
-    cy = torch.nan_to_num(cy, nan=0.0, posinf=0.0, neginf=0.0)
+        # Degenerate sprites never bin to a tile, but their params still
+        # ride the sort as payloads of sentinel entries; NaN/Inf there would
+        # poison composite pixels through `x * 0 == NaN`, so sanitize the
+        # geometry (the w-derived extents in the composite).
+        cx = torch.nan_to_num(cx, nan=0.0, posinf=0.0, neginf=0.0)
+        cy = torch.nan_to_num(cy, nan=0.0, posinf=0.0, neginf=0.0)
 
-    def expand(a: Tensor) -> Tensor:  # per-particle [Np] -> per-entry [E]
-        return a[:, None].expand(n, dup).reshape(-1)
+        def expand(a: Tensor) -> Tensor:  # per-particle [Np] -> [E]
+            return a[:, None].expand(n, dup).reshape(-1)
 
-    # Entry expansion e = p*dup + k, then ONE stable sort by tile key that
-    # carries the four payloads the composite needs (the JAX package's
-    # minimum: 1/(2h) is linear in w_clip, cr = 1 - cb, (cg, cb) share one
-    # word as two f16 halves).
-    key = torch.stack(key_planes, dim=1).reshape(-1)
-    sorted_key, s_cx, s_cy, s_w, s_cgb = sort(
-        key, expand(cx), expand(cy), expand(w_clip), expand(pack_cgb(cg, cb)))
+        # Entry expansion e = p*dup + k, for ONE stable sort by tile key
+        # that carries the four payloads the composite needs (the JAX
+        # package's minimum: 1/(2h) is linear in w_clip, cr = 1 - cb,
+        # (cg, cb) share one word as two f16 halves).
+        key = torch.stack(key_planes, dim=1).reshape(-1)
+        payloads = (expand(cx), expand(cy), expand(w_clip),
+                    expand(pack_cgb(cg, cb)))
 
-    starts = torch.searchsorted(
-        sorted_key,
-        torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
-        side="left",
-    ).to(torch.int32)
-    counts = starts[1:] - starts[:-1]                     # [T]
+    with trace.span("render.sort"):
+        sorted_key, s_cx, s_cy, s_w, s_cgb = sort(key, *payloads)
 
-    # ---- exact segmented composite -----------------------------------------
-    q = seg_q
-    data_rows = -(-(n * dup) // q)         # ceil: sorted stream, Q-aligned
-    num_rows = num_tiles + data_rows       # static bound on virtual rows
+        starts = torch.searchsorted(
+            sorted_key,
+            torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
+            side="left",
+        ).to(torch.int32)
+        counts = starts[1:] - starts[:-1]                     # [T]
 
-    ends = starts[1:]
-    j_lo = starts[:-1] // q                              # first data row
-    j_hi = torch.where(counts > 0, (ends - 1) // q, j_lo)  # last (incl.)
-    segs = torch.where(counts > 0, j_hi - j_lo + 1, 1)     # empty -> 1 dummy
-    row_end = torch.cumsum(segs, dim=0).to(torch.int32)  # [T]
-    row_start = (row_end - segs).to(torch.int32)
+        # ---- the virtual-row map of the exact segmented composite --------
+        q = seg_q
+        data_rows = -(-(n * dup) // q)      # ceil: sorted stream, Q-aligned
+        num_rows = num_tiles + data_rows    # static bound on virtual rows
 
-    tile_v, starts_v, ends_v, row_start_v = virtual_rows(
-        starts, row_end, row_start, num_rows)
-    v = torch.arange(num_rows, dtype=torch.int32, device=dev)
-    valid_v = v < row_end[-1]
-    counts_v = ends_v - starts_v
-    seg_v = v - row_start_v
-    j_v = starts_v // q + seg_v                      # data row index [V]
-    lo_k = torch.clamp(starts_v - j_v * q, 0, q)
-    hi_k = torch.clamp(ends_v - j_v * q, 0, q)
-    hi_k = torch.where(valid_v & (counts_v > 0), hi_k, zero_i)
+        ends = starts[1:]
+        j_lo = starts[:-1] // q                              # first data row
+        j_hi = torch.where(counts > 0, (ends - 1) // q, j_lo)  # last (incl.)
+        segs = torch.where(counts > 0, j_hi - j_lo + 1, 1)  # empty -> 1 dummy
+        row_end = torch.cumsum(segs, dim=0).to(torch.int32)  # [T]
+        row_start = (row_end - segs).to(torch.int32)
 
-    # 1/(2hx) is linear in w_clip: the composite derives it per slot
-    inv_sx = 1.0 / (radius * p00 * float(width))
-    inv_sy = 1.0 / (radius * p11 * float(height))
-    color, trans = composite(
-        s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k, hi_k, row_start,
-        row_end, inv_sx, inv_sy, intensity, q=q, grid=(gh, gw),
-        tile=(TILE_H, TILE_W), blend=blend)
+        tile_v, starts_v, ends_v, row_start_v = virtual_rows(
+            starts, row_end, row_start, num_rows)
+        v = torch.arange(num_rows, dtype=torch.int32, device=dev)
+        valid_v = v < row_end[-1]
+        counts_v = ends_v - starts_v
+        seg_v = v - row_start_v
+        j_v = starts_v // q + seg_v                      # data row index [V]
+        lo_k = torch.clamp(starts_v - j_v * q, 0, q)
+        hi_k = torch.clamp(ends_v - j_v * q, 0, q)
+        hi_k = torch.where(valid_v & (counts_v > 0), hi_k, zero_i)
 
-    if return_trans:
-        # chunked-composite mode: UNclipped premultiplied color + the
-        # transmittance plane; the caller folds chunks associatively
-        return FrameOutput(color, truncated, span_y, span_x, trans)
+    with trace.span("render.composite"):
+        # 1/(2hx) is linear in w_clip: the composite derives it per slot
+        inv_sx = 1.0 / (radius * p00 * float(width))
+        inv_sy = 1.0 / (radius * p11 * float(height))
+        color, trans = composite(
+            s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k, hi_k,
+            row_start, row_end, inv_sx, inv_sy, intensity, q=q,
+            grid=(gh, gw), tile=(TILE_H, TILE_W), blend=blend)
 
-    frame = torch.clamp(color, 0.0, 1.0)
-    if frame_uint8:
-        # the reference swap chain's R8G8B8A8_UNORM analog (`Render.cpp:292`)
-        frame = (frame * 255.0 + 0.5).to(torch.uint8)
+        if return_trans:
+            # chunked-composite mode: UNclipped premultiplied color + the
+            # transmittance plane; the caller folds chunks associatively
+            return FrameOutput(color, truncated, span_y, span_x, trans)
+
+        frame = torch.clamp(color, 0.0, 1.0)
+        if frame_uint8:
+            # the reference swap chain's R8G8B8A8_UNORM analog
+            # (`Render.cpp:292`)
+            frame = (frame * 255.0 + 0.5).to(torch.uint8)
     return FrameOutput(frame, truncated, span_y, span_x)
 
 
@@ -315,18 +332,20 @@ def _chunked_fold(
     n = position.shape[1]
     k, cn = _chunk_width(n, chunk_size)
     if k * cn > n:
-        pad = torch.full((4, k * cn - n), PAD_POSITION, dtype=position.dtype,
-                         device=position.device)
-        pad[3].zero_()
-        position = torch.cat([position, pad], dim=1)
+        with trace.span("render.project"):
+            pad = torch.full((4, k * cn - n), PAD_POSITION,
+                             dtype=position.dtype, device=position.device)
+            pad[3].zero_()
+            position = torch.cat([position, pad], dim=1)
     nd_global = n if num_draw is None else num_draw
 
     cf = tf = trunc = sy = sx = None
     for i in range(k):
-        chunk = position[:, i * cn:(i + 1) * cn]
+        with trace.span("render.project"):
+            chunk = position[:, i * cn:(i + 1) * cn]
+            chunk_draw = _chunk_draw(nd_global, i * cn, cn)
         out = _render(
-            chunk, wvp, p00, p11, size, intensity,
-            _chunk_draw(nd_global, i * cn, cn), i * cn,
+            chunk, wvp, p00, p11, size, intensity, chunk_draw, i * cn,
             width=width, height=height, seg_q=seg_q,
             dup_y=dup_y, dup_x=dup_x, near=near, blend=blend,
             return_trans=True, composite=composite, sort=sort,
@@ -335,14 +354,16 @@ def _chunked_fold(
             cf, tf = out.frame, out.trans
             trunc, sy, sx = out.truncated, out.span_y, out.span_x
         else:
-            cf = out.frame + cf * out.trans[..., None]
-            tf = tf * out.trans
-            trunc = trunc + out.truncated
-            sy = torch.maximum(sy, out.span_y)
-            sx = torch.maximum(sx, out.span_x)
-    frame = torch.clamp(cf, 0.0, 1.0)
-    if frame_uint8:
-        frame = (frame * 255.0 + 0.5).to(torch.uint8)
+            with trace.span("render.composite"):
+                cf = out.frame + cf * out.trans[..., None]
+                tf = tf * out.trans
+                trunc = trunc + out.truncated
+                sy = torch.maximum(sy, out.span_y)
+                sx = torch.maximum(sx, out.span_x)
+    with trace.span("render.composite"):
+        frame = torch.clamp(cf, 0.0, 1.0)
+        if frame_uint8:
+            frame = (frame * 255.0 + 0.5).to(torch.uint8)
     return FrameOutput(frame, trunc, sy, sx)
 
 
@@ -485,9 +506,10 @@ class Renderer:
         akey = (host[0].tobytes(), *host[1:])
         hit = self._args.get(str(device))
         if hit is None or hit[0] != akey:
-            hit = (akey, (torch.tensor(host[0], device=device), *(
-                torch.tensor(x, dtype=torch.float32, device=device)
-                for x in host[1:])))
+            with trace.span("render.project"):
+                hit = (akey, (torch.tensor(host[0], device=device), *(
+                    torch.tensor(x, dtype=torch.float32, device=device)
+                    for x in host[1:])))
             self._args[str(device)] = hit
         return hit[1]
 
@@ -543,19 +565,21 @@ class Renderer:
                                      particle_intensity, chunk.device)
             outs.append(_render(chunk, *args, _chunk_draw(nd, r * cn, cn),
                                 r * cn, **kw))
-        c, t, tr, spy, spx = (
-            [x.to(device) for x in gather_ranks(mesh, [getattr(o, f)
-                                                        for o in outs])]
-            for f in ("frame", "trans", "truncated", "span_y", "span_x"))
-        cf, trunc, sy, sx = c[0], tr[0], spy[0], spx[0]
-        for r in range(1, d):
-            cf = c[r] + cf * t[r][..., None]
-            trunc = trunc + tr[r]
-            sy = torch.maximum(sy, spy[r])
-            sx = torch.maximum(sx, spx[r])
-        frame = torch.clamp(cf, 0.0, 1.0)
-        if cfg.frame_uint8:
-            frame = (frame * 255.0 + 0.5).to(torch.uint8)
+        with trace.span("render.copy"):
+            c, t, tr, spy, spx = (
+                [x.to(device) for x in gather_ranks(mesh, [getattr(o, f)
+                                                            for o in outs])]
+                for f in ("frame", "trans", "truncated", "span_y", "span_x"))
+        with trace.span("render.composite"):
+            cf, trunc, sy, sx = c[0], tr[0], spy[0], spx[0]
+            for r in range(1, d):
+                cf = c[r] + cf * t[r][..., None]
+                trunc = trunc + tr[r]
+                sy = torch.maximum(sy, spy[r])
+                sx = torch.maximum(sx, spx[r])
+            frame = torch.clamp(cf, 0.0, 1.0)
+            if cfg.frame_uint8:
+                frame = (frame * 255.0 + 0.5).to(torch.uint8)
         return FrameOutput(frame, trunc, sy, sx)
 
     def raise_dup_for(self, out: FrameOutput) -> bool:

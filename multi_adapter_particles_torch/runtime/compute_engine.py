@@ -37,6 +37,9 @@ next render sees N+1. A new state (`restore`, migration), and the first
 step on that stream after steps on the current one (a toggle), wait for
 everything queued before them. A stage timer's "simulate" stage is timed
 on that stream, from the step's start to its end.
+
+A step runs inside the `step` span, a drain inside `wait`
+(`runtime/trace.py`).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from multi_adapter_particles_torch.models import init as pinit
 from multi_adapter_particles_torch.models import integrator
 from multi_adapter_particles_torch.models.state import ParticleState
 from multi_adapter_particles_torch.ops.central_well import central_well_step
+from multi_adapter_particles_torch.runtime import trace
 from multi_adapter_particles_torch.utils.extension import ExtensionHelper
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 from multi_adapter_particles_torch.utils.timers import sync
@@ -134,6 +138,11 @@ class ComputeEngine:
         """One async step into the spare buffer, then swap. Returns the new
         state (also kept on self). `stage_timer` (an `EventStageTimer`
         whose frame is open) gets the "simulate" mark where the step ran."""
+        with trace.span("step"):
+            return self._simulate(num_sim, stage_timer)
+
+    def _simulate(self, num_sim: Optional[int],
+                  stage_timer) -> ParticleState:
         out = self._spare
         stream = self._stream()
         if stream is None:
@@ -185,7 +194,8 @@ class ComputeEngine:
 
     def wait_for_gpu(self) -> None:
         """Drain: hard device sync (`Compute::WaitForGpu`)."""
-        sync(self.state.position)
+        with trace.span("wait"):
+            sync(self.state.position)
 
     # -- snapshots ---------------------------------------------------------------
     def snapshot(self) -> ParticleState:

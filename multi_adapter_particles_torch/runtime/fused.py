@@ -39,6 +39,13 @@ decided from the configuration up front and never by catching a capture
 error; the others run the same frame function uncaptured. The
 `fused_graph` gauge says which way a frame ran. On the CPU nothing is
 captured.
+
+Spans (`runtime/trace.py`): the render, eager or replayed, runs inside
+`render.draw` (its arguments inside `render.project`, the hand-off of
+the current buffer inside `render.copy`; a replay is one graph launch, so
+the renderer's stage spans open only in an eager frame), the step inside
+`step`, a capture inside `fused.capture`, `present` and `wait_for_gpu`
+inside `wait`.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from multi_adapter_particles_torch.ops.composite import composite_tiles
 from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
 from multi_adapter_particles_torch.render.camera import Camera
 from multi_adapter_particles_torch.render.renderer import FrameOutput, Renderer
+from multi_adapter_particles_torch.runtime import trace
 from multi_adapter_particles_torch.runtime.compute_engine import step_into
 from multi_adapter_particles_torch.runtime.render_engine import _present_probe
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
@@ -175,9 +183,10 @@ class FusedEngine:
     def _render(self, parity: int) -> FrameOutput:
         # fused frames stay float whatever `frame_uint8` says, as the JAX
         # package's do (its runtime/fused.py:166)
-        return self.renderer.render_with(self._states[parity].position,
-                                         self._args, self._num_draw,
-                                         frame_uint8=False)
+        with trace.span("render.copy"):   # zero copies: the buffer itself
+            position = self._states[parity].position
+        return self.renderer.render_with(position, self._args,
+                                         self._num_draw, frame_uint8=False)
 
     def _simulate(self, parity: int, num_sim: Optional[int]) -> None:
         step_into(self.config, self._step, self._states[parity],
@@ -194,6 +203,10 @@ class FusedEngine:
         """Capture the render and step graphs of both parities into one
         memory pool. A capture launches nothing: the counters are put back
         and the captured frame's launches kept for the replays."""
+        with trace.span("fused.capture"):
+            self._capture_graphs(num_sim)
+
+    def _capture_graphs(self, num_sim: Optional[int]) -> None:
         self._graphs = None
         before = {f: f.launches for f in COUNTED}
         pool = torch.cuda.graph_pool_handle()
@@ -224,23 +237,26 @@ class FusedEngine:
         between the two stages."""
         n = self.state.padded_count
         nd = n if num_draw is None else int(num_draw)
-        self._set_args(app, min(nd, 2**31 - 1))
         key = self._key(num_sim)
         replay = self.use_graph and key == self._graph_key
-        if replay:
-            g_render, out, g_step = self._graphs[self._cur]
-            g_render.replay()
-        else:
-            out = self._render(self._cur)
+        with trace.span("render.draw"):
+            with trace.span("render.project"):
+                self._set_args(app, min(nd, 2**31 - 1))
+            if replay:
+                g_render, out, g_step = self._graphs[self._cur]
+                g_render.replay()
+            else:
+                out = self._render(self._cur)
         if stage_timer is not None:
             stage_timer.mark("render")
-        if replay:
-            g_step.replay()
-            self.replays += 1
-            for f, c in self._per_frame.items():
-                f.launches += c
-        else:
-            self._simulate(self._cur, num_sim)
+        with trace.span("step"):
+            if replay:
+                g_step.replay()
+                self.replays += 1
+                for f, c in self._per_frame.items():
+                    f.launches += c
+            else:
+                self._simulate(self._cur, num_sim)
         self._frame = out
         self._cur = 1 - self._cur
         if self.use_graph and key != self._graph_key:
@@ -270,7 +286,8 @@ class FusedEngine:
         return getattr(self._step.accel_fn, "overflow", None)
 
     def wait_for_gpu(self) -> None:
-        sync(self.state.position)
+        with trace.span("wait"):
+            sync(self.state.position)
 
     def snapshot(self) -> ParticleState:
         self.wait_for_gpu()
@@ -309,10 +326,12 @@ class FusedEngine:
         if f is None:
             return None
         rend = self.renderer
-        if rend.auto_raise_dup:
-            vals = _present_probe(f).cpu().tolist()
-            rend.last_truncated = int(vals[1])
-            rend.raise_dup_values(int(vals[1]), int(vals[2]), int(vals[3]))
-        else:
-            sync(f.frame)
+        with trace.span("wait"):
+            if rend.auto_raise_dup:
+                vals = _present_probe(f).cpu().tolist()
+                rend.last_truncated = int(vals[1])
+                rend.raise_dup_values(int(vals[1]), int(vals[2]),
+                                      int(vals[3]))
+            else:
+                sync(f.frame)
         return f

@@ -33,6 +33,9 @@ role gathers the shards, or with `shard_render` renders sharded over the
 same mesh (`Renderer.render_mesh`). `set_mesh_devices` (the `meshdevices`
 control) rescales the mesh live: drain, reshard, resume. A compute-adapter
 change collapses the mesh back to one device.
+
+A frame runs inside the `frame` span (with the frame count), a live
+reconfiguration or mesh rescale inside `reconfigure` (`runtime/trace.py`).
 """
 
 from __future__ import annotations
@@ -47,9 +50,9 @@ from multi_adapter_particles_torch.parallel import (
     make_mesh,
 )
 from multi_adapter_particles_torch.runtime import devices as devmod
+from multi_adapter_particles_torch.runtime import trace
 from multi_adapter_particles_torch.runtime.compute_engine import ComputeEngine
 from multi_adapter_particles_torch.runtime.fused import FusedEngine
-from multi_adapter_particles_torch.runtime.gputimer import EventStageTimer
 from multi_adapter_particles_torch.runtime.pacing import FrameLatencyQueue
 from multi_adapter_particles_torch.runtime.render_engine import RenderEngine
 from multi_adapter_particles_torch.render.renderer import Renderer
@@ -76,7 +79,7 @@ class ParticlesApp:
         shard_render: bool = False,
     ):
         """`async_timers` turns on the non-stalling CUDA-event stage timer
-        ("simulate ms" / "render ms", `runtime/gputimer.py`) when the
+        ("simulate ms" / "render ms", `runtime/trace.py`) when the
         compute device is a GPU. `profile_every` K > 0 instead times both
         stages with a hard sync every K-th frame (split mode only). `fused`
         runs the fused single-program frame on one device. `debug` checks
@@ -145,7 +148,7 @@ class ParticlesApp:
                 self._active_render_config(), render_ad.device, self.metrics
             )
         self.stage_timer = (
-            EventStageTimer(self.metrics, compute_ad.device)
+            trace.EventStageTimer(self.metrics, compute_ad.device)
             if async_timers and compute_ad.device.type == "cuda"
             else None
         )
@@ -207,24 +210,30 @@ class ParticlesApp:
             raise ValueError("fused mode needs a single shared device (the "
                              "async-compute analog)")
         mesh = self._make_mesh(k) if k > 1 else None
-        t0 = time.perf_counter()
-        self.pacing.drain()
-        self.render.wait_for_gpu()
-        self.compute.wait_for_gpu()
-        if mesh is not None:
-            self.compute = MeshComputeEngine(
-                self.sim_config, mesh, self.metrics, prev=self.compute)
-        else:
-            self.compute = ComputeEngine(
-                self.sim_config, self.compute_adapter.device, self.metrics,
-                prev=self.compute, extension=self.extension)
-        self.mesh_devices = k
-        self.share_handles()
-        self._count_reconfiguration(t0)
+        with trace.span("reconfigure"):
+            t0 = time.perf_counter()
+            self.pacing.drain()
+            self.render.wait_for_gpu()
+            self.compute.wait_for_gpu()
+            if mesh is not None:
+                self.compute = MeshComputeEngine(
+                    self.sim_config, mesh, self.metrics, prev=self.compute)
+            else:
+                self.compute = ComputeEngine(
+                    self.sim_config, self.compute_adapter.device,
+                    self.metrics, prev=self.compute,
+                    extension=self.extension)
+            self.mesh_devices = k
+            self.share_handles()
+            self._count_reconfiguration(t0)
 
     # -- per-frame pipeline -------------------------------------------------------
     def draw(self) -> None:
         """One frame: draw N, simulate N+1, present (`Particles.cpp:432-456`)."""
+        with trace.span("frame", self.frame_count):
+            self._draw()
+
+    def _draw(self) -> None:
         self.metrics.frame_tick()
         num_sim, num_copy, num_draw = self.app.resolved_counts()
         sim_arg = num_sim if num_sim < self.sim_config.num_particles else None
@@ -344,7 +353,12 @@ class ParticlesApp:
         fschange = self.app.fullscreen != self._prev_fullscreen
         if not (cchange or rchange or fschange):
             return
+        with trace.span("reconfigure"):
+            self._reconfigure(cchange, rchange, fschange)
 
+    def _reconfigure(self, cchange: bool, rchange: bool,
+                     fschange: bool) -> None:
+        """Drain, rebuild the engines a change moved, migrate the state."""
         t0 = time.perf_counter()
         # Drain all in-flight work on both engines (Particles.cpp:467-471).
         self.pacing.drain()
@@ -418,7 +432,8 @@ class ParticlesApp:
         if self.stage_timer is not None:
             self.stage_timer.close()
             self.stage_timer = (
-                EventStageTimer(self.metrics, self.compute_adapter.device)
+                trace.EventStageTimer(self.metrics,
+                                      self.compute_adapter.device)
                 if self.compute_adapter.device.type == "cuda" else None
             )
 

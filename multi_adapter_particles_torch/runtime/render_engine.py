@@ -25,6 +25,10 @@ queue fills from the cross-adapter shared heap each frame
   sharded over that mesh instead (`Renderer.render_mesh`): no position
   copy, the ranks' (color, transmittance) image pairs are the only
   traffic, counted in `transfer_bytes` as the JAX package counts them.
+
+Spans (`runtime/trace.py`): a frame's `draw` runs inside `render.draw`,
+its copy stage inside `render.copy` (the renderer opens the other three
+stages), `present` and `wait_for_gpu` inside `wait`.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from multi_adapter_particles_torch.config import AppConfig, RenderConfig
 from multi_adapter_particles_torch.models.state import parked_position
 from multi_adapter_particles_torch.render.camera import Camera
 from multi_adapter_particles_torch.render.renderer import FrameOutput, Renderer
+from multi_adapter_particles_torch.runtime import trace
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 from multi_adapter_particles_torch.utils.timers import sync
 
@@ -92,6 +97,11 @@ class RenderEngine:
         up to the 128 multiple); the tail stays stale. Sharded positions
         are gathered (the same copy, from every shard it spans).
         """
+        with trace.span("render.copy"):
+            return self._copy(shared_positions, num_copy)
+
+    def _copy(self, shared_positions, num_copy: Optional[int]
+              ) -> torch.Tensor:
         n = shared_positions.shape[1]
         nc = n if num_copy is None else min(int(num_copy), n)
         nc = min(-(-nc // 128) * 128, n)  # lane-align the slice boundary
@@ -134,6 +144,12 @@ class RenderEngine:
     ) -> FrameOutput:
         """Record + launch one frame (async). The reference's
         `Render::Draw` (`Render.cpp:839-935`) minus the OS present."""
+        with trace.span("render.draw"):
+            return self._draw(shared_positions, app, num_copy, num_draw)
+
+    def _draw(self, shared_positions, app: AppConfig,
+              num_copy: Optional[int], num_draw: Optional[int]
+              ) -> FrameOutput:
         n = shared_positions.shape[1]
         if self.mesh is not None and (num_copy is None or num_copy >= n):
             # Sharded render: shards rasterize in place and the image-pair
@@ -169,13 +185,14 @@ class RenderEngine:
         FUTURE frames (it is not re-rendered)."""
         f = self._frame
         if f is not None:
-            if self.renderer.auto_raise_dup:
-                vals = _present_probe(f).cpu().tolist()
-                self.renderer.raise_dup_values(
-                    int(vals[1]), int(vals[2]), int(vals[3])
-                )
-            else:
-                sync(f.frame)
+            with trace.span("wait"):
+                if self.renderer.auto_raise_dup:
+                    vals = _present_probe(f).cpu().tolist()
+                    self.renderer.raise_dup_values(
+                        int(vals[1]), int(vals[2]), int(vals[3])
+                    )
+                else:
+                    sync(f.frame)
         return self._frame
 
     @property
@@ -188,7 +205,8 @@ class RenderEngine:
         return None if self._frame is None else self._frame.frame
 
     def wait_for_gpu(self) -> None:
-        if self._frame is not None:
-            sync(self._frame.frame)
-        if self._local is not None:
-            sync(self._local)
+        with trace.span("wait"):
+            if self._frame is not None:
+                sync(self._frame.frame)
+            if self._local is not None:
+                sync(self._local)

@@ -1,6 +1,7 @@
-"""Device-clock stage timing from CUDA events (the D3D12GpuTimer analog).
+"""The port's tracing: device-clock stage timing and host spans.
 
-The reference timestamps its compute and render queues every frame and
+**Stage timing from CUDA events** (the D3D12GpuTimer analog). The
+reference timestamps its compute and render queues every frame and
 shows "simulate ms" / "render ms" (`include/D3D12GpuTimer.h:117-160`,
 `Particles.cpp:399-409`). The JAX package reads the XLA profiler for that
 (`runtime/gputimer.py` there). On CUDA the stream itself keeps time:
@@ -17,10 +18,26 @@ a median.
 
 Device time between two marks includes any time the device sat idle
 waiting for the host to launch the stage, which is what a frame costs.
+
+**Host spans** (`span`). The code that does a frame's work runs inside
+named spans: `frame` (`ParticlesApp.draw`, with the frame count), `wait`
+(every host block on the device in the frame path), `step`,
+`render.draw` and its four stages `render.copy`, `render.project`,
+`render.sort`, `render.composite` (every operation `render.draw`
+launches lies in exactly one), `fused.capture`, `reconfigure` and
+`diagnostics`. While a `torch.profiler` profile runs, a span is a
+`record_function` range named `particles.<name>` on the profiler's own
+clock, beside the device activity it launched (tied to it by correlation
+id), nested on the host thread under the span that opened it. With no
+profiler running a span is one shared no-op context: nothing is recorded
+and nothing allocated. So the spans show in a `-trace DIR` run's chrome
+trace and in the benchmark's traced stretch, and nowhere else. No span
+name starts with `cu`, which a trace reader takes for a CUDA API call.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 from typing import List, Optional, Tuple
 
@@ -32,6 +49,21 @@ from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 # sample (first-use costs: allocator growth, library loads)
 WINDOW = 30
 SKIP = 3
+
+# the profiler range of span `name` is PREFIX + name
+PREFIX = "particles."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, frame: Optional[int] = None):
+    """A context manager around one span of the program's work: with a
+    profiler running, a `record_function` range `particles.<name>` (the
+    frame count, where given, as its argument); otherwise the one shared
+    no-op context."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(
+        PREFIX + name, None if frame is None else str(frame))
 
 
 class EventStageTimer:

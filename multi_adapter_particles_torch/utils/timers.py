@@ -7,7 +7,7 @@ Reference analogs (the JAX package's `utils/timers.py`, same names):
 - `StageTimer` — the D3D12GpuTimer role (`include/D3D12GpuTimer.h:117-160`):
   per-stage duration smoothed with a 20-sample EMA, surfaced as
   "simulate ms" / "render ms". Fed either by wall-clock around a hard sync
-  (`-profileevery`) or by CUDA events (`runtime/gputimer.py`).
+  (`-profileevery`) or by CUDA events (`runtime/trace.py`).
 """
 
 from __future__ import annotations

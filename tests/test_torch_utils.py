@@ -2,7 +2,7 @@
 checkpoint / resume (`utils/checkpoint.py`; the file format both ways,
 bitwise), the debug validation layer (`utils/debug.py`), the
 queue-throttle extension as a stream priority (`utils/extension.py`) and
-the stage timer that follows its stream (`runtime/gputimer.py`), the
+the stage timer that follows its stream (`runtime/trace.py`), the
 startup-probe cache (`utils/probecache.py`), and the CLI flags that drive
 them, with `-trace` and `-timerwindow`.
 
@@ -35,7 +35,7 @@ from multi_adapter_particles_torch.ops.treeforce import (
 )
 from multi_adapter_particles_torch.runtime.compute_engine import ComputeEngine
 from multi_adapter_particles_torch.runtime.devices import cpu_adapter_index
-from multi_adapter_particles_torch.runtime.gputimer import SKIP, EventStageTimer
+from multi_adapter_particles_torch.runtime.trace import SKIP, EventStageTimer
 from multi_adapter_particles_torch.runtime.orchestrator import ParticlesApp
 from multi_adapter_particles_torch.utils import checkpoint as ckpt
 from multi_adapter_particles_torch.utils import debug as dbg
@@ -301,7 +301,7 @@ class _Event:
 
 
 class TestEventStageTimer:
-    """The split frame's stage bookkeeping (`runtime/gputimer.py`), with
+    """The split frame's stage bookkeeping (`runtime/trace.py`), with
     events at given device times: a step on the extension's stream is timed
     from its `begin` on that stream, not from the render's end."""
 
