@@ -23,15 +23,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    attr's modes checked to have dropped their rsqrt or multiplies; the
    instruction mix a pair of every rsqrt loop of the three all-pairs
    sources and of csrc/treeforce.cu (`tools/sass.py`), the half-pair item
-   kernel's held to 15 FP32 and 1 MUFU a pair with the j-side (12
-   without), no rsqrt guard, and at most 17 issue slots a pair; every
-   tree sweep item kernel's to its FP32 count a pair (INSTR: 27, 41, 23,
-   23; the halved one 30 with the j-side, 27 without), 1 MUFU, no rsqrt
-   guard and no divergent-shuffle fallback; the half-pair generations'
-   ring loops (csrc/allpairs_halfpair.cu: every tri_kernel mode and
-   pair_kernel) to 15 FP32 with the j-side and 12 without, 1 MUFU, no
-   rsqrt guard, no divergent-shuffle fallback, at most the 3 j-side sums'
-   SHFL a ring step of 4 pairs (no source shuffle) and no spills; every
+   kernel's held to 14 FP32 and 1 MUFU a pair with the j-side (11
+   without), no rsqrt guard, and at most 16 issue slots a pair, its CTAs
+   an SM logged; every tree sweep item kernel's to its FP32 count a pair
+   (INSTR: 27, 41, 23, 23; the halved one 30 with the j-side, 27
+   without), 1 MUFU, no rsqrt guard and no divergent-shuffle fallback;
+   the half-pair generations' ring loops (csrc/allpairs_halfpair.cu:
+   every tri_kernel mode and pair_kernel) to 15 FP32 with the j-side and
+   12 without, 1 MUFU, no rsqrt guard, no divergent-shuffle fallback, at
+   most the 3 j-side sums' SHFL a ring step of 4 pairs (no source
+   shuffle) and no spills; every
    v3 kernel's (`v3_kernel<path>`) one rsqrt loop to its path's
    FP32 count a pair (PIPES: vpu 8, mm_split 5, mm_bf16 4), 1 MUFU, no
    rsqrt guard, no divergent-shuffle copy and no spills; the same for the
@@ -321,8 +322,8 @@ SMS, FP32_LANES = 132, 128
 # (each source's header comment gives the tally; the all-pairs and tree
 # sweep ones agree with phase 2's SASS of their loops, which holds the
 # tree sweeps' to them)
-INSTR = {"all_pairs_rect": 12, "all_pairs_half": 15,
-         "all_pairs_half_diag": 12, "tree_sweep": 27, "tree_sweep_n3": 30,
+INSTR = {"all_pairs_rect": 12, "all_pairs_half": 14,
+         "all_pairs_half_diag": 11, "tree_sweep": 27, "tree_sweep_n3": 30,
          "tree_sweep_n3_diag": 27, "tree_sweep_with_potential": 41,
          "tree_sweep_potential_only": 23, "tree_sweep_half_pairs": 23,
          "composite": 28, "tile_combine": 7}
@@ -527,9 +528,12 @@ def sass_tally(cubin):
 def loop_tally(name, cubin):
     """Log the instruction mix a pair of every rsqrt loop in `cubin`
     (`tools/sass.py`); for csrc/allpairs.cu, fail unless the half-pair
-    item kernel's j-side loop takes 15 FP32 and 1 MUFU a pair in at most
-    17 issue slots, its i-side loop 12 FP32, neither with the rsqrt
-    guard."""
+    item kernel's j-side loop takes 14 FP32 and 1 MUFU a pair in at most
+    16 issue slots, its i-side loop 11 FP32, neither with the rsqrt
+    guard, and log its CTAs an SM."""
+    import torch
+
+    from multi_adapter_particles_torch.ops.allpairs import _half_wave
     from multi_adapter_particles_torch.tools import sass
 
     loops = {k: [sass.loop_mix(b) for b in sass.rsqrt_loops(v)]
@@ -561,9 +565,13 @@ def loop_tally(name, cubin):
             fail(f"half_item_kernel {label} loop: FP32 {mix['fp32']}, MUFU "
                  f"{mix['MUFU']}, FSETP {mix['FSETP']} a pair (want {fp32}, "
                  "1, 0)")
-    if both[0]["slots"] > 17:
+    if both[0]["slots"] > 16:
         fail(f"half_item_kernel j-side loop: {both[0]['slots']:.3f} issue "
-             "slots a pair > 17")
+             "slots a pair > 16")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wave = _half_wave(0)
+    log(f"  half_item_kernel: {wave // sms} CTAs an SM ({wave} a wave on "
+        f"{sms} SMs)")
 
 
 # the generations' ring loops expected in each kernel of

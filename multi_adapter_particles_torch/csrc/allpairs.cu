@@ -18,11 +18,12 @@
 // instruction a clock on each of its four schedulers, and its 128 FP32
 // lanes need every slot). A pair costs 12 FP32 instructions in the
 // rectangle (3 FADD for d, FMUL + 2 FFMA + FADD for d2, 2 FMUL for s, 3
-// FFMA into the sums) and 15 in the half-pair kernel (3 more FFMA for the
-// j-side; 12 on diagonal tiles), plus one MUFU rsqrt, which takes an issue
-// slot too. The inner loops read nothing from device memory. At 1,980 MHz
-// the half-pair schedule's 1M call is bound at 246.6 ms by FP32 issue and
-// 131.5 ms by the MUFU pipe (16 lanes an SM).
+// FFMA into the sums) and 14 in the half-pair kernel (d2 as one FFMA chain
+// seeded with eps2, 3 FFMA; 3 more FFMA for the j-side; 11 on diagonal
+// tiles), plus one MUFU rsqrt, which takes an issue slot too. The inner
+// loops read nothing from device memory. At 1,980 MHz the half-pair
+// schedule's 1M call is bound at 230.1 ms by FP32 issue and 131.5 ms by
+// the MUFU pipe (16 lanes an SM).
 //
 // Rectangle: one thread per target; 256-source tiles of (x, y, z) are
 // staged through shared memory as float4 (coalesced plane loads, then every
@@ -76,16 +77,26 @@
 //   1.5). After 32 steps each source's sums are back in its lane; the
 //   warps' column sums of the tile are added in warp order in shared
 //   memory, and written as the item's j-side slot.
-// - The i-side sums run in registers over one 512-source tile and are
-//   then added into a per-target item sum in shared memory.
 // - rsqrt.approx.ftz (inline PTX): d2 >= eps2 > 0 is never denormal, so
 //   the result is the non-ftz rsqrtf's bit for bit, without its guard.
 // - The ring's branches are warp-uniform; __all_sync votes say so, or the
 //   compiler adds a divergent-shuffle fallback around the loop.
-// - 8 ring steps a loop body. The j-side loop's SASS: 15 FP32, 1 MUFU, 0.375 SHFL, 0.125 LDS and
-//   0.19 others, 16.69 issue slots a pair (the i-side loop 13.20; chip_smoke
-//   phase 2 holds them at 15 / 12 FP32 and at most 17 slots): 274 ms of
-//   issue at 1M. 120 registers, 2 CTAs (16 warps) an SM.
+// - d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2))): eps2 goes in with
+//   the last rounding instead of after it, one FP32 instruction a pair
+//   fewer than FMUL + 2 FFMA + FADD.
+// - The ring walks two chunks at once, each with its own j-side sums: two
+//   independent SHFL -> FFMA chains, and each source's sums still taken in
+//   one fixed order. 8 ring steps a loop body. The j-side loop's SASS: 14
+//   FP32, 1 MUFU, 0.375 SHFL, 0.125 LDS and 0.09 others, 15.59 issue slots
+//   a pair (the i-side loop 12.20; chip_smoke phase 2 holds them at 14 /
+//   11 FP32 and at most 16 slots): 256.2 ms of issue at 1M. 121
+//   registers, 2 CTAs (16 warps) an SM.
+// - The i-side sums stay in registers across the item's source tiles, so
+//   a CTA's shared memory is the staged tile (16 KB) and the warps' column
+//   sums (48 KB): 64 KB.
+// - The 1M call takes 308-312 ms, 83% of that issue rate (329 before; a
+//   third CTA an SM at 80 registers, R = 4 at 32 warps an SM, four chains
+//   and 4 steps a body were each slower: PERF.md section 6).
 // - On a diagonal item, warps of tile a take source tiles b >= a (the
 //   i-side alone on b == a), and idle on b < a: 6 of 16 tile pairs, on
 //   512 of the 131,328 items at 1M.
@@ -184,11 +195,11 @@ constexpr int HALF_WARPS = HALF_SUPER / (32 * HALF_R);
 constexpr int HALF_THREADS = HALF_WARPS * 32;
 constexpr int HALF_CHUNKS = HALF_T / 32;         // ring chunks a tile
 constexpr int HALF_UNROLL = 8;                   // ring steps a loop body
+constexpr int HALF_CHAINS = 2;                   // chunks a ring walks at once
 constexpr int HALF_SLOT = 2 * 3 * HALF_SUPER;    // floats of an item's slots
 // dynamic shared memory: the staged tile (each chunk twice), the warps'
-// column sums of a tile, the item's i-side sums
-constexpr int HALF_SMEM = 2 * HALF_T * 16 + HALF_WARPS * 3 * HALF_T * 4 +
-                          3 * HALF_SUPER * 4;
+// column sums of a tile
+constexpr int HALF_SMEM = 2 * HALF_T * 16 + HALF_WARPS * 3 * HALF_T * 4;
 constexpr int HALF_FOLD_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -198,10 +209,11 @@ __device__ __forceinline__ float rsqrt_ftz(float x) {
   return y;
 }
 
-// One warp against one staged 512-source tile: the row sums of its R
-// targets a lane into (ax, ay, az), set here; with kJ, the warp's negated
+// One warp against one staged 512-source tile: adds the row sums of its
+// R targets a lane to (ax, ay, az); with kJ, writes the warp's negated
 // column sums into jp[3][T]. `src` holds chunk c at [64 c, 64 c + 64): its
-// 32 sources, twice.
+// 32 sources, twice. The ring walks HALF_CHAINS chunks at once, each with
+// its own j-side sums, so each source's sums are taken in the same order.
 template <bool kJ>
 __device__ __forceinline__ void half_ring(
     const float4* __restrict__ src, float* __restrict__ jp,
@@ -209,44 +221,54 @@ __device__ __forceinline__ void half_ring(
     const float (&zi)[HALF_R], float (&ax)[HALF_R], float (&ay)[HALF_R],
     float (&az)[HALF_R], float eps2, int lane) {
   const int next = (lane + 1) & 31;
-#pragma unroll
-  for (int r = 0; r < HALF_R; ++r) ax[r] = ay[r] = az[r] = 0.f;
-  for (int c = 0; c < HALF_CHUNKS; ++c) {
+  for (int c = 0; c < HALF_CHUNKS; c += HALF_CHAINS) {
     // step s: this lane meets source (lane + s) % 32 and holds its sums
     const float4* sp = src + c * 64 + lane;
-    float jx = 0.f, jy = 0.f, jz = 0.f;
+    float jx[HALF_CHAINS], jy[HALF_CHAINS], jz[HALF_CHAINS];
+#pragma unroll
+    for (int h = 0; h < HALF_CHAINS; ++h) jx[h] = jy[h] = jz[h] = 0.f;
     for (int s0 = 0; s0 < 32; s0 += HALF_UNROLL) {
 #pragma unroll
       for (int u = 0; u < HALF_UNROLL; ++u) {
-        const float4 p = sp[s0 + u];
 #pragma unroll
-        for (int r = 0; r < HALF_R; ++r) {
-          const float dx = p.x - xi[r];
-          const float dy = p.y - yi[r];
-          const float dz = p.z - zi[r];
-          const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-          const float inv = rsqrt_ftz(d2);
-          const float w = inv * inv * inv;
-          ax[r] += dx * w;
-          ay[r] += dy * w;
-          az[r] += dz * w;
-          if (kJ) {
-            jx -= dx * w;
-            jy -= dy * w;
-            jz -= dz * w;
+        for (int h = 0; h < HALF_CHAINS; ++h) {
+          const float4 p = sp[h * 64 + s0 + u];
+#pragma unroll
+          for (int r = 0; r < HALF_R; ++r) {
+            const float dx = p.x - xi[r];
+            const float dy = p.y - yi[r];
+            const float dz = p.z - zi[r];
+            // one FFMA chain seeded with eps2: 3 instructions, not 4
+            const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
+            const float inv = rsqrt_ftz(d2);
+            const float w = inv * inv * inv;
+            ax[r] += dx * w;
+            ay[r] += dy * w;
+            az[r] += dz * w;
+            if (kJ) {
+              jx[h] -= dx * w;
+              jy[h] -= dy * w;
+              jz[h] -= dz * w;
+            }
           }
         }
         if (kJ) {  // the sums move on with their source, one lane down
-          jx = __shfl_sync(FULL, jx, next);
-          jy = __shfl_sync(FULL, jy, next);
-          jz = __shfl_sync(FULL, jz, next);
+#pragma unroll
+          for (int h = 0; h < HALF_CHAINS; ++h) {
+            jx[h] = __shfl_sync(FULL, jx[h], next);
+            jy[h] = __shfl_sync(FULL, jy[h], next);
+            jz[h] = __shfl_sync(FULL, jz[h], next);
+          }
         }
       }
     }
     if (kJ) {  // 32 moves later each source's sums are in its own lane
-      jp[c * 32 + lane] = jx;
-      jp[HALF_T + c * 32 + lane] = jy;
-      jp[2 * HALF_T + c * 32 + lane] = jz;
+#pragma unroll
+      for (int h = 0; h < HALF_CHAINS; ++h) {
+        jp[(c + h) * 32 + lane] = jx[h];
+        jp[HALF_T + (c + h) * 32 + lane] = jy[h];
+        jp[2 * HALF_T + (c + h) * 32 + lane] = jz[h];
+      }
     }
   }
 }
@@ -261,7 +283,6 @@ half_item_kernel(const float* __restrict__ pos, long long n, int nt,
   extern __shared__ float4 smem[];
   float4* src = smem;                                   // [2 T]
   float* jpart = reinterpret_cast<float*>(smem + 2 * HALF_T);  // [W][3][T]
-  float* isum = jpart + HALF_WARPS * 3 * HALF_T;        // [3][SUPER]
   const long long k = k0 + blockIdx.x;
   const int A = ia[k], B = ib[k];
   const bool diag = A == B;
@@ -269,15 +290,16 @@ half_item_kernel(const float* __restrict__ pos, long long n, int nt,
   const int wt = warp / 2;  // this warp's tile in A
   const bool live = A * HALF_G + wt < nt;
   const long long ibase = (long long)A * HALF_SUPER;
+  // the targets, and their i-side sums over the item's source tiles
   float xi[HALF_R], yi[HALF_R], zi[HALF_R];
+  float ax[HALF_R], ay[HALF_R], az[HALF_R];
 #pragma unroll
   for (int r = 0; r < HALF_R; ++r) {
-    const int q = warp * 32 * HALF_R + r * 32 + lane;
-    const long long i = ibase + q;
+    const long long i = ibase + warp * 32 * HALF_R + r * 32 + lane;
     xi[r] = live ? pos[i] : 0.f;
     yi[r] = live ? pos[n + i] : 0.f;
     zi[r] = live ? pos[2 * n + i] : 0.f;
-    isum[q] = isum[HALF_SUPER + q] = isum[2 * HALF_SUPER + q] = 0.f;
+    ax[r] = ay[r] = az[r] = 0.f;
   }
   float* si = slot + (long long)blockIdx.x * HALF_SLOT;
   float* sj = si + 3 * HALF_SUPER;
@@ -297,19 +319,11 @@ half_item_kernel(const float* __restrict__ pos, long long n, int nt,
     // are the same for the whole warp: the votes tell the compiler so,
     // and it drops its divergent-shuffle fallback)
     if (__all_sync(FULL, live && (!diag || wt <= bt))) {
-      float ax[HALF_R], ay[HALF_R], az[HALF_R];
       if (__all_sync(FULL, !diag || wt < bt)) {
         half_ring<true>(src, jpart + warp * 3 * HALF_T, xi, yi, zi, ax, ay,
                         az, eps2, lane);
       } else {
         half_ring<false>(src, jpart, xi, yi, zi, ax, ay, az, eps2, lane);
-      }
-#pragma unroll
-      for (int r = 0; r < HALF_R; ++r) {
-        const int q = warp * 32 * HALF_R + r * 32 + lane;
-        isum[q] += ax[r];
-        isum[HALF_SUPER + q] += ay[r];
-        isum[2 * HALF_SUPER + q] += az[r];
       }
     }
     __syncthreads();
@@ -330,9 +344,9 @@ half_item_kernel(const float* __restrict__ pos, long long n, int nt,
 #pragma unroll
     for (int r = 0; r < HALF_R; ++r) {
       const int q = warp * 32 * HALF_R + r * 32 + lane;
-      si[q] = isum[q];
-      si[HALF_SUPER + q] = isum[HALF_SUPER + q];
-      si[2 * HALF_SUPER + q] = isum[2 * HALF_SUPER + q];
+      si[q] = ax[r];
+      si[HALF_SUPER + q] = ay[r];
+      si[2 * HALF_SUPER + q] = az[r];
     }
   }
 }

@@ -5,69 +5,45 @@ checkouts, on one CUDA GPU.
     python3 multi_adapter_particles_torch/tools/halfpair_profile.py ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository (this one, or an unpacked
-`git archive` of another commit). For each it prints one JSON line:
+`git archive` of another commit; the package directory is enough). For
+each it prints one JSON line:
 
 - `ptxas`, `loops`: ROOT's `csrc/allpairs.cu` compiled for sm_90a, the
   registers and spills of each kernel, and each kernel's hot-loop
   instruction mix per pair (`tools/sass.py`);
+- `wave`: the item kernel's CTAs the card runs at once (SMs x CTAs an SM);
 - `call_ms`: one 1,048,576-particle call (device init, seed 0) by CUDA
   events, mean of 2 after one warm-up, with the SM clock read under load;
+  `small_ms`: the same at 65,536 and 131,072 (mean of 20);
 - `kernels`: the device kernels of one profiled call (torch.profiler):
   per name, launches, summed, mean, min and max device ms;
   `profiled_launches`, all device launches of the call; `gap_ms`,
   `call_ms` less the summed kernel time (the launch gaps: the profiled
   call's own wall time, `profiled_call_ms`, carries the profiler's cost
   of every launch);
-- where ROOT still has the round schedule (`half_round_kernel`), `round`:
-  one round launch alone, by CUDA events (mean of 16 rounds), against the
-  FP32 work of its 1,024 tile pairs at the sampled clock;
-- `bound_ms`: the call's FP32 issue bound (15 instructions a pair that
-  takes both sides, 12 on the diagonal tiles; 132 SMs x 128 lanes at the
-  sampled clock), and `issue_ms`, the same pairs at each loop's SASS issue
-  slots a pair;
-- `attribution` (round schedule only): the gap between `call_ms` and
-  `bound_ms` split into the issue mix (SASS slots over 15), round tails
-  (the partial wave of each round: 1,024 CTAs on 132 SMs x 8, modelled),
-  launch gaps (measured), the end-of-CTA read-modify-write of the
-  accumulators (its bytes over HBM's 3.35 TB/s, modelled) and the rest,
-  per-SM latency and occupancy.
+- `bound_ms`: the call's FP32 issue bound (14 instructions a pair that
+  takes both sides, 11 on the diagonal tiles; 132 SMs x 128 lanes at the
+  sampled clock), `share` = bound over call, and `issue_ms`, the same
+  pairs at each loop's SASS issue slots a pair.
 
-Kernels build into each checkout's own `build/torch_kernels/`; the round
-harness into a temporary directory. Run ROOTs in the order A B B A to
-cancel drift.
+Kernels build into each checkout's own `build/torch_kernels/`. Run ROOTs
+in the order A B B A to cancel drift.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import statistics
 import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 N = 1_048_576
 T = 512
 SMS, LANES = 132, 128
-HBM_BYTES_PER_S = 3.35e12
-FP32_BOTH, FP32_ISIDE = 15, 12
-
-# One round of the circle method on its own: ROOT's source is included
-# whole, so the launch is its own kernel.
-_ROUND_HARNESS = r"""
-#include "{src}"
-extern "C" int one_round(const void* pos, long long n, int round, void* acc,
-                         void* comp, float eps2, void* stream) {{
-  const int nt = (int)(n / HALF_T), nt_even = nt + (nt & 1);
-  half_round_kernel<<<nt_even / 2, HALF_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pos), n, nt, nt_even, round,
-      static_cast<float*>(acc), static_cast<float*>(comp), eps2);
-  return static_cast<int>(cudaGetLastError());
-}}
-"""
+FP32_BOTH, FP32_ISIDE = 14, 11
+SMALL = (65_536, 131_072)
 
 
 def _clock_mhz() -> float:
@@ -79,25 +55,6 @@ def _clock_mhz() -> float:
 
 def _issue_ms(lane_slots: float, mhz: float) -> float:
     return lane_slots / (SMS * LANES * mhz * 1e6) * 1e3
-
-
-def _round_lib(root: str, tmp: str):
-    from multi_adapter_particles_torch.ops import _build
-
-    src = Path(root) / "multi_adapter_particles_torch/csrc/allpairs.cu"
-    cu = Path(tmp) / "round_harness.cu"
-    cu.write_text(_ROUND_HARNESS.format(src=src))
-    so = Path(tmp) / "round_harness.so"
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                           str(so), str(cu)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"round harness: {proc.stderr}")
-    lib = ctypes.CDLL(str(so))
-    lib.one_round.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_float, ctypes.c_void_p]
-    lib.one_round.restype = ctypes.c_int
-    return lib
 
 
 def measure(root: str) -> dict:
@@ -157,38 +114,22 @@ def measure(root: str) -> dict:
            "n": N, "mhz": mhz, "call_ms": call_ms,
            "profiled_call_ms": profiled_ms, "kernels": kernels,
            "profiled_launches": sum(k["launches"] for k in kernels.values()),
-           "kernel_sum_ms": busy, "gap_ms": call_ms - busy}
-
-    src = Path(root) / "multi_adapter_particles_torch/csrc/allpairs.cu"
-    if "half_round_kernel" in src.read_text():
-        with tempfile.TemporaryDirectory() as tmp:
-            lib = _round_lib(root, tmp)
-            acc = torch.zeros((3, N), dtype=torch.float32, device=dev)
-            comp = torch.zeros_like(acc)
-            stream = torch.cuda.current_stream(dev).cuda_stream
-
-            def one(r):
-                rc = lib.one_round(pos.data_ptr(), N, r, acc.data_ptr(),
-                                   comp.data_ptr(), C.SOFTENING_SQUARED,
-                                   stream)
-                if rc:
-                    raise SystemExit(f"one_round: CUDA error {rc}")
-
-            one(0)
-            times = []
-            for r in range(1, 17):
-                torch.cuda.synchronize()
-                start.record()
-                one(r)
-                end.record()
-                torch.cuda.synchronize()
-                times.append(start.elapsed_time(end))
-            nt = N // T
-            pairs = nt // 2 * T * T
-            out["round"] = {
-                "ms": statistics.mean(times), "min_ms": min(times),
-                "max_ms": max(times), "ctas": nt // 2, "pairs": pairs,
-                "fp32_bound_ms": _issue_ms(pairs * FP32_BOTH, mhz)}
+           "kernel_sum_ms": busy, "gap_ms": call_ms - busy,
+           "wave": allpairs._half_wave(dev.index), "small_ms": {}}
+    del pos
+    for n in SMALL:
+        pos = pinit.initialize_particles_device(
+            n, torch.Generator(device=dev).manual_seed(0),
+            device=dev).position
+        kw["interaction_scale"] = 1.0 / n
+        call()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(20):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        out["small_ms"][n] = start.elapsed_time(end) / 20
     return out
 
 
@@ -205,8 +146,7 @@ def _loop_slots(loops: dict) -> tuple[float, float]:
 
 
 def _bounds(rec: dict, loops: dict) -> dict:
-    """FP32 bound and SASS issue time of the call at the sampled clock;
-    for the round schedule, the attribution of the rest."""
+    """FP32 bound and SASS issue time of the call at the sampled clock."""
     nt = N // T
     diag, off = nt * T * T, nt * (nt - 1) // 2 * T * T
     mhz = rec["mhz"]
@@ -215,21 +155,6 @@ def _bounds(rec: dict, loops: dict) -> dict:
     issue = _issue_ms(diag * iside + off * both, mhz)
     out = {"bound_ms": bound, "share": bound / rec["call_ms"],
            "issue_ms": issue, "slots_both": both, "slots_iside": iside}
-    if "round" in rec:
-        rounds = rec["kernels"]["half_round_kernel"]
-        # each round: 1,024 CTAs on 132 SMs x 8, the busiest SMs set it
-        tail = rounds["sum_ms"] * (1 - (nt // 2) / (SMS * 8.0))
-        # acc and comp (3 floats each) read and written by each CTA for its
-        # i-side and its j-side tile, at HBM's rate: an upper estimate, the
-        # two 12 MB planes fit in L2
-        rmw_bytes = (nt - 1) * (nt // 2) * 2 * T * 3 * 2 * 2 * 4
-        rmw = rmw_bytes / HBM_BYTES_PER_S * 1e3
-        gaps = rec["gap_ms"]
-        out["attribution"] = {
-            "issue_mix_ms": issue - bound, "round_tails_ms": tail,
-            "launch_gaps_ms": gaps, "epilogue_rmw_ms": rmw,
-            "latency_occupancy_ms": rec["call_ms"] - issue - tail - gaps
-            - rmw}
     return out
 
 
