@@ -19,14 +19,24 @@ A run:
    program's own dispatch-ahead bounding the frames in flight. With
    `trace` the first `trace_seconds` of it (at least `trace_min_frames`
    frames) run under `torch.profiler` with a `StageRecorder` as the app's
-   stage timer, between two synchronises, and each program call that a
-   per-layer metric of the cell names (its `SPAN`, as "render.draw" for
-   `app.render.draw`) inside a profiler range of that name.
+   stage timer, between two synchronises. Each span that a per-layer
+   metric of the cell names (its `SPAN`, as "render.draw") is read from a
+   profiler range: where the app has that call (`app.render.draw` in split
+   frames) the harness runs it inside a range of its own, as before; where
+   it has none (the fused engine renders inside `frame`) the harness reads
+   the program's own range for it, `particles.<span>` (`trace.py`).
 4. The check frame: state N is copied, one more `draw()` turns it into
    state N+1 and an image of state N. The peak device memory is read, the
    app is freed, and `check.compare` holds the check frame, and the first
    frame from the benchmark's own initial state (`reference/init.py`, made
    on the device from the seed), to the float64 reference.
+
+A mix's `frame_mode` picks the program's frame: "split" (the render engine
+draws state N while the compute engine steps N+1) or "fused" (one engine in
+both roles on the one card: the first frame eager, then a captured CUDA
+graph replayed, `runtime/fused.py`). Both keep the same contract (render
+the current state, step into the other buffer, swap), so the outputs and
+the check are the same for both.
 """
 
 from __future__ import annotations
@@ -101,9 +111,12 @@ def cell(bench: dict, workload: str) -> dict:
 
 # -- the program ------------------------------------------------------------
 
+FRAME_MODES = ("split", "fused")
+
+
 def make_app(cfg: dict, mix: dict, seed: int, device: torch.device):
-    """The program's split-frame app for the configuration and mix, its
-    state made from the seed."""
+    """The program's app for the configuration and mix (split or fused
+    frames, both roles on `device`), its state made from the seed."""
     from multi_adapter_particles_torch.config import (
         AppConfig,
         RenderConfig,
@@ -112,7 +125,7 @@ def make_app(cfg: dict, mix: dict, seed: int, device: torch.device):
     from multi_adapter_particles_torch.runtime import devices
     from multi_adapter_particles_torch.runtime.orchestrator import ParticlesApp
 
-    if mix["frame_mode"] != "split":
+    if mix["frame_mode"] not in FRAME_MODES:
         raise ValueError(f"unknown frame_mode {mix['frame_mode']!r}")
     if mix["camera"] != "static" or mix["draw"] != "all":
         raise ValueError("the mixes draw every particle from the static "
@@ -134,7 +147,8 @@ def make_app(cfg: dict, mix: dict, seed: int, device: torch.device):
     index = next(a.index for a in devices.enumerate_adapters()
                  if a.device == device)
     return ParticlesApp(app_cfg, sim, render, compute_adapter=index,
-                        render_adapter=index, seed=seed)
+                        render_adapter=index, seed=seed,
+                        fused=mix["frame_mode"] == "fused")
 
 
 def initial_state(cfg: dict, seed: int, device):
@@ -144,7 +158,9 @@ def initial_state(cfg: dict, seed: int, device):
 
 
 def outputs(app):
-    """(position, velocity, image) the app's last frame left."""
+    """(position, velocity, image) the app's last frame left: the state it
+    stepped into and the image of the state before (in fused frames both
+    come from the one engine that holds both roles)."""
     state = app.compute.state
     return state.position, state.velocity, app.render.last_frame
 
@@ -287,12 +303,12 @@ def window(app, mix: dict, seconds: float, trace: bool, device,
     """The timed window; fills rec["window"], rec["setup_s"] and, traced,
     rec["trace"]."""
     recorder = prof = None
-    wrapped = []
+    wrapped, ranges = [], {}
     sync(device)
     if trace:
         recorder = StageRecorder(device)
         if device.type == "cuda":
-            wrapped = [wrap_span(app, name) for name in span_names]
+            ranges, wrapped = span_ranges(app, span_names)
             prof = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA])
@@ -317,8 +333,8 @@ def window(app, mix: dict, seconds: float, trace: bool, device,
                     prof.stop()
                     for owner, attr in wrapped:
                         delattr(owner, attr)
-                    rec["trace"].update(trace_reader.read(prof, traced,
-                                                          span_names))
+                    rec["trace"].update(trace_reader.read(
+                        prof, traced, span_names, ranges))
                     prof = None
                 recorder = None
         if recorder is None and time.perf_counter() - t_start >= seconds:
@@ -326,6 +342,31 @@ def window(app, mix: dict, seconds: float, trace: bool, device,
     sync(device)
     t_end = time.perf_counter()
     rec["window"] = {"seconds": t_end - t_start, "frames": frames}
+
+
+def program_call(app, name: str):
+    """The app's call that span `name` names ("render.draw":
+    `app.render.draw`), or None where the app has no such call."""
+    owner = app
+    for part in name.split("."):
+        owner = getattr(owner, part, None)
+    return owner if callable(owner) else None
+
+
+def span_ranges(app, span_names):
+    """({span: the profiler range it is read from}, the wrapped calls).
+    A span whose call the app has runs inside a range of the harness's own
+    (`wrap_span`); any other is read from the program's own range for it
+    (`trace.program_range`), which the program opens around that work
+    whether it runs eagerly or as a CUDA graph's replay."""
+    ranges, wrapped = {}, []
+    for name in span_names:
+        if program_call(app, name) is not None:
+            wrapped.append(wrap_span(app, name))
+            ranges[name] = trace_reader.span_range(name)
+        else:
+            ranges[name] = trace_reader.program_range(name)
+    return ranges, wrapped
 
 
 def wrap_span(app, name: str):

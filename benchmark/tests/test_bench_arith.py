@@ -107,3 +107,57 @@ def test_span_is_the_union_of_the_work_its_calls_launched():
     t = trace.summarize(device, host[:1] + host[-1:], 2, ["render.draw"])
     assert t["span_ops"] == {"render.draw": 0}
     assert m.read({"trace": t}) is None
+
+
+def test_graph_launch_ties_a_replay_to_the_programs_range():
+    """A replayed CUDA graph is one `cudaGraphLaunch` on the host; its
+    kernels carry that launch's correlation id, so they tie to the range
+    around it, here the program's own `particles.render.draw`."""
+    rng = trace.program_range("render.draw")
+    assert rng == "particles.render.draw"
+    host = [_ev(trace.SYNC, 0.0, 10.0, kind="launch"),
+            _ev("particles.frame", 15.0, 40.0, kind="range"),
+            _ev(rng, 20.0, 25.0, kind="range"),
+            _ev("cudaGraphLaunch", 21.0, 24.0, 7, "launch"),
+            _ev("particles.step", 26.0, 30.0, kind="range"),
+            _ev("cudaGraphLaunch", 27.0, 29.0, 8, "launch"),
+            _ev(trace.SYNC, 990.0, 1010.0, kind="launch")]
+    device = [_ev("project", 100.0, 300.0, 7), _ev("sort", 300.0, 400.0, 7),
+              _ev("composite", 400.0, 450.0, 7), _ev("well", 450.0, 500.0, 8)]
+    t = trace.summarize(device, host, 1, ["render.draw"],
+                        {"render.draw": rng})
+    assert t["span_ops"] == {"render.draw": 3}
+    assert t["span_busy_s"]["render.draw"] == pytest.approx(350e-6)
+    assert t["untied_ops"] == [] and t["kernels"] == 4
+    # the harness's own range is absent here: read by default, nothing
+    assert trace.summarize(device, host, 1, ["render.draw"])["span_ops"] == {
+        "render.draw": 0}
+
+
+class _RenderEngine:
+    def draw(self):
+        return "drawn"
+
+
+class _App:
+    def __init__(self, split):
+        self.render = _RenderEngine() if split else object()
+
+
+@pytest.mark.parametrize("has_call", [True, False], ids=["split", "fused"])
+def test_span_is_wrapped_where_the_app_has_the_call(has_call):
+    """Split: `app.render.draw` runs inside the harness's range, as before.
+    Fused (no `draw`): nothing is wrapped and the program's range is read.
+    A span naming a path the app lacks is read the program's way too."""
+    app = _App(has_call)
+    ranges, wrapped = harness.span_ranges(app, ["render.draw", "no.such"])
+    assert ranges["no.such"] == "particles.no.such"
+    if has_call:
+        assert ranges["render.draw"] == "benchmark.render.draw"
+        assert wrapped == [(app.render, "draw")]
+        assert "draw" in vars(app.render) and app.render.draw() == "drawn"
+        delattr(*wrapped[0])
+        assert "draw" not in vars(app.render)
+    else:
+        assert ranges["render.draw"] == "particles.render.draw"
+        assert wrapped == [] and not hasattr(app.render, "draw")

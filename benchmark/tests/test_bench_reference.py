@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from benchmark import check, harness
-from benchmark.reference import all_pairs, camera, splat
+from benchmark.reference import all_pairs, camera, central_well, splat
 from benchmark.reference import init as ref_init
 
 torch.set_num_threads(2)
@@ -64,6 +64,35 @@ def test_all_pairs_step_against_the_plain_step():
     assert torch.equal(p_all[:, rows], p) and torch.equal(v_all[:, rows], v)
 
 
+@pytest.mark.parametrize("steps", [0, 40])
+def test_central_well_step_against_the_plain_step(steps):
+    """The reference against the program's plain central-well step, from
+    the initial state and from the state 40 steps on. Tolerance 1e-4: the
+    program rounds p' to float32, half an ulp at |p| < 2048 is at most
+    6.1e-5, against position increments v' dt of order 1 or more (a
+    velocity of 15 at dt 0.1); the velocity increments and |a| carry
+    float32 rounding of their own size, ~1e-7. It reads 2.2e-5-2.3e-5
+    here."""
+    from multi_adapter_particles_torch.ops.central_well import (
+        central_well_step_plain,
+    )
+
+    cfg = _cfg("ap-1m-1024", force_model="central_well")
+    pos, vel = ref_init.two_clusters(N, 4, "cpu", 400.0, 15.0)
+    kw = {k: cfg["physics"][k] for k in ("dt", "damping", "mass",
+                                         "softening_squared")}
+    for _ in range(steps):
+        pos, vel = central_well_step_plain(pos, vel, **kw)
+    new_pos, new_vel = central_well_step_plain(pos, vel, **kw)
+    rows = check.sample_rows(cfg, 4, "cpu")
+    p, v = central_well.step(pos, vel, cfg["physics"], N, rows)
+    start = (pos[:, rows], vel[:, rows])
+    assert check.state_gap(start, new_pos[:, rows], new_vel[:, rows],
+                           p, v) < 1e-4
+    p_all, v_all = central_well.step(pos, vel, cfg["physics"], N, None)
+    assert torch.equal(p_all[:, rows], p) and torch.equal(v_all[:, rows], v)
+
+
 @pytest.mark.parametrize("n_draw,block", [(N, 1 << 22), (N, 700),
                                           (N // 3, 1 << 22)])
 def test_splat_against_the_plain_renderer(n_draw, block):
@@ -97,10 +126,11 @@ def test_splat_draws_close_sprites_whole():
     assert covered > 100
 
 
-def test_control_comes_out_not_correct():
+@pytest.mark.parametrize("force_model", ["all_pairs", "central_well"])
+def test_control_comes_out_not_correct(force_model):
     """The bfloat16 control, held to the configuration's limits by the
     run's own test, fails both numbers."""
-    cfg = _cfg()
+    cfg = _cfg(force_model=force_model)
     mix = harness.traffic("split-all")
     pos, vel = ref_init.two_clusters(N, 6, "cpu", 400.0, 15.0)
     rows = check.sample_rows(cfg, 6, "cpu")

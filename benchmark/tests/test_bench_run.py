@@ -14,6 +14,11 @@ from benchmark import harness, run
 torch.set_num_threads(2)
 ROOT = harness.ROOT
 TINY = {"num_particles": 2048, "width": 64, "height": 64}
+# a split run's records (`harness.run`), traced runs add "trace"
+RECORD_KEYS = {"workload", "seed", "traced", "n", "force_model",
+               "setup_phases_s", "setup_s", "window", "truncated",
+               "numbers_first", "numbers_last", "reference_s", "smi",
+               "result"}
 
 
 def _tiny(workload="ap1m-split", trace=False):
@@ -45,6 +50,7 @@ def test_last_line_keys(trace):
     rec = json.loads((harness.RECORDS_DIR / "ap1m-split"
                       / f"seed5-trace{int(trace)}.json").read_text())
     assert rec["result"] == json.loads(json.dumps(r))
+    assert set(rec) == RECORD_KEYS | ({"trace"} if trace else set())
 
 
 def test_no_result_without_a_card():

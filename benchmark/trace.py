@@ -12,9 +12,15 @@ starts and ends with `torch.cuda.synchronize()`. From the raw events:
 - a span's busy time is the same union over the device operations that a
   call inside the span's profiler range launched: each operation is tied
   to the CUDA runtime or driver call that launched it (`cudaLaunchKernel`,
-  `cuLaunchKernel`, `cudaMemcpyAsync`, ...: a host event whose name is
-  `cuda` or `cu` and a capital letter) by the profiler's correlation id,
-  and that call lies inside the range;
+  `cuLaunchKernel`, `cudaMemcpyAsync`, `cudaGraphLaunch`, ...: a host
+  event whose name is `cuda` or `cu` and a capital letter) by the
+  profiler's correlation id, and that call lies inside the range. CUPTI
+  gives every kernel of a replayed CUDA graph the correlation id of the
+  `cudaGraphLaunch` that replayed it, so a replay's kernels tie to the
+  range around that launch;
+- a span's range is the harness's own, `benchmark.<span>`, around a call
+  it wraps, or, where the app has no call to wrap, the program's own,
+  `particles.<span>` (the program's `runtime/trace.py` opens it);
 - each idle gap of the device is named by the innermost host event that
   spans its middle: what the host was doing while the device waited.
 """
@@ -23,7 +29,7 @@ from __future__ import annotations
 
 from bisect import bisect_right
 from collections import Counter
-from typing import Dict, List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import re
 
@@ -36,6 +42,8 @@ NOT_KERNELS = ("Memcpy", "Memset")
 # a host call of the CUDA runtime or driver API: what launches device work
 LAUNCH_CALL = re.compile(r"^cu(da)?[A-Z]")
 SPAN_PREFIX = "benchmark."
+# the prefix of the ranges the program opens around its own spans
+PROGRAM_PREFIX = "particles."
 
 
 class Event(NamedTuple):
@@ -49,6 +57,11 @@ class Event(NamedTuple):
 def span_range(name: str) -> str:
     """The profiler range a span's calls run in."""
     return SPAN_PREFIX + name
+
+
+def program_range(name: str) -> str:
+    """The profiler range the program opens around its span `name`."""
+    return PROGRAM_PREFIX + name
 
 
 def events(prof):
@@ -70,19 +83,22 @@ def events(prof):
     return device, host
 
 
-def read(prof, frames: int, span_names: Sequence[str] = ()) -> Dict:
+def read(prof, frames: int, span_names: Sequence[str] = (),
+         ranges: Optional[Dict[str, str]] = None) -> Dict:
     """The traced window's records (`summarize`) from a finished profile."""
     device, host = events(prof)
-    return summarize(device, host, frames, span_names)
+    return summarize(device, host, frames, span_names, ranges)
 
 
 def summarize(device: List[Event], host: List[Event], frames: int,
-              span_names: Sequence[str] = ()) -> Dict:
+              span_names: Sequence[str] = (),
+              ranges: Optional[Dict[str, str]] = None) -> Dict:
     """The traced window's length, the device's busy time, each span's
     busy time and operations, the kernels it ran, the breakdown of device
     time and idle gaps, and the operations tied to no launch (the five
-    most frequent names; none where every operation is tied). Times in
-    seconds."""
+    most frequent names; none where every operation is tied). A span is
+    read from the range `ranges` gives it, by default the harness's own
+    (`span_range`). Times in seconds."""
     syncs = sorted(e.end for e in host if e.name == SYNC)
     if len(syncs) < 2:
         raise RuntimeError(f"the trace holds {len(syncs)} "
@@ -105,7 +121,8 @@ def summarize(device: List[Event], host: List[Event], frames: int,
                          for s, e in idle]}
     out["span_busy_s"], out["span_ops"] = {}, {}
     for name in span_names:
-        ops_in = span_ops(inside, host, span_range(name))
+        ops_in = span_ops(inside, host,
+                          (ranges or {}).get(name, span_range(name)))
         out["span_ops"][name] = len(ops_in)
         if ops_in:
             out["span_busy_s"][name] = arith.busy_time(
