@@ -78,11 +78,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    and giant sprites) through `Renderer.render_mesh` at 2 and 4 shards of
    the card, placed across a shard boundary: the sort and composite_tiles
    kernels bitwise the plain path (frame, truncated, spans)
+4d. the exact binning's kernels (ops/binning.py) vs bin_sprites_plain,
+   bitwise on the stats, every key and the live payloads: the 4M state's
+   first and second 1M chunks (a strided view, an id offset, a device
+   num_draw), a close-up from z = 700, that close-up at a capacity of
+   1 x n (truncated > 0); run to run; captured in a CUDA graph and
+   replayed on new positions and a new num_draw; the kernels' time beside
+   the plain version's, each launch's (torch.profiler) and the byte bound
 5. main path: `multi_adapter_particles_torch.app.main`, launch counters
-   (composite_tiles and the sort at least 4 a frame, once a render chunk
-   each; gather_rows and composite_rows none)
+   (the binning, composite_tiles and the sort at least 4 a frame, once a
+   render chunk each; gather_rows and composite_rows none)
 6. the final state's frame through the kernels vs through the plain twins
-   of the sort and composite_tiles, bitwise; the device launches of that
+   of the binning, the sort and composite_tiles, bitwise; the device launches of that
    render (torch.profiler)
 7. all-pairs rectangle kernel vs plain: 4,096 targets spread over the
    1,048,576-particle state against all its sources (float32 twin and a
@@ -439,12 +446,14 @@ def phase_build():
         allpairs,
         allpairs_halfpair,
         allpairs_variants,
+        binning,
         central_well,
         composite,
         rowgather,
         sortkv,
         treeforce,
     )
+    from multi_adapter_particles_torch.runtime import fused
     from multi_adapter_particles_torch.tools import sass
 
     log("phase 2: build")
@@ -458,7 +467,9 @@ def phase_build():
                ("sortkv", sortkv._library, ()),
                ("rowgather", rowgather._library, ()),
                ("allpairs_variants", allpairs_variants._library, ()),
-               ("allpairs_halfpair", allpairs_halfpair._library, ()))
+               ("allpairs_halfpair", allpairs_halfpair._library, ()),
+               ("binning", binning._library, binning._NVCC_FLAGS),
+               ("device_graph", fused._graph_library, ()))
 
     def ptxas_report(name, extra, tmp):
         """register / spill lines of one source (compile only, no
@@ -1105,6 +1116,131 @@ def phase_tiles(dev, main_call):
     return out
 
 
+def _same_bins(label, got, want, row):
+    """Fail unless two `bin_sprites` results are bitwise equal: the stats,
+    every key, and the payloads of the live entries and of the tail slots
+    up to the next multiple of `row` (the kernels leave later ones
+    unwritten). Returns the stats as ints."""
+    import torch
+
+    if not torch.equal(got[-1], want[-1]):
+        fail(f"bin_sprites {label}: stats {got[-1].tolist()}, the plain "
+             f"version's {want[-1].tolist()}")
+    entries, truncated, span_y, span_x = (int(v) for v in want[-1])
+    cap = got[0].shape[0]
+    upto = min(cap, -(-entries // row) * row)
+    if not torch.equal(got[0], want[0]):
+        fail(f"bin_sprites {label}: {int((got[0] != want[0]).sum())} keys "
+             "differ from the plain version")
+    for name, a, b in zip(("cx", "cy", "w", "cgb"), got[1:5], want[1:5]):
+        a, b = a[:upto].view(torch.int32), b[:upto].view(torch.int32)
+        if not torch.equal(a, b):
+            fail(f"bin_sprites {label}: {int((a != b).sum())} {name} "
+                 "payloads differ from the plain version")
+    log(f"  {label}: {entries:,} entries of {cap:,}, truncated "
+        f"{truncated:,}, spans {span_y} x {span_x}: bitwise the plain "
+        "version")
+    return entries, truncated
+
+
+def phase_binning(dev):
+    """The exact binning's kernels vs bin_sprites_plain, bitwise: the 4M
+    central-well state's first and second 1M render chunks (a strided
+    view, an id offset, a device num_draw), a close-up of large sprites,
+    an overflow past the capacity; run to run; captured in a CUDA graph
+    and replayed on new positions; timed against the byte bound."""
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.config import RenderConfig
+    from multi_adapter_particles_torch.models import init as pinit
+    from multi_adapter_particles_torch.ops.binning import (
+        bin_sprites,
+        bin_sprites_plain,
+    )
+    from multi_adapter_particles_torch.ops.central_well import central_well_step
+    from multi_adapter_particles_torch.render import renderer as R
+    from multi_adapter_particles_torch.render.camera import Camera
+
+    log("phase 4d: exact binning kernels vs bin_sprites_plain (bitwise)")
+    st = pinit.initialize_particles_device(
+        N_MAIN, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pos, _ = central_well_step(st.position, st.velocity, dt=C.TIMESTEP,
+                               damping=C.DAMPING, mass=C.PARTICLE_MASS,
+                               softening_squared=C.SOFTENING_SQUARED)
+    del st
+    chunk = 1_048_576
+    rend = R.Renderer(RenderConfig(width=WIDTH, height=HEIGHT))
+    q = rend.resolve_seg_q(chunk)
+    near = rend._device_args(Camera(position=(0.0, 0.0, 700.0)), 2.5, 0.15,
+                             dev)
+
+    def run(fn, p, nd, off, cap, args=None):
+        args = args or rend._device_args(Camera(), 2.5, 0.15, dev)
+        return fn(p, *args[:4], nd, off, width=WIDTH, height=HEIGHT,
+                  near=1.0, capacity=cap, row=q)
+
+    draw = torch.tensor(700_000, dtype=torch.int32, device=dev)
+    cases = (("1M chunk 0 of 4M", pos[:, :chunk], chunk, 0, 4 * chunk, None),
+             ("1M chunk 1 of 4M, device num_draw 700,000",
+              pos[:, chunk:2 * chunk], draw, chunk, 4 * chunk, None),
+             ("close-up from z = 700", pos[:, :chunk], chunk, 0, 4 * chunk,
+              near),
+             ("close-up, capacity 1 x n", pos[:, :chunk], chunk, 0, chunk,
+              near))
+    stats = {}
+    for label, p, nd, off, cap, args in cases:
+        got = run(bin_sprites, p, nd, off, cap, args)
+        want = run(bin_sprites_plain, p, nd, off, cap, args)
+        torch.cuda.synchronize()
+        stats[label] = _same_bins(label, got, want, q)
+        del got, want
+    if stats["close-up, capacity 1 x n"][1] == 0:
+        fail("bin_sprites: the 1 x n capacity case truncated nothing")
+    first = run(bin_sprites, pos[:, :chunk], chunk, 0, 4 * chunk)
+    again = run(bin_sprites, pos[:, :chunk], chunk, 0, 4 * chunk)
+    torch.cuda.synchronize()
+    _same_bins("run to run", first, again, q)
+    del first, again
+
+    static = pos[:, :chunk].clone()
+    run(bin_sprites, static, draw, 0, 4 * chunk)
+    torch.cuda.synchronize()
+    before = bin_sprites.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run(bin_sprites, static, draw, 0, 4 * chunk)
+    static.copy_(pos[:, 2 * chunk:3 * chunk])
+    draw.fill_(1_000_000)
+    graph.replay()
+    eager = run(bin_sprites_plain, static, draw, 0, 4 * chunk)
+    torch.cuda.synchronize()
+    bin_sprites.launches = before
+    _same_bins("captured, replayed on chunk 2 with num_draw 1,000,000",
+               captured, eager, q)
+
+    p = pos[:, :chunk]
+    # back to back the calls are bound by the wrapper's host work (five
+    # 4M-slot outputs and a ctypes call), so the kernels' time is the
+    # profiler's device time of one call's launches
+    call_ms = time_ms(lambda: run(bin_sprites, p, chunk, 0, 4 * chunk),
+                      reps=50)
+    plain_ms = time_ms(lambda: run(bin_sprites_plain, p, chunk, 0,
+                                   4 * chunk), reps=3, warmup=1)
+    bound = bytes_bound_ms(36 * chunk)
+    _, launches = launch_profile(lambda: run(bin_sprites, p, chunk, 0,
+                                             4 * chunk))
+    ms = sum(t for _, t in launches)
+    log(f"  1M chunk: kernels {ms:.4f} ms device ("
+        + ", ".join(f"{k} {t:.4f}" for k, t in launches)
+        + f"), {call_ms:.4f} ms a call back to back; plain {plain_ms:.4f} "
+        f"ms; bound {bound:.4f} ms (bytes, 36 B a particle) — "
+        f"{100 * bound / ms:.1f}%")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "launches": [k for k, _ in launches]}
+
+
 def _render_io(dev, dup_y=2, dup_x=2, n=N_MAIN, width=WIDTH, height=HEIGHT):
     """The sort's (key, *payloads) as the renderer makes them for the
     first 1M chunk (or all) of the n-particle device-init state (seed 0)
@@ -1410,6 +1546,7 @@ def _counted():
         all_pairs_accel,
         all_pairs_accel_halfpair,
     )
+    from multi_adapter_particles_torch.ops.binning import bin_sprites
     from multi_adapter_particles_torch.ops.central_well import central_well_step
     from multi_adapter_particles_torch.ops.composite import (
         composite_rows,
@@ -1418,7 +1555,7 @@ def _counted():
     from multi_adapter_particles_torch.ops.rowgather import gather_rows
     from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
 
-    return {"central_well": central_well_step,
+    return {"central_well": central_well_step, "bin_sprites": bin_sprites,
             "composite_tiles": composite_tiles,
             "sort_kv_stable": sort_kv_stable, "gather_rows": gather_rows,
             "composite_rows": composite_rows,
@@ -1452,7 +1589,7 @@ def phase_main_path(dev):
     if launches["central_well"] < STEPS:
         fail(f"central-well kernel launched {launches['central_well']} times"
              f" in {STEPS} frames")
-    for name in ("composite_tiles", "sort_kv_stable"):
+    for name in ("bin_sprites", "composite_tiles", "sort_kv_stable"):
         if launches[name] < 4 * STEPS:
             fail(f"{name} launched {launches[name]} times in {STEPS} frames "
                  "of 4 chunks")
@@ -1486,10 +1623,11 @@ def phase_full_frame(seen):
     from multi_adapter_particles_torch.ops.composite import (
         composite_tiles_plain,
     )
+    from multi_adapter_particles_torch.ops.binning import bin_sprites_plain
     from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable_plain
 
-    log("phase 6: final state's frame, the sort and composite_tiles kernels "
-        "vs their plain twins")
+    log("phase 6: final state's frame, the binning, sort and composite_tiles "
+        "kernels vs their plain twins")
     rend = seen["renderer"]
     pos = seen["position"]
     out, launches = launch_profile(
@@ -1497,6 +1635,7 @@ def phase_full_frame(seen):
     with_kernel = out.frame
     rend.composite = composite_tiles_plain
     rend.sort = sort_kv_stable_plain
+    rend.bin = bin_sprites_plain
     with_plain = rend.render_arrays(pos, seen["camera"], 2.5, 0.15).frame
     torch.cuda.synchronize()
     log(f"  one split-frame render through the kernels: {len(launches)} "
@@ -4307,6 +4446,8 @@ def main() -> int:
     comp, main_call = phase_composite(dev)
     tiles = phase_tiles(dev, main_call)
     del main_call
+    binning = phase_binning(dev)
+    torch.cuda.empty_cache()
     phase_tiles_mesh(dev)
     torch.cuda.empty_cache()
     sort, gather_args = phase_sort(dev)
@@ -4432,6 +4573,7 @@ def main() -> int:
     log(f"diagnostics: 4M gauge sweep {json.dumps(gauge)}; exact vs mesh "
         f"@{N_TREE_CHECK:,} {json.dumps(exact)}; main paths "
         f"{json.dumps(diag_path)}; launches {json.dumps(diag_launches)}")
+    log(f"exact binning @1M chunk: {json.dumps(binning)}")
     log(f"sort @E={N_MAIN:,}: {json.dumps(sort)}; row gather "
         f"{json.dumps(gather)}")
     log(f"fused: {json.dumps(fused)}")

@@ -140,9 +140,10 @@ def load(name: str, extra_flags: tuple = ()) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name, extra_flags)))
 
 
-def check_arg(t, dtype, shape, device, what: str) -> None:
+def check_arg(t, dtype, shape, device, what: str,
+              contiguous: bool = True) -> None:
     """Raise unless tensor `t` is what a kernel takes: on `device`, of
-    `dtype` and `shape`, contiguous."""
+    `dtype` and `shape`, and contiguous unless told otherwise."""
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -150,7 +151,7 @@ def check_arg(t, dtype, shape, device, what: str) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what} must be {list(shape)}, got "
                          f"{list(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
 
 

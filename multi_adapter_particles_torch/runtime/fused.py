@@ -16,13 +16,23 @@ CUDA graph:
   ping-pong parity. A frame is two replays. The first frame runs eagerly
   (it builds and loads the kernels, cuFFT plans and cached spectra), and
   the graphs are captured right after it.
+- **Instantiated for device launch** (`DeviceGraph`,
+  `csrc/device_graph.cu`): each captured graph is instantiated with the
+  device-launch flag, uploaded once, and replayed from the host with the
+  runtime's `cudaGraphLaunch`. Graphs instantiated as `torch.cuda.
+  CUDAGraph` does it ran each kernel boundary at one of two latencies on
+  an H100 (~0.46 us or ~0.12 us), switching from the slow to the fast one
+  at a moment no seed or frame fixes, so a 4M frame of ~280 kernels took
+  one of two times 4% apart; graphs instantiated for device launch ran
+  every boundary at the fast latency in every process measured
+  (`PERF.md` §6).
 - **Static arguments**: the per-frame scalars (wvp, p00, p11, radius,
   intensity) and `num_draw` live in device tensors that the graphs read;
   they are copied into only when they change (the `_arg_key` cache), so a
   moving camera or the draw toggle needs no recapture.
-- **Recapture** when `present()` grows the dup window (the JAX
-  `_rebuild_fused`), or when num_sim's live count changes. A new
-  resolution or device is a new engine.
+- **Recapture** when `present()` grows the exact binning's capacity or
+  the dup window (the JAX `_rebuild_fused`), or when num_sim's live count
+  changes. A new resolution or device is a new engine.
 - **Stage marks**: with a stage timer, the "render" mark falls between the
   render and step replays (events at the stage boundary replace the JAX
   package's optimization-barrier marker).
@@ -50,6 +60,8 @@ inside `wait`.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -58,10 +70,12 @@ from multi_adapter_particles_torch.config import AppConfig, RenderConfig, SimCon
 from multi_adapter_particles_torch.models import init as pinit
 from multi_adapter_particles_torch.models import integrator
 from multi_adapter_particles_torch.models.state import ParticleState
+from multi_adapter_particles_torch.ops import _build
 from multi_adapter_particles_torch.ops.allpairs import (
     all_pairs_accel,
     all_pairs_accel_halfpair,
 )
+from multi_adapter_particles_torch.ops.binning import bin_sprites
 from multi_adapter_particles_torch.ops.central_well import central_well_step
 from multi_adapter_particles_torch.ops.composite import composite_tiles
 from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
@@ -69,7 +83,7 @@ from multi_adapter_particles_torch.render.camera import Camera
 from multi_adapter_particles_torch.render.renderer import FrameOutput, Renderer
 from multi_adapter_particles_torch.runtime import trace
 from multi_adapter_particles_torch.runtime.compute_engine import step_into
-from multi_adapter_particles_torch.runtime.render_engine import _present_probe
+from multi_adapter_particles_torch.runtime.render_engine import present_frame
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 from multi_adapter_particles_torch.utils.timers import sync
 
@@ -99,8 +113,50 @@ def capture_key(config: SimConfig) -> str:
     mode = config.p3m_near_mode
     return "p3m:" + ("slots" if mode == "auto" else mode)
 
+
+@functools.cache
+def _graph_library() -> ctypes.CDLL:
+    """`csrc/device_graph.cu`'s host calls (built at the first capture)."""
+    lib = _build.load("device_graph")
+    p = ctypes.c_void_p
+    lib.device_graph_instantiate.argtypes = [p, ctypes.POINTER(p), p]
+    lib.device_graph_launch.argtypes = [p, p]
+    lib.device_graph_destroy.argtypes = [p]
+    return lib
+
+
+class DeviceGraph:
+    """A captured CUDA graph (`graph`, a `torch.cuda.CUDAGraph` that keeps
+    its captured graph) instantiated for device launch: `instantiate`
+    makes and uploads the executable graph, `replay` launches it on the
+    current stream (`csrc/device_graph.cu`). The torch graph keeps the
+    memory pool the captured kernels address."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self._exec = None
+
+    def instantiate(self, stream) -> None:
+        ex = ctypes.c_void_p()
+        rc = _graph_library().device_graph_instantiate(
+            ctypes.c_void_p(self.graph.raw_cuda_graph()), ctypes.byref(ex),
+            ctypes.c_void_p(stream.cuda_stream))
+        if ex.value:
+            self._exec = ex
+        _build.check(rc, "device_graph_instantiate")
+
+    def replay(self) -> None:
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(_graph_library().device_graph_launch(
+            self._exec, ctypes.c_void_p(stream)), "device_graph_launch")
+
+    def __del__(self):
+        if self._exec is not None:
+            _graph_library().device_graph_destroy(self._exec)
+
+
 # The kernel wrappers a fused frame can launch (their `.launches` counters).
-COUNTED = (central_well_step, composite_tiles, sort_kv_stable,
+COUNTED = (central_well_step, bin_sprites, composite_tiles, sort_kv_stable,
            all_pairs_accel, all_pairs_accel_halfpair)
 
 
@@ -123,7 +179,7 @@ class FusedEngine:
     ):
         """`prev` (an engine with `state`, `step_count`, `wait_for_gpu`)
         migrates its state here; `camera` and `renderer` carry over a
-        rebuilt engine's view and learned dup window."""
+        rebuilt engine's view and learned capacity or dup window."""
         self.config = sim_config
         self.render_config = render_config
         self.device = torch.device(device)
@@ -195,8 +251,8 @@ class FusedEngine:
     def _key(self, num_sim: Optional[int]):
         """What a captured frame bakes in besides the static tensors."""
         r = self.renderer
-        return (r.dup_y, r.dup_x, r.seg_q, r.blend, r.chunk_threshold,
-                r.chunk_size, r.composite, r.sort,
+        return (r.dup_y, r.dup_x, r.entry_factor, r.seg_q, r.blend,
+                r.chunk_threshold, r.chunk_size, r.composite, r.sort, r.bin,
                 integrator.live_count(num_sim, self.state.padded_count))
 
     def _capture(self, num_sim: Optional[int]) -> None:
@@ -211,12 +267,15 @@ class FusedEngine:
         before = {f: f.launches for f in COUNTED}
         pool = torch.cuda.graph_pool_handle()
         graphs = []
+        stream = torch.cuda.current_stream(self.device)
         for parity in (0, 1):
-            g_render, g_step = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g_render, pool=pool):
+            g_render, g_step = DeviceGraph(), DeviceGraph()
+            with torch.cuda.graph(g_render.graph, pool=pool):
                 out = self._render(parity)
-            with torch.cuda.graph(g_step, pool=pool):
+            with torch.cuda.graph(g_step.graph, pool=pool):
                 self._simulate(parity, num_sim)
+            for g in (g_render, g_step):
+                g.instantiate(stream)
             graphs.append((g_render, out, g_step))
         self._per_frame = {f: (f.launches - n) // 2 for f, n in before.items()
                            if f.launches != n}
@@ -317,21 +376,11 @@ class FusedEngine:
         return None if self._frame is None else self._frame.frame
 
     def present(self) -> Optional[FrameOutput]:
-        """Fence on the last frame with the split engine's deferred dup
-        auto-raise: ONE packed host read carries fence + truncated + spans;
-        a truncating frame grows the window for FUTURE frames, which then
-        run eagerly once and recapture (the graphs baked the old window
-        in)."""
-        f = self._frame
-        if f is None:
-            return None
-        rend = self.renderer
-        with trace.span("wait"):
-            if rend.auto_raise_dup:
-                vals = _present_probe(f).cpu().tolist()
-                rend.last_truncated = int(vals[1])
-                rend.raise_dup_values(int(vals[1]), int(vals[2]),
-                                      int(vals[3]))
-            else:
-                sync(f.frame)
-        return f
+        """Fence on the last frame with the split engine's deferred growth
+        (`present_frame`): ONE packed host read carries fence, counts and
+        spans; a truncating frame grows the capacity (or the window) for
+        FUTURE frames, which then run eagerly once and recapture (the
+        graphs baked the old capacity in)."""
+        if self._frame is not None:
+            present_frame(self.renderer, self._frame, self.metrics)
+        return self._frame

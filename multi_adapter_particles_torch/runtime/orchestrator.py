@@ -320,7 +320,8 @@ class ParticlesApp:
         if self.app.vsync and self.draw_enabled:
             eng.present()  # the single host block per frame
         else:
-            # launch ahead, bounded in flight; no present, so no dup raise
+            # launch ahead, bounded in flight; no present, so no growth (the
+            # exact binning draws every sprite whole within its capacity)
             self.pacing.push(eng.positions)
         self._display_positions = eng.positions
         if self.debug:
@@ -422,10 +423,11 @@ class ParticlesApp:
 
     def _carry_renderer(self, rcfg: RenderConfig) -> Renderer:
         """A renderer at `rcfg` that keeps the current one's settings and
-        learned dup window."""
+        learned capacity or dup window."""
         o = self.render.renderer
         return Renderer(rcfg, seg_q=o.seg_q, dup_y=o.dup_y, dup_x=o.dup_x,
-                        blend=o.blend, auto_raise_dup=o.auto_raise_dup)
+                        blend=o.blend, auto_raise_dup=o.auto_raise_dup,
+                        entry_factor=o.entry_factor)
 
     def _restart_timer(self) -> None:
         """A stage timer follows the compute role to its new device."""

@@ -15,8 +15,9 @@ queue fills from the cross-adapter shared heap each frame
   columns into an engine-owned buffer and leaves the rest *stale*
   (`Render.cpp:814`; the lane rounding is the JAX package's, `PARITY.md`);
 - the swap chain is the host-side frame handle: `draw()` returns the frame
-  (async); `present()` blocks on it with ONE host read of a 4-element
-  tensor (fence anchor + truncated + span_y + span_x).
+  (async); `present()` blocks on it with ONE host read of a 5-element
+  tensor (fence anchor + truncated + span_y + span_x + entries,
+  `present_frame`, which the fused engine shares).
 
 - positions sharded over a mesh (`parallel.mesh.Sharded`, from a
   `MeshComputeEngine`) are gathered onto the render device: the copy
@@ -47,18 +48,40 @@ from multi_adapter_particles_torch.utils.timers import sync
 
 
 def _present_probe(f: FrameOutput) -> torch.Tensor:
-    """[4] f32 carrying (frame anchor, truncated, span_y, span_x).
+    """[5] f64 carrying (frame anchor, truncated, span_y, span_x, entries;
+    -1 where the window path counts no entries).
 
-    present() needs both a completion fence on the frame and the auto-raise
+    present() needs both a completion fence on the frame and the growth
     scalars; packing them into one small dependent tensor makes it a
-    single device -> host read (the JAX package's `_present_probe`)."""
-    anchor = f.frame.reshape(-1)[0].to(torch.float32) * 0.0
-    return torch.stack([
-        anchor,
-        f.truncated.to(torch.float32),
-        f.span_y.to(torch.float32),
-        f.span_x.to(torch.float32),
-    ])
+    single device -> host read (the JAX package's `_present_probe`, with
+    the entry count beside)."""
+    anchor = f.frame.reshape(-1)[0].to(torch.float64) * 0.0
+    truncated = f.truncated.to(torch.float64)
+    entries = (truncated * 0.0 - 1.0 if f.entries is None
+               else f.entries.to(torch.float64))
+    return torch.stack([anchor, truncated, f.span_y.to(torch.float64),
+                        f.span_x.to(torch.float64), entries])
+
+
+def present_frame(renderer: Renderer, f: FrameOutput,
+                  metrics: MetricsRegistry) -> None:
+    """Block until frame `f` is really finished, both engines' present().
+    With auto-raise on, one host read carries the fence and the counts:
+    `last_truncated` and the `render_truncated` / `render_entries` gauges
+    take them, and a truncating frame grows the exact binning's capacity,
+    or the dup window, for FUTURE frames (it is not re-rendered)."""
+    with trace.span("wait"):
+        if not renderer.auto_raise_dup:
+            sync(f.frame)
+            return
+        # the anchor (first value) is a fence only, and may be NaN
+        truncated, span_y, span_x, entries = (
+            int(v) for v in _present_probe(f).cpu().tolist()[1:])
+        renderer.last_truncated = truncated
+        metrics.gauge("render_truncated", truncated)
+        if entries >= 0:
+            metrics.gauge("render_entries", entries)
+        renderer.raise_dup_values(truncated, span_y, span_x)
 
 
 class RenderEngine:
@@ -178,21 +201,10 @@ class RenderEngine:
     # -- present ---------------------------------------------------------------------
     def present(self) -> Optional[FrameOutput]:
         """Block until the last frame is really finished — the
-        latency-waitable-swapchain host wait (`Particles.cpp:452-456`).
-
-        With auto-raise on, one host read carries the fence and the
-        auto-raise scalars; a truncating frame grows the dup window for
-        FUTURE frames (it is not re-rendered)."""
-        f = self._frame
-        if f is not None:
-            with trace.span("wait"):
-                if self.renderer.auto_raise_dup:
-                    vals = _present_probe(f).cpu().tolist()
-                    self.renderer.raise_dup_values(
-                        int(vals[1]), int(vals[2]), int(vals[3])
-                    )
-                else:
-                    sync(f.frame)
+        latency-waitable-swapchain host wait (`Particles.cpp:452-456`),
+        with its one packed read (`present_frame`)."""
+        if self._frame is not None:
+            present_frame(self.renderer, self._frame, self.metrics)
         return self._frame
 
     @property

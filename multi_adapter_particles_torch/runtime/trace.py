@@ -22,10 +22,14 @@ waiting for the host to launch the stage, which is what a frame costs.
 **Host spans** (`span`). The code that does a frame's work runs inside
 named spans: `frame` (`ParticlesApp.draw`, with the frame count), `wait`
 (every host block on the device in the frame path), `step`,
-`render.draw` and its four stages `render.copy`, `render.project`,
-`render.sort`, `render.composite` (every operation `render.draw`
-launches lies in exactly one), `fused.capture`, `reconfigure` and
-`diagnostics`. While a `torch.profiler` profile runs, a span is a
+`render.draw` and its five stages `render.copy`, `render.project`,
+`render.bin` (the exact binning), `render.sort`, `render.composite`
+(every operation `render.draw` launches lies in exactly one),
+`fused.capture`, `reconfigure` and `diagnostics`. Under a CUDA graph's
+replay the stages launch nothing (the replay is one launch inside
+`render.draw`). Counters: `present()`'s one packed read fills the gauges
+`render_entries` and `render_truncated` (the tile entries the last
+presented frame binned and dropped, `runtime/render_engine.py`). While a `torch.profiler` profile runs, a span is a
 `record_function` range named `particles.<name>` on the profiler's own
 clock, beside the device activity it launched (tied to it by correlation
 id), nested on the host thread under the span that opened it. With no

@@ -62,7 +62,8 @@ ANCHORS = (
 CALLS = {
     "_project": "projection", "_colors": "projection",
     "_pixel_bound": "projection", "expand": "projection",
-    "pack_cgb": "projection", "sort_kv_stable": "sort",
+    "pack_cgb": "projection", "bin_sprites": "projection",
+    "_bin_window": "projection", "sort_kv_stable": "sort",
     "virtual_rows": "map", "gather_rows": "gather", "unpack_cgb": "sp",
     "composite_rows": "composite", "composite_tiles": "composite",
     "assemble": "assembly", "_chunked_fold": "assembly",
@@ -70,7 +71,8 @@ CALLS = {
 }
 # the port's own kernels (anonymous namespace), by name -> group, for
 # launches the profiler did not link to a range
-KERNELS = (("histogram_kernel", "sort"), ("digit_pass_kernel", "sort"),
+KERNELS = (("bin_", "projection"), ("histogram_kernel", "sort"),
+           ("digit_pass_kernel", "sort"),
            ("gather_kernel", "gather"), ("composite_kernel", "composite"),
            ("tile_rows_kernel", "composite"),
            ("tile_fold_kernel", "composite"), ("central_well", "step"))

@@ -28,6 +28,7 @@ from multi_adapter_particles_torch.config import (
     SimConfig,
 )
 from multi_adapter_particles_torch.models.state import ParticleState
+from multi_adapter_particles_torch.render.renderer import Renderer
 from multi_adapter_particles_torch.runtime import devices
 from multi_adapter_particles_torch.runtime.devices import cpu_adapter_index
 from multi_adapter_particles_torch.runtime.fused import CAPTURED, FusedEngine
@@ -101,10 +102,12 @@ class TestFusedMode:
 
     def test_fused_present_auto_raises_dup(self):
         """A truncating fused frame grows the dup window at present(),
-        and the next frame runs with it (on a card: a recapture)."""
+        and the next frame runs with it (on a card: a recapture). The
+        window is given: the default renderer draws every sprite whole."""
         app = AppConfig(num_particles=1, particle_size=200.0)
-        eng = FusedEngine(SimConfig(num_particles=1),
-                          RenderConfig(width=256, height=256), "cpu")
+        cfg = RenderConfig(width=256, height=256)
+        eng = FusedEngine(SimConfig(num_particles=1), cfg, "cpu",
+                          renderer=Renderer(cfg, dup_y=2, dup_x=2))
         pos = np.array([[0.0, 0.0, 0.0, 0.0]], dtype=np.float32)
         eng.restore(ParticleState.from_aos(pos, np.zeros((1, 3),
                                                          np.float32)))
@@ -150,13 +153,13 @@ class TestFusedMode:
 class TestFusedReconfiguration:
     def test_fused_adapter_move_rebuilds_engine(self):
         """An adapter change rebuilds the fused engine with the state
-        migrated, the camera and the learned dup window kept, and the same
+        migrated, the camera and the learned capacity kept, and the same
         trajectory as an undisturbed fused run."""
         a, b = _app(True), _app(True)
         a.draw()
         b.draw()
         old = b.fused_engine
-        old.renderer.dup_y = 3
+        old.renderer.entry_factor = 5
         b._prev_compute_index = -1   # re-assign to the same (only) adapter
         b._prev_render_index = -1
         a.draw()
@@ -164,8 +167,8 @@ class TestFusedReconfiguration:
         assert b.fused_engine is not old
         assert b.compute is b.render is b.fused_engine
         assert b.fused_engine.camera is old.camera
-        assert b.fused_engine.renderer.dup_y == 3
-        a.fused_engine.renderer.dup_y = 3
+        assert b.fused_engine.renderer.entry_factor == 5
+        a.fused_engine.renderer.entry_factor = 5
         a.draw()
         b.draw()
         a.shutdown()

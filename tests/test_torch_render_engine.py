@@ -45,7 +45,8 @@ def test_chunked_fold_matches_jax():
 
 def test_renderer_class_matches_jax():
     """`Renderer.render` (adaptive seg_q, the auto-raise re-render) on
-    a close-up that truncates at the default window."""
+    a close-up that truncates at the JAX package's default window, given
+    explicitly (the port's default draws every sprite whole)."""
     rng = np.random.default_rng(7)
     n = 24
     aos = np.zeros((n, 4), np.float32)
@@ -55,7 +56,8 @@ def test_renderer_class_matches_jax():
     pos[3] = 0
     pos[:, :n] = aos.T
     jrend = jr.Renderer(JRenderConfig(width=128, height=64))
-    trend = tr.Renderer(RenderConfig(width=128, height=64))
+    trend = tr.Renderer(RenderConfig(width=128, height=64), dup_y=2,
+                        dup_x=2)
     jframe = jrend.render(jnp.asarray(pos),
                           jcam.Camera(position=(0.0, 0.0, 60.0)), 10.0,
                           0.15)
@@ -131,7 +133,8 @@ def test_virtual_row_map_bitwise(seed, q):
 def test_present_raises_dup_for_future_frames():
     """present()'s one packed read (fence + truncated + spans) grows the
     dup window, so the NEXT frame is lossless — as the JAX render engine
-    does (tests/test_render.py::test_present_raises_for_future_frames)."""
+    does (tests/test_render.py::test_present_raises_for_future_frames).
+    The window is given: the default renderer draws every sprite whole."""
     from multi_adapter_particles_torch.config import AppConfig
     from multi_adapter_particles_torch.runtime.render_engine import (
         RenderEngine,
@@ -140,7 +143,9 @@ def test_present_raises_dup_for_future_frames():
     pos = torch.full((4, 128), 1e9)
     pos[:, 0] = 0.0
     pos[3] = 0.0
-    eng = RenderEngine(RenderConfig(width=256, height=256), "cpu")
+    cfg = RenderConfig(width=256, height=256)
+    eng = RenderEngine(cfg, "cpu", renderer=tr.Renderer(cfg, dup_y=2,
+                                                        dup_x=2))
     app = AppConfig(num_particles=1, particle_size=200.0)
     assert int(eng.draw(pos, app).truncated) > 0
     eng.present()

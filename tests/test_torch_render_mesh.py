@@ -157,13 +157,14 @@ class TestRenderMesh:
 
     def test_span_metrics_aggregate_across_shards(self):
         """A giant sprite in a LATE shard surfaces in the folded span and
-        truncated scalars (the auto-raise feed)."""
+        truncated scalars (the auto-raise feed), on the dup-window path
+        (the window given, as the JAX package's)."""
         pos = _aos(seed=13)
         pos[N - 10, :3] = (0.0, 0.0, 1400.0)  # 100 units from the eye
         mesh = _mesh(8)
         sh = shard(_state(pos).position, mesh)
         cfg = RenderConfig(width=256, height=128)
-        r = Renderer(cfg)
+        r = Renderer(cfg, dup_y=2, dup_x=2)
         out = r.render_mesh(sh, cam.Camera(), 8.0, 0.4, mesh)
         assert int(out.truncated) > 0
         assert int(out.span_y) > r.dup_y or int(out.span_x) > r.dup_x

@@ -4,9 +4,10 @@ With no profiler running a span is one shared no-op context and a frame
 records nothing. Under `torch.profiler.profile` (CPU activity) a frame of
 4,096 bodies at 64x64 opens `particles.*` ranges nested as the program
 nests them: `step`, `render.draw` and `wait` inside `frame`, the render's
-four stages inside `render.draw`, and every operation `render.draw` runs
+stages inside `render.draw`, and every operation `render.draw` runs
 inside exactly one stage, in the split and the fused frame, the chunked
-fold and the mesh render. A live reconfiguration opens `reconfigure` with
+fold and the mesh render, with the exact binning (`render.bin`) and on the
+dup-window path. A live reconfiguration opens `reconfigure` with
 `wait` inside, a diagnostics sample `diagnostics`, and `-trace DIR` writes
 the spans into its chrome trace.
 """
@@ -26,8 +27,12 @@ torch.set_num_threads(1)
 
 N = 4096
 RENDER = RenderConfig(width=64, height=64)
-STAGES = ("render.copy", "render.project", "render.sort", "render.composite")
-FRAME_SPANS = {"frame", "wait", "step", "render.draw", *STAGES}
+STAGES = ("render.copy", "render.project", "render.bin", "render.sort",
+          "render.composite")
+# the spans every frame opens: `render.project` holds the device arguments
+# (cached in split frames) and the dup-window path's binning
+FRAME_SPANS = {"frame", "wait", "step", "render.draw",
+               *STAGES} - {"render.project"}
 # every span the program opens (`runtime/trace.py`)
 ALL_SPANS = FRAME_SPANS | {"fused.capture", "reconfigure", "diagnostics"}
 
@@ -127,7 +132,7 @@ def test_frame_spans_nest(mode):
     assert parents["frame"] == {None}
     for name in ("step", "render.draw", "wait"):
         assert parents[name] == {"frame"}, name
-    for name in STAGES:
+    for name in names & set(STAGES):
         assert parents[name] == {"render.draw"}, name
     assert sum(r[0] == "frame" for r in ranges) == 1
 
@@ -151,6 +156,20 @@ def test_chunked_render_stages_tile_render_draw():
     app.shutdown()
     _assert_stages_tile(ranges, ops)
     assert sum(r[0] == "render.sort" for r in ranges) == 3
+
+
+def test_window_render_stages_tile_render_draw():
+    """A renderer given a dup window: its binning inside `render.project`,
+    and no `render.bin`."""
+    app = _app()
+    renderer = app.render.renderer
+    renderer.dup_y = renderer.dup_x = 2
+    app.draw()
+    ranges, ops = _profile(app.draw)
+    app.shutdown()
+    _assert_stages_tile(ranges, ops)
+    names = {r[0] for r in ranges}
+    assert "render.project" in names and "render.bin" not in names
 
 
 def test_mesh_render_stages_tile_render_draw(monkeypatch):
@@ -229,4 +248,5 @@ def test_trace_flag_writes_the_spans(tmp_path):
     names = {e["name"][len(trace.PREFIX):] for e in events
              if e.get("cat") == "user_annotation"
              and e["name"].startswith(trace.PREFIX)}
-    assert names == FRAME_SPANS | {"diagnostics"}
+    # the first frame's device arguments open `render.project`
+    assert names == FRAME_SPANS | {"diagnostics", "render.project"}
