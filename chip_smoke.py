@@ -59,7 +59,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    replayed on new keys, bitwise the eager call; times on render and
    full-range keys beside torch.sort + 4 gathers, the bytes bound and the
    bitonic network's time before; torch.profiler's device time of each
-   launch of one call
+   launch of one call; the live length (`live=`, the exact path's form)
+   on the exact bins of the 4M default scene's first two 1M chunks
+   (`bin_sprites`): in place, bitwise the full-length sort of the twin and
+   of the kernel, twice, and from a CUDA graph replayed on the other
+   chunk's bins twice; its device time beside the full-length call's, the
+   bytes bound at the live length (40 B a live entry) and at E
 4b. row gather kernel (off the render path) vs plain, bitwise: the eager
    composite's packed payload rows of that chunk, the TPU prototype's
    shape ([2,097,152, 32] x 4,194,304), clamped out-of-range indices
@@ -1299,6 +1304,144 @@ def launch_profile(fn):
     return profile_call(fn)
 
 
+def _exact_bins(dev):
+    """`bin_sprites` (key, cx, cy, w, cgb, stats) of the first two 1M
+    chunks of the 4M default scene (the device init, seed 0, after one
+    central-well step) at 1024x1024, capacity 4 x 1M: the exact path's
+    sort inputs."""
+    import torch
+
+    from multi_adapter_particles_torch import constants as C
+    from multi_adapter_particles_torch.config import RenderConfig
+    from multi_adapter_particles_torch.models import init as pinit
+    from multi_adapter_particles_torch.ops.binning import bin_sprites
+    from multi_adapter_particles_torch.ops.central_well import central_well_step
+    from multi_adapter_particles_torch.render import renderer as R
+    from multi_adapter_particles_torch.render.camera import Camera
+
+    st = pinit.initialize_particles_device(
+        N_MAIN, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pos, _ = central_well_step(st.position, st.velocity, dt=C.TIMESTEP,
+                               damping=C.DAMPING, mass=C.PARTICLE_MASS,
+                               softening_squared=C.SOFTENING_SQUARED)
+    del st
+    n = 1_048_576
+    rend = R.Renderer(RenderConfig(width=WIDTH, height=HEIGHT))
+    args = rend._device_args(Camera(), 2.5, 0.15, dev)
+    return [bin_sprites(pos[:, c * n:(c + 1) * n], *args[:4], n, c * n,
+                        width=WIDTH, height=HEIGHT, near=1.0, capacity=4 * n,
+                        row=rend.resolve_seg_q(n)) for c in (0, 1)]
+
+
+def _sort_device_ms(fn, inputs, reps=10):
+    """Device ms a call of `fn(*args)` by torch.profiler (the sort's
+    memset and kernels), each call on a fresh copy of `inputs` (an in-place
+    sort changes its input; the copies are not counted): the median."""
+    import statistics
+
+    import torch
+
+    args = [x.clone() for x in inputs]
+
+    def calls():
+        for _ in range(reps):
+            for a, x in zip(args, inputs):
+                a.copy_(x)
+            fn(*args)
+
+    _, launches = launch_profile(calls)
+    ours = [(n, t) for n, t in launches
+            if "histogram_kernel" in n or "digit_pass_kernel" in n
+            or "Memset" in n]
+    per_call = len(ours) // reps
+    return statistics.median(
+        sum(t for _, t in ours[i * per_call:(i + 1) * per_call])
+        for i in range(reps)), ours[:per_call]
+
+
+def phase_sort_live(dev):
+    """The live-length sort on the exact path's real bins: in place,
+    bitwise the full-length stable sort, run to run and under a graph
+    replay; its device time against the full-length call and the bound."""
+    import torch
+
+    from multi_adapter_particles_torch.ops.sortkv import (
+        live_digits,
+        sort_kv_stable,
+        sort_kv_stable_plain,
+    )
+
+    bins = _exact_bins(dev)
+    wants = []
+    for c, (key, *pay, stats) in enumerate(bins):
+        live = stats[0]
+        want = sort_kv_stable_plain(key, *pay)
+        full = sort_kv_stable(key, *pay)
+        got = sort_kv_stable(*(x.clone() for x in (key, *pay)), live=live)
+        again = sort_kv_stable(*(x.clone() for x in (key, *pay)), live=live)
+        torch.cuda.synchronize()
+        for label, out in (("full length", full), ("live", got),
+                           ("live, again", again)):
+            for i, (a, b) in enumerate(zip(out, want)):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    fail(f"sort, exact chunk {c}, {label}: output {i} "
+                         f"differs from the full-length twin "
+                         f"({int((a != b).sum())} entries)")
+        n, e = int(live), key.shape[0]
+        log(f"  exact chunk {c}: {n:,} live of {e:,} ({n / e:.1%}), digit "
+            f"passes {live_digits(key[:n])}: live length in place bitwise "
+            "the full-length twin and kernel, twice")
+        wants.append(want)
+        del full, got, again
+
+    # captured once on chunk 0's bins, replayed twice on chunk 1's
+    static = [x.clone() for x in bins[0][:-1]]
+    live = bins[0][-1][0].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sort_kv_stable(*static, live=live)
+    for _ in range(2):
+        for dst, src in zip(static, bins[1][:-1]):
+            dst.copy_(src)
+        live.copy_(bins[1][-1][0])
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(static, wants[1])):
+            fail("sort: the live-length graph replayed on chunk 1's bins "
+                 "differs from the full-length twin")
+    log("  live length captured in a CUDA graph on chunk 0, replayed twice "
+        "on chunk 1's bins: bitwise the full-length twin both times")
+    del static, graph, wants
+
+    key, *pay, stats = bins[0]
+    n, e = int(stats[0]), key.shape[0]
+    live = stats[0]
+    ms_live, live_launches = _sort_device_ms(
+        lambda *a: sort_kv_stable(*a, live=live), (key, *pay))
+    ms_full, full_launches = _sort_device_ms(sort_kv_stable, (key, *pay))
+    words = 1 + len(pay)
+    passes = len(live_digits(key[:n]))
+    bound_live = bytes_bound_ms(8 * words * n)
+    bound_passes = bytes_bound_ms((4 + 8 * words * passes) * n)
+    bound_full = bytes_bound_ms(8 * words * e)
+    log(f"  exact chunk 0 ({n:,} live of {e:,}), device ms a call "
+        f"(torch.profiler, median of 10): live {ms_live:.4f}, full length "
+        f"{ms_full:.4f} ({ms_full / ms_live:.2f}x); bound {bound_live:.4f} "
+        f"ms at the live length (40 B a live entry) -> "
+        f"{bound_live / ms_live:.1%}; the passes' traffic (4 B a live key "
+        f"read by the histogram, 40 B a live entry a pass, {passes} "
+        f"passes) {bound_passes:.4f} -> {bound_passes / ms_live:.1%}; "
+        f"{bound_full:.4f} at E -> {bound_full / ms_full:.1%}")
+    for label, launches in (("live", live_launches),
+                            ("full length", full_launches)):
+        log(f"  one {label} call, device ms a launch: " + ", ".join(
+            f"{k} {t:.4f}" for k, t in launches))
+    return {"ms_live": ms_live, "ms_full_length": ms_full,
+            "bound_live_ms": bound_live, "bound_passes_ms": bound_passes,
+            "bound_ms_e": bound_full, "live": n, "capacity": e}
+
+
 def phase_sort(dev):
     import torch
 
@@ -1414,11 +1557,13 @@ def phase_sort(dev):
         kernels = sum(1 for name, _ in launches if "Memset" not in name)
         log(f"  one call on {label} keys, device ms a launch ({kernels} "
             "kernels): " + ", ".join(f"{n} {t:.4f}" for n, t in launches))
+    del full
+    exact = phase_sort_live(dev)
     # every output bitwise the twin's (checked above)
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
             "ms_full_range": ms_full, "library_ms_full_range": lib_full,
-            "profile": profile}, gather_args
+            "profile": profile, "exact": exact}, gather_args
 
 
 def phase_gather(dev, render_args):
@@ -1633,8 +1778,12 @@ def phase_full_frame(seen):
     out, launches = launch_profile(
         lambda: rend.render_arrays(pos, seen["camera"], 2.5, 0.15))
     with_kernel = out.frame
+
+    def full_length(*args, live=None):   # every entry, as before `live`
+        return sort_kv_stable_plain(*args)
+
     rend.composite = composite_tiles_plain
-    rend.sort = sort_kv_stable_plain
+    rend.sort = full_length
     rend.bin = bin_sprites_plain
     with_plain = rend.render_arrays(pos, seen["camera"], 2.5, 0.15).frame
     torch.cuda.synchronize()

@@ -24,6 +24,14 @@
 //   flag: a digit is dead when one bin holds all E entries, and its pass
 //   then returns at once. The renderer's tile keys lie in [0, 8192] at
 //   1024x1024, so only digits 0 and 1 run.
+// - A caller may give `live`, a device count of leading entries, and
+//   promise that the entries past it are already in order and hold keys
+//   >= every key before it (the renderer's sentinel tail). The histogram
+//   and the passes then stop at it (a digit is dead when one bin holds all
+//   `live` entries; a pass's CTA given a tile past it returns at once), so
+//   the tail is neither read nor moved, and the sort is in place: the
+//   result is the caller's arrays. `live` is read on the device, clamped to
+//   [0, E], so a graph captures the call with its grids fixed by E.
 // - Four digit passes, always launched, so a call is a fixed sequence (a
 //   memset and five kernels) that a CUDA graph captures. A live pass takes
 //   tiles of 6,144 entries in order from an atomic counter and ranks each
@@ -37,10 +45,14 @@
 //   slower earlier tiles.
 // - The payloads ride each live pass through a second shared-memory stage,
 //   one at a time, read and written in coalesced runs: no random gather.
-//   The first live pass reads the caller's arrays; the passes then alternate
-//   between a scratch set and the outputs so that the last live pass writes
-//   the outputs. With no live digit (all keys equal, or E = 1) the last
-//   pass copies the input.
+//   A hop is a live pass, or a dead digit's launch that copies the sorted
+//   prefix across. The first hop reads the caller's arrays; the hops then
+//   alternate between a scratch set and the outputs (in place: the
+//   caller's arrays) so that the last hop writes the outputs. Out of place
+//   with no live digit (all keys equal, or E = 1) one copy moves the input
+//   to the outputs; in place an odd number of live digits takes one copy,
+//   in the first dead digit's launch, so that the hops end where they
+//   began, and with none there is nothing to do.
 // - What is left between it and the bound (measured, PERF.md): a tile's
 //   load, rank and look-back are latency the CTAs of a wave spend together
 //   while memory idles, and a bin's run in a tile is ~24 entries, so
@@ -87,8 +99,10 @@ struct Control {
   uint32_t count[kDigits][kRadix];   // histogram of each digit
   uint32_t offset[kDigits][kRadix];  // exclusive bin offsets
   int live[kDigits];
-  int order[kDigits];                // live digits before this one
-  int n_live;
+  int hop[kDigits];                  // hops before this digit's launch
+  int n_hops;                        // live passes, and the copy if any
+  int copy_at;                       // the dead digit that copies, or -1
+  int length;                        // the entries sorted: live, or E
   uint32_t hist_done;                // histogram CTAs finished
   uint32_t next_tile[kDigits];       // a pass's tile counter
 };
@@ -100,9 +114,9 @@ struct Set {
 };
 
 struct Buffers {
-  Set in;        // the caller's key and payloads (read only)
+  Set in;        // the caller's key and payloads (read only out of place)
   Set scratch;
-  Set out;
+  Set out;       // in place: the same arrays as `in`
 };
 
 __device__ __forceinline__ uint32_t digit_of(int key, int shift) {
@@ -165,10 +179,12 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v,
   return before + x - v;
 }
 
-// Counts of all four digits; the last CTA to finish turns them into the
-// bin offsets, the live flags and each live digit's order.
+// Counts of all four digits of the first `length` keys (`*live` clamped
+// to [0, e], or e when live is null); the last CTA to finish turns them
+// into the bin offsets, the live flags and each launch's hop.
 __global__ void __launch_bounds__(kHistThreads)
     histogram_kernel(const int* __restrict__ key, long long e,
+                     const int* __restrict__ live,
                      Control* __restrict__ ctl) {
   constexpr int kHistWarps = kHistThreads / 32;
   __shared__ uint32_t hist[kDigits][kRadix];
@@ -177,21 +193,23 @@ __global__ void __launch_bounds__(kHistThreads)
   for (int i = threadIdx.x; i < kDigits * kRadix; i += kHistThreads)
     (&hist[0][0])[i] = 0;
   __syncthreads();
+  const long long length = live ? min(max((long long)*live, 0LL), e) : e;
   const int lane = threadIdx.x & 31;
   const long long warp =
       (long long)blockIdx.x * kHistWarps + (threadIdx.x >> 5);
   const long long step = (long long)gridDim.x * kHistWarps * 32 * kHistItems;
   // warp-uniform loop: every lane reaches the warp vote below
-  for (long long base = warp * 32 * kHistItems; base < e; base += step) {
+  for (long long base = warp * 32 * kHistItems; base < length;
+       base += step) {
     int k[kHistItems];
 #pragma unroll
     for (int r = 0; r < kHistItems; ++r) {
       const long long i = base + r * 32 + lane;
-      k[r] = i < e ? key[i] : 0;
+      k[r] = i < length ? key[i] : 0;
     }
 #pragma unroll
     for (int r = 0; r < kHistItems; ++r) {
-      const bool valid = base + r * 32 + lane < e;
+      const bool valid = base + r * 32 + lane < length;
 #pragma unroll
       for (int d = 0; d < kDigits; ++d) {
         // kRadix marks an entry past the end: it matches no real bin
@@ -220,18 +238,30 @@ __global__ void __launch_bounds__(kHistThreads)
   if (!last) return;
   __threadfence();
   const int b = threadIdx.x;
-  int n_live = 0;
+  int live_mask = 0;
   for (int d = 0; d < kDigits; ++d) {
     const uint32_t c = __ldcg(&ctl->count[d][b]);
-    const int dead = __syncthreads_or(c == (uint32_t)e);
+    const int dead = __syncthreads_or(c == (uint32_t)length);
     ctl->offset[d][b] = block_exclusive_scan(c, warp_total);
-    if (b == 0) {
-      ctl->live[d] = !dead;
-      ctl->order[d] = n_live;
-    }
-    n_live += !dead;
+    live_mask |= !dead << d;
   }
-  if (b == 0) ctl->n_live = n_live;
+  if (b == 0) {
+    const int n_live = __popc(live_mask);
+    // out of place with no live digit the copy moves the input to the
+    // outputs; in place with an odd count it makes the hops even
+    const bool copy = live ? (n_live & 1) : n_live == 0;
+    const int copy_at = copy ? __ffs(~live_mask) - 1 : -1;  // first dead
+    int hops = 0;
+    for (int d = 0; d < kDigits; ++d) {
+      const int pass = (live_mask >> d) & 1;
+      ctl->live[d] = pass;
+      ctl->hop[d] = hops;
+      hops += pass || d == copy_at;
+    }
+    ctl->n_hops = hops;
+    ctl->copy_at = copy_at;
+    ctl->length = (int)length;
+  }
 }
 
 // The count of bin b in all tiles before `tile` (thread b): decoupled
@@ -255,11 +285,11 @@ __device__ __forceinline__ uint32_t look_back(const uint32_t* mine, int tile) {
   }
 }
 
-// One digit's stable scatter of (key, payloads), or nothing when the digit
-// is dead; the last digit's pass copies the input when no digit is live.
+// One digit's stable scatter of the first `length` (key, payloads); a
+// dead digit's launch copies them when it is the copy, else does nothing.
 __global__ void __launch_bounds__(kThreads)
-    digit_pass_kernel(Buffers buf, int n_pay, long long e, int digit,
-                      Control* ctl, uint32_t* status, int tiles) {
+    digit_pass_kernel(Buffers buf, int n_pay, int digit, Control* ctl,
+                      uint32_t* status, int tiles) {
   extern __shared__ uint32_t smem[];
   uint32_t* skey = smem;                   // the tile's keys in bin order
   uint32_t* sval = smem + kTile;           // a payload in bin order
@@ -270,26 +300,26 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ uint32_t warp_total[kWarps];
   __shared__ int tile_sh;
 
-  const int n_live = ctl->n_live;
-  if (!ctl->live[digit]) {
-    if (digit == kDigits - 1 && n_live == 0) {   // identity
-      const long long base = (long long)blockIdx.x * kTile;
-      for (int s = threadIdx.x; s < kTile; s += kThreads) {
-        const long long i = base + s;
-        if (i >= e) break;
-        buf.out.key[i] = buf.in.key[i];
-        for (int q = 0; q < n_pay; ++q) buf.out.pay[q][i] = buf.in.pay[q][i];
-      }
+  const bool pass = ctl->live[digit];
+  if (!pass && digit != ctl->copy_at) return;
+  // Hop `hop` of n_hops reads the input (the first) or what the hop before
+  // it wrote; hops alternate scratch and out, ending at out.
+  const int hop = ctl->hop[digit], n_hops = ctl->n_hops;
+  const long long length = ctl->length;
+  const Set& src = hop == 0 ? buf.in
+                   : ((n_hops - hop) & 1) == 0 ? buf.out
+                                               : buf.scratch;
+  const Set& dst = ((n_hops - 1 - hop) & 1) == 0 ? buf.out : buf.scratch;
+  if (!pass) {   // the copy: this CTA's tile of the first `length` entries
+    const long long base = (long long)blockIdx.x * kTile;
+    for (int s = threadIdx.x; s < kTile; s += kThreads) {
+      const long long i = base + s;
+      if (i >= length) break;
+      dst.key[i] = src.key[i];
+      for (int q = 0; q < n_pay; ++q) dst.pay[q][i] = src.pay[q][i];
     }
     return;
   }
-  // Live pass `order` of n_live reads the input (the first) or what the
-  // pass before it wrote; passes alternate scratch and out, ending at out.
-  const int order = ctl->order[digit];
-  const Set& src = order == 0 ? buf.in
-                   : ((n_live - order) & 1) == 0 ? buf.out
-                                                 : buf.scratch;
-  const Set& dst = ((n_live - 1 - order) & 1) == 0 ? buf.out : buf.scratch;
 
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   if (threadIdx.x == 0) tile_sh = (int)atomicAdd(&ctl->next_tile[digit], 1u);
@@ -298,7 +328,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const int tile = tile_sh;
   const long long tile_base = (long long)tile * kTile;
-  const int n_valid = (int)min((long long)kTile, e - tile_base);
+  if (tile_base >= length) return;   // past the entries sorted
+  const int n_valid = (int)min((long long)kTile, length - tile_base);
   const int shift = kRadixBits * digit;
   const int first = w * kWarpSpan + lane;   // entry of round 0
 
@@ -417,12 +448,14 @@ extern "C" long long sortkv_control_words(long long e) {
 
 // key [e] int32; key_out [e]; pay_in / pay_out: n_pay (<= 8) pointers to
 // [e] 32-bit payloads; scratch: (1 + n_pay) * e words; control:
-// sortkv_control_words(e) words (no initial value). Returns
+// sortkv_control_words(e) words (no initial value); live: null, or a
+// device int32 count of leading entries to sort, in place (key and pay_in
+// are then the outputs, and key_out and pay_out are not used). Returns
 // cudaGetLastError() (cudaErrorInvalidValue for arguments out of range).
-extern "C" int sortkv_stable(const void* key, long long e, void* key_out,
+extern "C" int sortkv_stable(void* key, long long e, void* key_out,
                              void* const* pay_in, void* const* pay_out,
                              int n_pay, void* scratch, void* control,
-                             void* stream) {
+                             const void* live, void* stream) {
   if (e <= 0) return 0;
   if (e > kMaxLength || n_pay < 0 || n_pay > kMaxPayloads)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -442,16 +475,17 @@ extern "C" int sortkv_stable(const void* key, long long e, void* key_out,
   histogram_kernel<<<(unsigned)(hist_tiles < kHistBlocks ? hist_tiles
                                                          : kHistBlocks),
                      kHistThreads, 0, st>>>(static_cast<const int*>(key), e,
+                                            static_cast<const int*>(live),
                                             ctl);
   Buffers buf;
-  buf.in = make_set(const_cast<void*>(key), pay_in, n_pay);
+  buf.in = make_set(key, pay_in, n_pay);
   uint32_t* s = static_cast<uint32_t*>(scratch);
   buf.scratch = {};
   buf.scratch.key = reinterpret_cast<int*>(s);
   for (int q = 0; q < n_pay; ++q) buf.scratch.pay[q] = s + (q + 1) * e;
-  buf.out = make_set(key_out, pay_out, n_pay);
+  buf.out = live ? buf.in : make_set(key_out, pay_out, n_pay);
   for (int d = 0; d < kDigits; ++d)
     digit_pass_kernel<<<(unsigned)tiles, kThreads, kPassSmem, st>>>(
-        buf, n_pay, e, d, ctl, status, (int)tiles);
+        buf, n_pay, d, ctl, status, (int)tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,9 @@ gather:
    the draw order of the reference's single DrawInstanced
    (`Render.cpp:891`): the hand-written CUDA kernel `ops/sortkv.py` on
    CUDA tensors, its plain twin on CPU. Both binnings give the same sorted
-   live stream when the window holds every sprite.
+   live stream when the window holds every sprite. The exact binning's
+   sort stops at its entry count (`live=`), read on the device: the
+   sentinel tail is already where the sort would put it.
 3. **Composite** exactly at any depth: over-composition with a per-sprite
    source clamp is associative on (premultiplied color, transmittance), so
    the sorted stream splits into Q-aligned data rows; each (data row, tile)
@@ -229,7 +231,8 @@ def _render(
 ) -> FrameOutput:
     """One frame of `position`'s first `num_draw` particles. `bin` is the
     exact binning (`ops/binning.bin_sprites`), `sort` the stable key +
-    payload sort (`ops/sortkv.sort_kv_stable`), `composite` the segmented
+    payload sort (`ops/sortkv.sort_kv_stable`; on the exact path given
+    `live=` the binning's entry count), `composite` the segmented
     composite (`ops/composite.composite_tiles`); a caller may hand in
     their plain twins to compare on the card. No host sync: a CUDA graph
     can capture it (a device `num_draw` keeps the draw count out of the
@@ -265,7 +268,12 @@ def _render(
                 near=near)
 
     with trace.span("render.sort"):
-        sorted_key, s_cx, s_cy, s_w, s_cgb = sort(key, *payloads)
+        # the exact binning's sentinel tail is already in its sorted
+        # place: only its entries are sorted, in the binning's arrays
+        # (nothing reads them unsorted again); the window path's sentinels
+        # lie among its entries, so it sorts them all
+        live = {} if entries is None else {"live": entries}
+        sorted_key, s_cx, s_cy, s_w, s_cgb = sort(key, *payloads, **live)
 
         starts = torch.searchsorted(
             sorted_key,
@@ -461,6 +469,9 @@ class Renderer:
         # particles per sort of the LAST render: == _last_n for single-pass
         # frames, the chunk width for chunked ones (drives the budget)
         self._last_sort_n = 0
+        # the LAST render's sort entries over all its sorts (capacity x
+        # chunks or ranks): what `render_sort_skipped` counts down from
+        self.last_sort_slots = 0
 
     @property
     def window(self) -> bool:
@@ -527,18 +538,23 @@ class Renderer:
             frame_uint8 = cfg.frame_uint8
         kw = dict(self._render_kw(), frame_uint8=frame_uint8)
         if n > self.chunk_threshold:
-            _, cn = _chunk_width(n, self.chunk_size)
-            self._last_sort_n = cn
+            k, cn = _chunk_width(n, self.chunk_size)
+            self._sorted(cn, k)
             return _chunked_fold(
                 position, *args, num_draw,
                 seg_q=self.resolve_seg_q(cn, seg_q),
                 chunk_size=self.chunk_size, **kw,
             )
-        self._last_sort_n = n
+        self._sorted(n, 1)
         return _render(
             position, *args, num_draw,
             seg_q=self.resolve_seg_q(n, seg_q), **kw,
         )
+
+    def _sorted(self, width: int, sorts: int) -> None:
+        """Record the render's sorts: `sorts` of `width` particles each."""
+        self._last_sort_n = width
+        self.last_sort_slots = self.entries_per_particle * width * sorts
 
     def frame_args(self, camera, particle_size, particle_intensity):
         """The frame's camera/scalar arguments on the host: (wvp [4, 4]
@@ -605,7 +621,7 @@ class Renderer:
                 "size divides the lane count)")
         cn = n // d
         self._last_n = n
-        self._last_sort_n = cn
+        self._sorted(cn, d)
         nd = int(n if num_draw is None else num_draw)
         device = torch.device(mesh.local_devices[0] if device is None
                               else device)

@@ -68,8 +68,11 @@ def present_frame(renderer: Renderer, f: FrameOutput,
     """Block until frame `f` is really finished, both engines' present().
     With auto-raise on, one host read carries the fence and the counts:
     `last_truncated` and the `render_truncated` / `render_entries` gauges
-    take them, and a truncating frame grows the exact binning's capacity,
-    or the dup window, for FUTURE frames (it is not re-rendered)."""
+    take them, `render_sort_skipped` (the exact path's sort slots past its
+    entries, which its sorts leave where they are: capacity x sorts -
+    entries) is host arithmetic on them, and a truncating frame grows the
+    exact binning's capacity, or the dup window, for FUTURE frames (it is
+    not re-rendered)."""
     with trace.span("wait"):
         if not renderer.auto_raise_dup:
             sync(f.frame)
@@ -81,6 +84,8 @@ def present_frame(renderer: Renderer, f: FrameOutput,
         metrics.gauge("render_truncated", truncated)
         if entries >= 0:
             metrics.gauge("render_entries", entries)
+            metrics.gauge("render_sort_skipped",
+                          renderer.last_sort_slots - entries)
         renderer.raise_dup_values(truncated, span_y, span_x)
 
 

@@ -11,11 +11,15 @@ the CPU through its plain twin.
 - An overflow past the capacity is counted, and `present()` grows the
   capacity so the next frame draws whole, in the split and the fused
   engine, with the `render_entries` / `render_truncated` gauges.
+- The exact path's sort, which stops at the binning's entries
+  (`live=`), bitwise the full-length sort in the sorted stream and the
+  image; the `render_sort_skipped` gauge.
 - A small fused central-well run against the benchmark's plain
   references (`benchmark/reference/central_well.py`, `splat.py`), with
   sprites a 2 x 2 window would cut.
 """
 
+import functools
 import json
 from pathlib import Path
 
@@ -68,8 +72,8 @@ def _args(renderer, size, eye=200.0, intensity=0.15):
 
 
 def _recording_sort(seen):
-    def sort(*args):
-        out = R.sort_kv_stable(*args)
+    def sort(*args, **kw):
+        out = R.sort_kv_stable(*args, **kw)
         seen.append(out)
         return out
     return sort
@@ -177,6 +181,96 @@ def test_exact_render_mesh_matches_raised_window(d):
     assert torch.equal(exact.frame, window.frame)
     chunked = exact_r.render_arrays(pos, cam, 12.0, 0.15)
     assert int(exact.entries) == int(chunked.entries)
+
+
+def _full_length(seen, given):
+    """A recording sort that ignores `live` (kept in `given`): every entry
+    sorted, into new arrays, as before the sort took a live length."""
+    def sort(*args, live=None):
+        given.append(live)
+        out = R.sort_kv_stable(*args)
+        seen.append(out)
+        return out
+    return sort
+
+
+@pytest.mark.parametrize("chunk", [None, 256])
+def test_exact_sort_with_live_matches_the_full_sort(chunk):
+    """The exact path's sort stops at the binning's entries: its sorted
+    stream (every slot, the tail too), the image and the transmittance are
+    bitwise those of the full-length sort, single pass and chunked."""
+    pos = _scene(700, seed=21)
+    args = _args(R.Renderer(RenderConfig(width=W, height=H)), 12.0)
+    kw = dict(width=W, height=H, seg_q=16, near=1.0, blend="over")
+    outs, streams, given = [], [], []
+    for sort in (_recording_sort, functools.partial(_full_length,
+                                                      given=given)):
+        seen = []
+        if chunk is None:
+            out = R._render(pos, *args, 640, return_trans=True,
+                            sort=sort(seen), **kw)
+        else:
+            out = R._chunked_fold(pos, *args, 640, chunk_size=chunk,
+                                  frame_uint8=False, sort=sort(seen), **kw)
+        outs.append(out)
+        streams.append(seen)
+    live, full = outs
+    assert int(live.truncated) == 0 and int(live.entries) > 0
+    assert sum(int(n) for n in given) == int(full.entries)
+    assert len(streams[0]) == len(streams[1]) == (1 if chunk is None else 3)
+    for a, b in zip(*streams):
+        assert int((b[0] < NUM_TILES).sum()) < b[0].numel()   # a tail
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert torch.equal(live.frame, full.frame)
+    if chunk is None:
+        assert torch.equal(live.trans, full.trans)
+
+
+def test_window_path_sorts_every_entry():
+    """The window path's sentinels lie among its entries: its sort gets no
+    live length."""
+    pos = _scene(300, seed=8)
+    args = _args(R.Renderer(RenderConfig(width=W, height=H)), 10.0)
+    kws = []
+
+    def sort(*a, **kw):
+        kws.append(kw)
+        return R.sort_kv_stable(*a, **kw)
+
+    R._render(pos, *args, 300, width=W, height=H, seg_q=16, near=1.0,
+              blend="over", dup_y=2, dup_x=2, sort=sort)
+    assert kws == [{}]
+
+
+@pytest.mark.parametrize("chunk", [None, 256])
+def test_present_gauges_the_sort_slots_skipped(chunk):
+    """`render_sort_skipped` is the frame's sort capacity (the entry factor
+    x the sort width x the sorts) less its entries, single pass and in
+    chunks; the window path counts none."""
+    metrics = MetricsRegistry()
+    eng = RenderEngine(RenderConfig(width=W, height=H), "cpu", metrics)
+    if chunk is not None:
+        eng.renderer.chunk_threshold = eng.renderer.chunk_size = chunk
+    pos = _scene(700, seed=4)
+    app = AppConfig(num_particles=700, particle_size=10.0)
+    out = eng.draw(pos, app)
+    eng.present()
+    sorts = 1 if chunk is None else 3
+    width = pos.shape[1] if chunk is None else chunk
+    capacity = eng.renderer.entry_factor * width
+    entries = int(out.entries)
+    assert 0 < entries < capacity
+    assert metrics.gauges["render_entries"] == entries
+    assert metrics.gauges["render_sort_skipped"] == (
+        capacity * sorts - entries)
+    window = MetricsRegistry()
+    eng = RenderEngine(RenderConfig(width=W, height=H), "cpu", window,
+                       renderer=R.Renderer(RenderConfig(width=W, height=H),
+                                           dup_y=2, dup_x=2))
+    eng.draw(pos, app)
+    eng.present()
+    assert "render_sort_skipped" not in window.gauges
 
 
 def _loop_entries(pos, args, num_draw, id_offset, capacity):

@@ -8,7 +8,10 @@ interpret mode, as `tests/test_sortkv.py` runs it — and against stable
 the CUDA kernel's radix passes at its tile and digit constants, is held
 bitwise against the twin and against stable `jax.lax.sort` over the key
 kinds the renderer and general callers give it, with `live_digits` (the
-digit passes the kernel runs) pinned. The renderer's packed (cg, cb) word
+digit passes the kernel runs) pinned. With a live length (`live=`) both
+are held bitwise against the full-length sort on renderer-shaped inputs
+with a sentinel tail, in place; the kernel's hop routing (`hops`) is
+checked over every set of live digits. The renderer's packed (cg, cb) word
 is pinned against the JAX package's bits. The CUDA kernel itself is held
 against the twin by chip_smoke.py on the card."""
 
@@ -191,6 +194,139 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         sortkv.sort_kv_stable(torch.zeros(8, dtype=torch.int32,
                                           device="meta"))
+
+
+# Renderer-shaped inputs with a live prefix: keys of a kind below the
+# sentinel, then the sentinel tail with zero payloads, as the exact binning
+# writes them. E spans three tiles and a ragged fourth.
+LIVE_E = 3 * sortkv.TILE + 1001
+LIVE_KINDS = {   # kind -> (sentinel, the prefix's live digits)
+    "one_digit": (RENDER_TILES, [0]),
+    "render": (RENDER_TILES, [0, 1]),
+    "three_digits": (I32.max, [0, 1, 2]),
+    "top_digit_only": (I32.max, [3]),
+    "four_digits": (I32.max, [0, 1, 2, 3]),
+}
+LIVE_LENGTHS = [0, sortkv.TILE - 1, sortkv.TILE, sortkv.TILE + 1,
+                2 * sortkv.TILE + 77, 3 * sortkv.TILE + 500, LIVE_E]
+
+
+def _live_inputs(kind, live, rng):
+    """(key, *payloads) [LIVE_E]: `live` entries of `kind`, the tail the
+    sentinel with zero payloads."""
+    sentinel, _ = LIVE_KINDS[kind]
+    if kind == "one_digit":
+        k = rng.integers(0, 37, LIVE_E, dtype=np.int32)
+    elif kind == "render":
+        k = rng.integers(0, RENDER_TILES, LIVE_E, dtype=np.int32)
+    elif kind == "three_digits":
+        k = rng.integers(0, 1 << 24, LIVE_E, dtype=np.int32)
+    elif kind == "top_digit_only":
+        k = _keys("top_digit_only", LIVE_E, rng)
+        k[k == I32.max] = 0
+    else:
+        k = _keys("negative", LIVE_E, rng)
+        k[k == I32.max] = 0
+    k[live:] = sentinel
+    pay = _payloads(LIVE_E, rng)
+    for p in pay:
+        p[live:] = 0
+    return [torch.from_numpy(a) for a in (k, *pay)]
+
+
+@pytest.mark.parametrize("live", LIVE_LENGTHS)
+@pytest.mark.parametrize("kind", list(LIVE_KINDS))
+def test_live_matches_the_full_sort(kind, live):
+    """With `live`, the twin and the kernel's host replay are bitwise the
+    stable sort of all E entries: at no live entry and at all, one below,
+    at and one past a tile boundary, and inside the last tile; one, two,
+    three and four live digits (odd counts take the in-place copy, before
+    the pass for the top digit alone); the replay runs the prefix's live
+    digits."""
+    rng = np.random.default_rng(live + len(kind))
+    args = _live_inputs(kind, live, rng)
+    want = sortkv.sort_kv_stable_plain(*args)
+    n = torch.tensor(live, dtype=torch.int32)
+    got = sortkv.sort_kv_stable_plain(*(a.clone() for a in args), live=n)
+    (model, run) = sortkv.sort_kv_stable_model(*(a.clone() for a in args),
+                                               live=n)
+    for g, m, w in zip(got, model, want):
+        assert torch.equal(g, w) and torch.equal(m, w)
+    digits = LIVE_KINDS[kind][1] if live > 1 else []
+    assert run == sortkv.live_digits(args[0][:live]) == digits
+
+
+@pytest.mark.parametrize("sort", ["plain", "model"])
+def test_live_sorts_in_place(sort):
+    """The result is the caller's arrays; the tail is left as it was."""
+    rng = np.random.default_rng(3)
+    args = _live_inputs("render", 2 * sortkv.TILE + 77, rng)
+    tails = [a[2 * sortkv.TILE + 77:].clone() for a in args]
+    live = torch.tensor(2 * sortkv.TILE + 77, dtype=torch.int32)
+    if sort == "plain":
+        out = sortkv.sort_kv_stable_plain(*args, live=live)
+    else:
+        out, _ = sortkv.sort_kv_stable_model(*args, live=live)
+    assert all(o is a for o, a in zip(out, args))
+    assert bool((args[0][:-1] <= args[0][1:]).all())
+    for a, t in zip(args, tails):
+        assert torch.equal(a[2 * sortkv.TILE + 77:], t)
+
+
+@pytest.mark.parametrize("live,at", [(-5, 0), (LIVE_E + 9, LIVE_E)])
+def test_live_is_clamped(live, at):
+    """A live count out of [0, E] sorts as its nearest end."""
+    rng = np.random.default_rng(11)
+    args = _live_inputs("render", at, rng)
+    want = sortkv.sort_kv_stable_plain(*args)
+    n = torch.tensor(live, dtype=torch.int32)
+    got = sortkv.sort_kv_stable_plain(*(a.clone() for a in args), live=n)
+    model, run = sortkv.sort_kv_stable_model(*(a.clone() for a in args),
+                                             live=n)
+    for g, m, w in zip(got, model, want):
+        assert torch.equal(g, w) and torch.equal(m, w)
+    assert run == ([] if at == 0 else [0, 1])
+
+
+@pytest.mark.parametrize("fault", ["tail_out_of_order", "tail_below_live"])
+def test_plain_refuses_a_broken_promise(fault):
+    """The twin checks the caller's promise on the host: a tail out of
+    order, or a tail key below a live key, raises."""
+    rng = np.random.default_rng(13)
+    live = sortkv.TILE
+    args = _live_inputs("render", live, rng)
+    if fault == "tail_out_of_order":
+        args[0][live + 10] = RENDER_TILES + 1
+    else:
+        args[0][live:] = 5
+    with pytest.raises(ValueError, match="must be in order"):
+        sortkv.sort_kv_stable_plain(
+            *args, live=torch.tensor(live, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+def test_hops_route_every_live_set(in_place):
+    """For each of the 16 live-digit sets: no hop reads the buffer it
+    writes, the first reads the input, each later one what the hop before
+    wrote, the last writes the outputs (in place, the input), and a copy
+    runs only in a dead digit's launch: in place for an odd count, out of
+    place for none."""
+    out = "in" if in_place else "out"
+    for mask in range(1 << sortkv.DIGITS):
+        run = [d for d in range(sortkv.DIGITS) if mask >> d & 1]
+        before, n_hops, copy_at = sortkv.hops(run, in_place)
+        copies = (len(run) % 2 == 1) if in_place else not run
+        assert (copy_at >= 0) == copies and copy_at not in run
+        assert n_hops == len(run) + copies
+        at = "in"
+        for d in range(sortkv.DIGITS):
+            if d not in run and d != copy_at:
+                continue
+            h = before[d]
+            dst = out if (n_hops - 1 - h) % 2 == 0 else "scratch"
+            assert dst != at
+            at = dst
+        assert at == (out if n_hops else "in")
 
 
 def _jax_pack_cgb(gv, bv):
