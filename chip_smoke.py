@@ -46,31 +46,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    for one 1M chunk of the 4M state (Q=256) and for 262,144 particles
    (Q=64), and on synthetic rows of awkward shapes (COMPOSITE_SHAPES: Q
    and V not multiples of the kernel's blocks, Q = 1, V = 1, every row_hi
-   0, row_hi None, a tile of two CTA passes); its launches counted over
-   its timed calls
+   0, row_hi None, a tile of two CTA passes); its device launches counted
+   in one profiled call of each timed shape
 4a. sort kernel vs plain, bitwise on every output: the render keys and
    payloads of the 4M state's first chunk after one step (E = 2^22), its
-   dup 2x3 window (E = 6 x 2^20), the 262,144-particle 1280x720 chunk
-   (E = 2^20), keys in [0, 37) and all-equal keys at 2^20 (the identity),
+   dup 2x3 window (E = 6 x 2^20), the 262,144-particle 1280x720 chunk (E =
+   2^20), keys in [0, 37) and all-equal keys at 2^20 (the identity),
    negative keys at 2^20 + 3, full-range keys at 2^22 (all four digit
-   passes), k << 24 keys (the top digit only) and full-range keys at E =
-   1, 2, tile - 1 and tile + 1, each with its live digits checked; the
-   render chunk twice, bitwise; the sort captured in a CUDA graph and
-   replayed on new keys, bitwise the eager call; times on render and
-   full-range keys beside torch.sort + 4 gathers, the bytes bound and the
-   bitonic network's time before; torch.profiler's device time of each
-   launch of one call; the live length (`live=`, the exact path's form)
-   on the exact bins of the 4M default scene's first two 1M chunks
-   (`bin_sprites`): in place, bitwise the full-length sort of the twin and
-   of the kernel, twice, and from a CUDA graph replayed on the other
-   chunk's bins twice; its device time beside the full-length call's, the
-   bytes bound at the live length (40 B a live entry) and at E
+   passes), k << 24 keys (the top digit only) and full-range keys at E = 1,
+   2, tile - 1 and tile + 1, each with its live digits checked; the render
+   chunk twice, bitwise; the sort captured in a CUDA graph and replayed on
+   new keys, bitwise the eager call; times on render and full-range keys
+   beside torch.sort + 4 gathers and the bytes bound; torch.profiler's
+   device time of each launch of one call; the live length (`live=`, the
+   exact path's form) on the exact bins of the 4M default scene's first two
+   1M chunks (`bin_sprites`): in place, bitwise the full-length sort of the
+   twin and of the kernel, twice, and from a CUDA graph replayed on the
+   other chunk's bins twice; its device time beside the full-length call's,
+   the bytes bound at the live length (40 B a live entry) and at E
 4b. row gather kernel (off the render path) vs plain, bitwise: the eager
    composite's packed payload rows of that chunk, the TPU prototype's
    shape ([2,097,152, 32] x 4,194,304), clamped out-of-range indices
    (16-byte and scalar paths); times beside index_select (on indices
-   clamped beforehand) in 5 rounds in turns (median and spread of each,
-   the kernel's launches there counted) and the bytes bound
+   clamped beforehand) in 5 rounds in turns (median and spread of each;
+   the kernel's device launches counted in one profiled call) and the
+   bytes bound
 4c. composite_tiles (the render's composite: row and fold kernels) vs
    composite_tiles_plain, bitwise on C and T in both blends: the 1M chunk
    of phase 4 (Q=256), 262,144 at 1280x720 (Q=64), 262,144 at Q=8 (hot
@@ -90,55 +90,57 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    1 x n (truncated > 0); run to run; captured in a CUDA graph and
    replayed on new positions and a new num_draw; the kernels' time beside
    the plain version's, each launch's (torch.profiler) and the byte bound
-5. main path: `multi_adapter_particles_torch.app.main`, launch counters
-   (the binning, composite_tiles and the sort at least 4 a frame, once a
-   render chunk each; gather_rows and composite_rows none)
+5. main path: `multi_adapter_particles_torch.app.main` under
+   torch.profiler, each wrapper's device launches (`KERNELS`: the binning,
+   composite_tiles and the sort at least 4 a frame, once a render chunk
+   each; gather_rows and composite_rows none)
 6. the final state's frame through the kernels vs through the plain twins
-   of the binning, the sort and composite_tiles, bitwise; the device launches of that
-   render (torch.profiler)
+   of the binning, the sort and composite_tiles, bitwise; the device
+   launches of that render (torch.profiler)
 7. all-pairs rectangle kernel vs plain: 4,096 targets spread over the
    1,048,576-particle state against all its sources (float32 twin and a
    float64 evaluation); kernel time at the full 1M
 8. all-pairs half-pair kernel vs plain at 131,072 and vs the rectangle
    kernel at 1,048,576; its RMS error against phase 7's float64 sum on
    the 4,096 sampled targets at most 2x the float32 twin's; kernel times
-   at 1M beside the round schedule's before (no gate); the device
-   launches of one call at 1M and at 65,536 (torch.profiler, at most 32),
-   the folds' share of the call and the peak scratch at 1M
+   at 1M; the device launches of one call at 1M and at 65,536
+   (torch.profiler, at most 32), the folds' share of the call and the
+   peak scratch at 1M
 9. half-pair fallback at an untileable N (100,096) is bitwise the rectangle
    kernel; both kernels run twice at 1M give equal results
 10. all-pairs main path: `app.main -force all_pairs` at 1,048,576, 8 frames
-    of the half-pair schedule, then 6 with -rectpair; launch counters
+    of the half-pair schedule, then 6 with -rectpair; the kernels' device
+    launches on a profiled run of 2 frames of each, apart from the timed
+    one (the half-pair call's launches as its `half_items` schedule gives)
 10b. all-pairs variants (`experiments/allpairs_*.py`'s rectangle forms):
     their path, the harness `tools/allpairs_variants.py` at its defaults
-    (131,072; hybrid 98,304), with launch counters; each kernel vs its twin
-    at 131,072 (hybrid 98,304), two runs bitwise (FP32 forms on the device
-    init scene, the HIGHEST expansion also by RMS against the float64 sum,
-    the bf16 forms on a compact copy; v3 at tj = 512 and 1024, and at
-    98,304 at five more (ti, tj) that reach its other stage sizes,
-    untimed); each timed
-    at 1,048,576 (hybrid 1,047,552) with pairs/s, its per-pipe bound and
-    its error against v0, v3's beside its time before (no gate) and held
-    to no NaN and 1.5x the error against v0 before; v1 and v1b's four
-    cases also at 98,432 (769 x 128: stages of 128, a half-filled last
-    CTA) against their twins, twice bitwise, and at 1M beside their times
-    before (no gate), held to 1.5x their error against v0 before and a NaN
-    share no higher than before; hybrid also at tj = 128 (98,304) and 384
-    (97,920, stages of 128, a half-filled last CTA) against its twin,
-    twice bitwise, and at 1M beside its time before (no gate), held to
-    1.5x its error against v0 before and a NaN share no higher
+    (131,072; hybrid 98,304), with its kernels' device launches; each
+    kernel vs its twin at 131,072 (hybrid 98,304), two runs bitwise (FP32
+    forms on the device init scene, the HIGHEST expansion also by RMS
+    against the float64 sum, the bf16 forms on a compact copy; v3 at tj =
+    512 and 1024, and at 98,304 at five more (ti, tj) that reach its other
+    stage sizes, untimed); each timed at 1,048,576 (hybrid 1,047,552) with
+    pairs/s, its per-pipe bound and its error against v0, v3's held to no
+    NaN and 1.5x the error against v0 before; v1 and v1b's four cases also
+    at 98,432 (769 x 128: stages of 128, a half-filled last CTA) against
+    their twins, twice bitwise, and at 1M held to 1.5x their error against
+    v0 before and a NaN share no higher than before; hybrid also at tj =
+    128 (98,304) and 384 (97,920, stages of 128, a half-filled last CTA)
+    against its twin, twice bitwise, and at 1M held to 1.5x its error
+    against v0 before and a NaN share no higher
 10c. half-pair generations (`experiments/allpairs_halfpair.py`: v5 and its
-    modes, v5s, v6, v7): their path, the harness `tools/allpairs_halfpair.py`
-    at its default (131,072) and in its v7 mode at 131,072, with launch
-    counters and each full form vs v0; every case of the harness (v5, v5s
-    and v6 at each of their t, v5's modes, v7 at the JAX harness's four
-    (t, kb)) kernel vs its twin at 131,072 on the device init scene, two
-    runs bitwise; the full forms vs phase 8's half-pair kernel at 131,072
-    and at 1,048,576; the t = 512 cases and the v7 cases timed at
-    1,048,576 with pairs/s, their FP32 and MUFU bounds, phase 8's time,
-    the peak scratch and the fold kernels' device time (torch.profiler),
-    for v7 beside the fold's byte bound and its share of it; v6 beside
-    phase 8's kernel
+    modes, v5s, v6, v7): their path, the harness
+    `tools/allpairs_halfpair.py` at its default (131,072) and in its v7
+    mode at 131,072, with their kernels' device launches (the two modes
+    profiled apart: v5s and v7 launch the same kernel) and each full form
+    vs v0; every case of the harness (v5, v5s and v6 at each of their t,
+    v5's modes, v7 at the JAX harness's four (t, kb)) kernel vs its twin at
+    131,072 on the device init scene, two runs bitwise; the full forms vs
+    phase 8's half-pair kernel at 131,072 and at 1,048,576; the t = 512
+    cases and the v7 cases timed at 1,048,576 with pairs/s, their FP32 and
+    MUFU bounds, phase 8's time, the peak scratch and the fold kernels'
+    device time (torch.profiler), for v7 beside the fold's byte bound and
+    its share of it; v6 beside phase 8's kernel
 11. tree sweeps vs their twins at 262,144 (device init, auto grid G=128,
     B=256, probed budget, dropped == 0): directed and Newton-3rd kernels
     on the same lists, <= 1e-5 of max|a_near|; kernel (on lists prepared
@@ -165,7 +167,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     steps, no draw: finite state, ms/step
 17. tree-P3M main path: `app.main -force p3m -p3mnear tree` at 1,048,576
     and 1024x1024, 8 frames of the Newton-3rd sweep then 6 with
-    -treedirected; launch counters, the run's config, the probe seconds
+    -treedirected under torch.profiler; the sweep's and composite_tiles'
+    device launches, the run's config, the probe seconds
 18. the sweep's potential variants vs their twins at 262,144 (G=128,
     B=256, probed budget): u within 1e-5 of max|u_near| over the live
     lanes, the fused force rows bitwise the force-only kernel's,
@@ -181,19 +184,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     bitwise equal on the second call
 20. mesh vs exact potential gauge at 262,144 (device init, G=64): rel
     1e-3, the JAX package's pin; both gauges' times
-21. diagnostics main paths: `app.main -diagnostics` on the 4M pm_grid
-    scene (G=128, no draw, 5 steps, every 2), the 1M tree-P3M scene
-    (1024x1024, 8 steps, every 4), the 4M central well (20 frames, every
-    10) and the 262,144 all-pairs scene (exact gauge, no draw, 2 steps,
-    every 2); finite gauges, `diag_dropped_pairs == 0`, the variants'
-    launch counters; and the potential-only directed sweep's path, the
+21. diagnostics main paths: `app.main -diagnostics` on the 4M pm_grid scene
+    (G=128, no draw, 5 steps, every 2), the 1M tree-P3M scene (1024x1024, 8
+    steps, every 4), the 4M central well (20 frames, every 10) and the
+    262,144 all-pairs scene (exact gauge, no draw, 2 steps, every 2), under
+    torch.profiler; finite gauges, `diag_dropped_pairs == 0`, the variants'
+    device launches; and the potential-only directed sweep's path, the
     library call `mesh_potential_only(half_pairs=False)` on the 1M scene
 22. fused main path: `app.main -fused` at 4,194,304 and 1024x1024, 40
     frames through captured CUDA graphs: positions bitwise the split run of
     phase 5, the last frame within 1e-5 of it, `fused_graph` true; frame,
-    render and simulate ms, replays, launches a frame (the wrappers'
-    counts, and one replayed frame's device launches by torch.profiler),
-    peak memory
+    render and simulate ms, replays, one replayed frame's device launches
+    kernel by kernel the same as an eager frame of the engine's
+    (torch.profiler), peak memory
 23. the same at 262,144 and 1280x720 against a split run of that shape
 24. `-fused -force p3m -p3mnear tree` at 262,144 runs uncaptured
     (`fused_graph` false) and agrees with split the same way; all_pairs
@@ -241,18 +244,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     bare run, its drain + reshard ms; the whole phase within 60 s
 30. a process group on the one card (`tools/pod_worker.py` spawned, gloo:
     the processes share the card, so CUDA tensors are staged through host
-    memory; the backend and its reason printed): 2 processes x 4 shards
-    run `-preset 1m-mesh8`'s bit-stable step for 3 steps, bitwise phase
-    29's one-process positions (and, in the worker, the one-device
-    `-rectpair` run), the rectangle kernel 4 launches a step on each
-    process's shards; the 4M central well stepped and rendered at 1024^2
-    across the 2 processes, bitwise the one-process `render_mesh` (8
-    shards) and within 2e-3 of one device, the central-well, sort and
-    composite_tiles kernels launched on each shard; 4 processes x 1 shard
-    run pm_grid 4M (G = 128, dist_fft) within rtol 1e-5 / atol 1e-3 of
-    one device; host-clock times logged (time-sliced, no gate); any worker
-    failing fails the run; the whole phase within 60 s (no NCCL over
-    distinct cards is measured)
+    memory; the backend and its reason printed): 2 processes x 4 shards run
+    `-preset 1m-mesh8`'s bit-stable step for 3 steps, bitwise phase 29's
+    one-process positions (and, in the worker, the one-device `-rectpair`
+    run), the rectangle kernel 4 launches a step on each process's shards
+    (torch.profiler in the primary); the 4M central well stepped and
+    rendered at 1024^2 across the 2 processes, bitwise the one-process
+    `render_mesh` (8 shards) and within 2e-3 of one device, the
+    central-well, sort and composite_tiles kernels launched on each shard;
+    4 processes x 1 shard run pm_grid 4M (G = 128, dist_fft) within rtol
+    1e-5 / atol 1e-3 of one device; host-clock times logged (time-sliced,
+    no gate); any worker failing fails the run; the whole phase within 60 s
+    (no NCCL over distinct cards is measured)
 31. host init at the default scene: the native tiers (g++ at first use)
     scalar and simd at 4,194,304, host ms on one thread and on every
     core; bitwise the port's oracle at 512; `initialize_particles_host`
@@ -261,8 +264,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     within 30 s
 
 The kernels line (before the last) has one entry per kernel with its
-launches on its main path (for composite_rows and the row gather, off the
-render path, on their phases' timed calls), the error against its twin,
+device launches on its main path (torch.profiler; the all-pairs kernels
+in phase 10's profiled frames; composite_rows and the row gather, off the
+render path, in a profiled call of each timed shape), the error against
+its twin,
 kernel / twin times and the least time the card could take (`bound_ms`:
 bytes over 3.35 TB/s, or FP32-pipe instructions counted from the source
 over 132 SMs x 128 lanes at the SM clock sampled while the kernel ran; for
@@ -277,18 +282,13 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import subprocess
 import tempfile
 import time
 
 N_MAIN = 4_194_304
 STEPS = 40
-# phase 5's frame on an H100 at 700 W before the sort and row-gather
-# kernels, logged beside the new one (no gate)
-MAIN_FRAME_MS_BEFORE = 39.92
-# phase 4a's sort on the 4M render chunk (E = 2^22) on an H100 at 700 W as
-# the bitonic network it replaced, logged beside the radix sort (no gate)
-SORT_MS_BEFORE = 1.6043
 GATHER_ROUNDS = 5   # phase 4b: kernel and index_select timed in turns
 WIDTH = HEIGHT = 1024
 N_AP = 1_048_576          # the all-pairs path (BASELINE.json's 1M)
@@ -297,12 +297,9 @@ N_HALF_CHECK = 131_072    # 256 tiles of 512: half-pair kernel vs plain
 N_UNTILEABLE = 100_096    # padded 100,000: not a multiple of 512
 N_HALF_CAPTURE = 65_536   # the fused all-pairs scene (phase 24)
 HALF_LAUNCH_LIMIT = 32    # device launches a half-pair call may take
-# phase 8's half-pair call at 1M on an H100 at 700 W as the round schedule
-# it replaced (tools/halfpair_profile.py on its commit; an earlier phase 8
-# read 496.6 ms), logged beside the new one (no gate)
-HALF_1M_MS_BEFORE = 490.94
 AP_STEPS_HALF = 8
 AP_STEPS_RECT = 6
+AP_STEPS_COUNTED = 2      # frames of phase 10's profiled runs (not timed)
 # phase 10's "simulate" stage (EMA) against its kernel's time alone: the
 # step adds only the Euler tail, ~0.1% at 1M
 STAGE_TOL = 0.05
@@ -920,10 +917,9 @@ def phase_composite(dev):
         def kernel():
             return composite_rows(sp, bases, TILE_H, TILE_W, "over", hi)
 
-        # off the render path, its path is these timed calls (counted)
-        composite_rows.launches = 0
         ms = time_ms(kernel, reps=20)
-        launches += composite_rows.launches
+        # off the render path, its path is these calls: one profiled
+        launches += counted(kernel, ["composite_rows"])[1]["composite_rows"]
         plain_ms = time_ms(lambda: composite_rows_plain(
             sp, bases, TILE_H, TILE_W, "over", hi), reps=3, warmup=1)
         # the work these rows need: each live slot of each row blends into
@@ -1104,14 +1100,12 @@ def phase_tiles(dev, main_call):
     R._render(static, *dargs, chunk, **kw)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    before = composite_tiles.launches
     with torch.cuda.graph(graph):
         captured = R._render(static, *dargs, chunk, **kw)
     static.copy_(state[:, chunk:])
     graph.replay()
     eager = R._render(static, *dargs, chunk, **kw)
     torch.cuda.synchronize()
-    composite_tiles.launches = before
     _equal_outputs("graph replay", (captured.frame, captured.trans),
                    (eager.frame, eager.trans))
     log("  a render chunk (sort + composite_tiles) captured in a CUDA graph "
@@ -1211,7 +1205,6 @@ def phase_binning(dev):
     static = pos[:, :chunk].clone()
     run(bin_sprites, static, draw, 0, 4 * chunk)
     torch.cuda.synchronize()
-    before = bin_sprites.launches
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         captured = run(bin_sprites, static, draw, 0, 4 * chunk)
@@ -1220,7 +1213,6 @@ def phase_binning(dev):
     graph.replay()
     eager = run(bin_sprites_plain, static, draw, 0, 4 * chunk)
     torch.cuda.synchronize()
-    bin_sprites.launches = before
     _same_bins("captured, replayed on chunk 2 with num_draw 1,000,000",
                captured, eager, q)
 
@@ -1302,6 +1294,74 @@ def launch_profile(fn):
     )
 
     return profile_call(fn)
+
+
+# Each kernel wrapper's launches in the device trace: the CUDA kernel its
+# call launches (a pattern on `launch_profile`'s names). A call launches it
+# once, but the half-pair call launches both its kernels once a chunk of
+# its `half_items` schedule (`half_launches`), and the directed tree sweep
+# its item kernel once a chunk of its item table (one chunk at the shapes
+# phases 17, 21 and 29 run). v5s and v7 launch the same kernel: phase 10c
+# profiles the harness's two modes apart.
+KERNELS = {
+    "central_well": r"central_well_kernel",
+    "bin_sprites": r"bin_count_kernel",
+    "sort_kv_stable": r"histogram_kernel",
+    "composite_tiles": r"tile_rows_kernel<(true|false)>",
+    "composite_rows": r"composite_kernel<(true|false)>",
+    "gather_rows": r"gather_(wide|narrow)_kernel<.+>",
+    "all_pairs_rect": r"rect_kernel",
+    "all_pairs_half": r"half_(item|fold)_kernel",
+    "tree_sweep": r"sweep_item_kernel<true, false, false, \d+>",
+    "tree_sweep_with_potential": r"sweep_item_kernel<true, true, false, \d+>",
+    "tree_sweep_potential_only": r"sweep_item_kernel<false, true, false, \d+>",
+    "tree_sweep_half_pairs": r"sweep_item_kernel<false, true, true, \d+>",
+    "tree_sweep_n3": r"sweep_n3_fold_kernel",
+    "attr_accel": r"elem_kernel<[012]>",
+    "unroll_accel": r"elem_kernel<3>",
+    "v4_accel": r"plane_kernel",
+    "v1b_accel": r"expand_kernel<true, (true|false)>",
+    "v1_accel": r"expand_kernel<false, (true|false)>",
+    "v3_accel": r"v3_kernel<[012]>",
+    "hybrid_accel": r"hybrid_kernel",
+    "v5_accel": r"tri_kernel<[012], false>",
+    "v5s_accel": r"tri_kernel<0, true>",
+    "v6_accel": r"pair_kernel",
+    "v7_accel": r"tri_kernel<0, true>",
+}
+# the wrappers of the render and the steps of the main paths
+MAIN_WRAPPERS = ("central_well", "bin_sprites", "composite_tiles",
+                 "sort_kv_stable", "gather_rows", "composite_rows",
+                 "all_pairs_rect", "all_pairs_half")
+
+
+def kernel_counts(kernels, wrappers) -> dict:
+    """{wrapper: launches of its KERNELS pattern} in `kernels`, a
+    `launch_profile` list or a {kernel name: launches}."""
+    if not isinstance(kernels, dict):
+        kernels = collections.Counter(name for name, _ in kernels)
+    return {w: sum(c for name, c in kernels.items()
+                   if re.fullmatch(KERNELS[w], name)) for w in wrappers}
+
+
+def counted(fn, wrappers=MAIN_WRAPPERS):
+    """(fn(), `kernel_counts` of its launches): one call of `fn` under
+    torch.profiler."""
+    out, kernels = launch_profile(fn)
+    return out, kernel_counts(kernels, wrappers)
+
+
+def half_launches(n, dev) -> int:
+    """Device launches of one half-pair call at `n` on `dev`: an item
+    kernel and its fold a chunk of the `half_items` schedule."""
+    from multi_adapter_particles_torch.ops.allpairs import (
+        _half_wave,
+        half_chunk,
+        half_items,
+    )
+
+    items = half_items(n, dev).shape[1]
+    return 2 * -(-items // half_chunk(items, _half_wave(dev.index)))
 
 
 def _exact_bins(dev):
@@ -1542,9 +1602,9 @@ def phase_sort(dev):
     ms_full = time_ms(lambda: sort_kv_stable(*full), reps=20)
     lib_full = time_ms(lambda: library(full[0], pay), reps=20)
     bound = bytes_bound_ms(e * (4 + 4 * len(pay)) * 2)
-    log(f"  E = {e:,}, {len(pay)} payloads: render keys kernel {ms:.4f} ms "
-        f"(bitonic network before: {SORT_MS_BEFORE}), plain {plain_ms:.4f} "
-        f"ms, torch.sort + {len(pay)} gathers {lib_ms:.4f} ms; full-range "
+    log(f"  E = {e:,}, {len(pay)} payloads: render keys kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, torch.sort + {len(pay)} gathers "
+        f"{lib_ms:.4f} ms; full-range "
         f"keys kernel {ms_full:.4f} ms, torch.sort + gathers {lib_full:.4f} "
         f"ms; bound {bound:.4f} ms (bytes) -> {bound / ms:.1%} of it")
     log(f"  kernel faster than torch.sort + gathers on the render chunk: "
@@ -1610,13 +1670,14 @@ def phase_gather(dev, render_args):
             # kernel and index_select in turns, GATHER_ROUNDS rounds of 20
             # calls each: the median and the spread of each
             rounds = {"kernel": [], "index_select": []}
-            gather_rows.launches = 0    # its path: the timed rounds
             for _ in range(GATHER_ROUNDS):
                 rounds["kernel"].append(
                     time_ms(lambda: gather_rows(tab, ix), reps=20))
                 rounds["index_select"].append(
                     time_ms(lambda: torch.index_select(tab, 0, ixc), reps=20))
-            launches += gather_rows.launches
+            # off the render path, its path is these calls: one profiled
+            launches += counted(lambda: gather_rows(tab, ix),
+                                ["gather_rows"])[1]["gather_rows"]
             ms, lib_ms = (statistics.median(rounds[k]) for k in rounds)
             bound = bytes_bound_ms(2 * ix.shape[0] * tab.shape[1] * 4)
             slower = min(rounds["kernel"]) > max(rounds["index_select"])
@@ -1685,52 +1746,19 @@ def _run_app(argv, steps, draw=True):
     return metrics, seen
 
 
-def _counted():
-    """name -> the kernel wrapper whose `.launches` counts it."""
-    from multi_adapter_particles_torch.ops.allpairs import (
-        all_pairs_accel,
-        all_pairs_accel_halfpair,
-    )
-    from multi_adapter_particles_torch.ops.binning import bin_sprites
-    from multi_adapter_particles_torch.ops.central_well import central_well_step
-    from multi_adapter_particles_torch.ops.composite import (
-        composite_rows,
-        composite_tiles,
-    )
-    from multi_adapter_particles_torch.ops.rowgather import gather_rows
-    from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
-
-    return {"central_well": central_well_step, "bin_sprites": bin_sprites,
-            "composite_tiles": composite_tiles,
-            "sort_kv_stable": sort_kv_stable, "gather_rows": gather_rows,
-            "composite_rows": composite_rows,
-            "all_pairs_rect": all_pairs_accel,
-            "all_pairs_half": all_pairs_accel_halfpair}
-
-
-def _zero_counters() -> None:
-    for fn in _counted().values():
-        fn.launches = 0
-
-
-def _read_counters() -> dict:
-    return {name: fn.launches for name, fn in _counted().items()}
-
-
 def phase_main_path(dev):
     import statistics
 
     log(f"phase 5: main path — app.main -numparticles {N_MAIN} -steps {STEPS}"
         f" at {WIDTH}x{HEIGHT}")
-    _zero_counters()
     t0 = time.perf_counter()
-    metrics, seen = _run_app(
+    (metrics, seen), launches = counted(lambda: _run_app(
         ["-numparticles", str(N_MAIN), "-steps", str(STEPS), "-novsync",
-         "-nogui", "-width", str(WIDTH), "-height", str(HEIGHT)], STEPS)
+         "-nogui", "-width", str(WIDTH), "-height", str(HEIGHT)], STEPS))
     wall = time.perf_counter() - t0
-    launches = _read_counters()
     log(f"  app.main: rc 0, {seen['frames']} frames in {wall:.2f} s wall "
-        f"(first-frame costs included), launches {launches}")
+        f"(first-frame costs included, under torch.profiler), device "
+        f"launches {launches}")
     if launches["central_well"] < STEPS:
         fail(f"central-well kernel launched {launches['central_well']} times"
              f" in {STEPS} frames")
@@ -1749,9 +1777,8 @@ def phase_main_path(dev):
         fail(f"only {len(dev_frames)} CUDA-event frame samples")
     frame_ms = statistics.median(dev_frames)
     stages = metrics["stages_ms"]
-    log(f"  ms/frame (CUDA events, median of last {len(dev_frames)}): "
-        f"{frame_ms:.3f} (before the sort and gather kernels: "
-        f"{MAIN_FRAME_MS_BEFORE}); simulate ms {stages['simulate']:.3f}, "
+    log(f"  ms/frame (CUDA events, median of last {len(dev_frames)}, "
+        f"profiled): {frame_ms:.3f}; simulate ms {stages['simulate']:.3f}, "
         f"render ms {stages['render']:.3f} (20-sample EMA); host frameTime ms "
         f"{metrics['frame_ms']:.3f}")
     frame = seen["frame"]
@@ -1799,9 +1826,10 @@ def phase_full_frame(seen):
 def _fused_vs_split(label, argv, steps, graph, split=None):
     """`app.main` with `-fused` against the split loop from the same seed
     (`split`: that run's `seen`, else run here): positions bitwise, the last
-    frame within 1e-5, `fused_graph` == `graph`; with graphs, every counted
-    kernel launched its captured frame's count once a frame. Returns the
-    fused run's numbers."""
+    frame within 1e-5, `fused_graph` == `graph`; with graphs, a replayed
+    frame launches the kernels an eager frame of the engine launches, name
+    by name and count by count (torch.profiler). Returns the fused run's
+    numbers."""
     import statistics
 
     import torch
@@ -1811,7 +1839,6 @@ def _fused_vs_split(label, argv, steps, graph, split=None):
         split_metrics, split = _run_app(argv + ["-steps", str(steps)], steps)
         frames = split_metrics["gauges"].get("device_frame_ms", [])
         split_ms = statistics.median(frames) if frames else None
-    _zero_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1820,29 +1847,35 @@ def _fused_vs_split(label, argv, steps, graph, split=None):
     wall = time.perf_counter() - t0
     # the run's own peak, above what the process held before it
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-    launches = {k: v for k, v in _read_counters().items() if v}
     eng = seen["fused"]
     ran_graph = metrics["gauges"].get("fused_graph")
     log(f"  {label}: rc 0, {steps} frames in {wall:.2f} s wall; fused_graph "
-        f"{ran_graph}, {eng.replays} replays, launches a frame "
-        f"{eng.launches_per_frame}, launches {launches}; peak memory "
-        f"{peak:.2f} GiB")
+        f"{ran_graph}, {eng.replays} replays; peak memory {peak:.2f} GiB")
     if ran_graph is not graph:
         fail(f"{label}: fused_graph {ran_graph}, expected {graph}")
-    replayed = None
+    replayed = per_frame = None
     if graph:
         if eng.replays != steps - 1:
             fail(f"{label}: {eng.replays} replays in {steps} frames")
-        g_render, _, g_step = eng._graphs[eng._cur]
-        replayed = len(launch_profile(
+        # the run is over: one frame of the engine's parity eagerly (every
+        # particle stepped: no run here sets -numsim), then the same frame
+        # replayed from its graphs
+        parity = eng._cur
+        eager = collections.Counter(n for n, _ in launch_profile(
+            lambda: (eng._render(parity), eng._simulate(parity, None)))[1])
+        g_render, _, g_step = eng._graphs[parity]
+        replay = collections.Counter(n for n, _ in launch_profile(
             lambda: (g_render.replay(), g_step.replay()))[1])
+        replayed = sum(replay.values())
+        per_frame = {k: v for k, v in kernel_counts(
+            replay, MAIN_WRAPPERS).items() if v}
         log(f"  one replayed frame: {replayed} device launches "
-            "(torch.profiler)")
-        for name, fn in _counted().items():
-            want = eng.launches_per_frame.get(fn.__name__, 0) * steps
-            if launches.get(name, 0) != want:
-                fail(f"{label}: {name} launched {launches.get(name, 0)} "
-                     f"times, the captured frame's count x {steps} is {want}")
+            f"(torch.profiler), {per_frame}; an eager frame "
+            f"{sum(eager.values())}")
+        if replay != eager:
+            fail(f"{label}: a replayed frame's launches differ from an eager"
+                 f" frame's: replayed {dict(replay - eager)} more, eager "
+                 f"{dict(eager - replay)} more")
     if not torch.equal(seen["position"], split["position"]):
         err = float((seen["position"] - split["position"]).abs().max())
         fail(f"{label}: positions after {steps} frames differ from the "
@@ -1855,8 +1888,8 @@ def _fused_vs_split(label, argv, steps, graph, split=None):
     out = {"frame_ms": statistics.median(frames) if frames else None,
            "split_frame_ms": split_ms, "render_ms": stages.get("render"),
            "simulate_ms": stages.get("simulate"), "replays": eng.replays,
-           "launches_per_frame": eng.launches_per_frame,
-           "device_launches_per_frame": replayed,
+           "wrapper_launches_a_frame": per_frame,
+           "device_launches_a_frame": replayed,
            "peak_gib": peak, "frame_bitwise": bitwise,
            "frame_err": frame_err}
     log(f"  positions bitwise the split run's; last frame bitwise {bitwise};"
@@ -2056,8 +2089,7 @@ def phase_allpairs_half(dev, rect_1m, sample):
     bound_1m = half_bound_ms(N_AP) * mhz / mhz_1m
     log(f"  {N_HALF_CHECK:,}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
         f"{N_AP:,}: kernel {ms_1m:.3f} ms = "
-        f"{N_AP * N_AP / (ms_1m * 1e-3):.4e} effective pairs/s (the round "
-        f"schedule before: {HALF_1M_MS_BEFORE} ms)")
+        f"{N_AP * N_AP / (ms_1m * 1e-3):.4e} effective pairs/s")
     log(f"  {N_HALF_CHECK:,} bound {bound:.3f} ms ({mhz:.0f} MHz) -> "
         f"{bound / ms:.1%}; {N_AP:,} bound {bound_1m:.3f} ms ({mhz_1m:.0f} "
         f"MHz) -> {bound_1m / ms_1m:.1%}")
@@ -2104,44 +2136,44 @@ def phase_allpairs_main_path(kernel_ms):
     """Phase 10. `kernel_ms`: the half and rect kernels' 1M times (phases
     7 and 8), which the path's "simulate" stage must match within
     STAGE_TOL: the stage times the step where it runs (its own stream
-    when the extension is on), not what overlaps it."""
+    when the extension is on), not what overlaps it. The device launches
+    are counted on a profiled run of AP_STEPS_COUNTED frames of its own,
+    so the timed run is not profiled."""
     import statistics
 
-    from multi_adapter_particles_torch.ops.allpairs import (
-        all_pairs_accel,
-        all_pairs_accel_halfpair,
-    )
-    from multi_adapter_particles_torch.ops.composite import composite_tiles
+    import torch
 
     base = ["-force", "all_pairs", "-numparticles", str(N_AP), "-novsync",
             "-nogui", "-width", str(WIDTH), "-height", str(HEIGHT)]
     results = {}
     launches = {}
-    for label, extra, steps, counter in (
-            ("half", [], AP_STEPS_HALF, all_pairs_accel_halfpair),
-            ("rect", ["-rectpair"], AP_STEPS_RECT, all_pairs_accel)):
+    for label, extra, steps, wrapper, a_call in (
+            ("half", [], AP_STEPS_HALF, "all_pairs_half",
+             half_launches(N_AP, torch.device("cuda:0"))),
+            ("rect", ["-rectpair"], AP_STEPS_RECT, "all_pairs_rect", 1)):
         log(f"phase 10: all-pairs main path ({label}) — app.main "
             f"{' '.join(base + extra)} -steps {steps}")
-        all_pairs_accel.launches = 0
-        all_pairs_accel_halfpair.launches = 0
-        composite_tiles.launches = 0
+        n = AP_STEPS_COUNTED
+        _, got = counted(lambda: _run_app(base + extra + ["-steps", str(n)],
+                                          n),
+                         ("all_pairs_rect", "all_pairs_half",
+                          "composite_tiles"))
+        log(f"  {n} frames under torch.profiler: device launches {got} "
+            f"({a_call} a {label} call)")
+        if got[wrapper] < n * a_call:
+            fail(f"{label}: the all-pairs kernels launched {got[wrapper]} "
+                 f"times in {n} frames of {a_call} launches a call")
+        if got["composite_tiles"] < n:
+            fail(f"{label}: composite_tiles launched "
+                 f"{got['composite_tiles']} times in {n} frames")
+        launches[label] = got
         t0 = time.perf_counter()
         metrics, seen = _run_app(base + extra + ["-steps", str(steps)], steps)
         wall = time.perf_counter() - t0
-        got = {"all_pairs_rect": all_pairs_accel.launches,
-               "all_pairs_half": all_pairs_accel_halfpair.launches,
-               "composite": composite_tiles.launches}
-        log(f"  rc 0, {steps} frames in {wall:.2f} s wall, launches {got}")
+        log(f"  rc 0, {steps} frames in {wall:.2f} s wall")
         if seen["config"].all_pairs_half != (label == "half"):
             fail(f"{label}: the run's config has all_pairs_half="
                  f"{seen['config'].all_pairs_half}")
-        if counter.launches < steps:
-            fail(f"{label}: the all-pairs kernel launched "
-                 f"{counter.launches} times in {steps} frames")
-        if got["composite"] < steps:
-            fail(f"{label}: composite_tiles launched "
-                 f"{got['composite']} times in {steps} frames")
-        launches[label] = got
         # frame intervals past the timer's warm-up frames
         dev_frames = metrics["gauges"].get("device_frame_ms", [])
         if len(dev_frames) < steps - 3:
@@ -2189,14 +2221,9 @@ VAR_SAMPLE = 4_096   # targets held against the float64 sum
 # (|p| <= 4, eps2 = 25: no cancellation), where an s a rounding apart can
 # land in another bf16 step.
 VAR_LIMIT = {"fp32": 1e-5, "highest": 5e-3, "bf16": 1e-4}
-# v3 before its redesign, on an H100 at 700 W: each path's 1M call at tj =
-# 512 and 1024 (the harness at 1,048,576 on the one-stage-a-tile kernel,
-# logged beside the new time, no gate), and its error against v0 on this
-# phase's 1M scene (this phase run on that kernel's tree; it had only tj =
-# 512), which both tj are held to within V3_ERR_FACTOR, with no NaN
-V3_MS_BEFORE = {"v3 vpu": 631.11, "v3 mm_split": 695.95, "v3 mm_bf16": 553.10,
-                "v3 vpu tj=1024": 621.16, "v3 mm_split tj=1024": 684.58,
-                "v3 mm_bf16 tj=1024": 543.26}
+# v3 before its redesign, on an H100 at 700 W: its error against v0 on
+# this phase's 1M scene (this phase run on that kernel's tree; it had only
+# tj = 512), which both tj are held to within V3_ERR_FACTOR, with no NaN
 V3_ERR_BEFORE = {"vpu": 3.199e-3, "mm_split": 3.198e-3, "mm_bf16": 3.123e-3}
 V3_ERR_FACTOR = 1.5
 # v3's other stage sizes and ti, held against the twin (untimed) at
@@ -2207,13 +2234,10 @@ V3_ERR_FACTOR = 1.5
 N_V3_SHAPES = 98_304
 V3_SHAPES = ((384, 384), (256, 128), (512, 256), (128, 256), (128, 512))
 # v1 / v1b's expansion before its redesign, on an H100 at 700 W (this phase
-# on that kernel's tree): each case's 1M call (logged beside the new time, no
-# gate), its error against v0 on this phase's 1M scene, which the new kernel
-# is held to within EXPAND_ERR_FACTOR, and its NaN share there (NaN
-# components of 3 x 2^20), which it may not exceed (the "default" forms are
-# NaN on this scene by design)
-EXPAND_MS_BEFORE = {"v1b highest": 867.466, "v1 highest": 892.262,
-                    "v1b default": 420.280, "v1 default": 471.146}
+# on that kernel's tree): each case's error against v0 on this phase's 1M
+# scene, which the new kernel is held to within EXPAND_ERR_FACTOR, and its
+# NaN share there (NaN components of 3 x 2^20), which it may not exceed
+# (the "default" forms are NaN on this scene by design)
 EXPAND_ERR_BEFORE = {"v1b highest": 2.110e-4, "v1 highest": 3.198e-4,
                      "v1b default": 2.759e4, "v1 default": 2.757e3}
 EXPAND_NAN_BEFORE = {"v1b highest": 0.0, "v1 highest": 0.0,
@@ -2221,10 +2245,9 @@ EXPAND_NAN_BEFORE = {"v1b highest": 0.0, "v1 highest": 0.0,
                      "v1 default": 3_034_443 / 3_145_728}
 EXPAND_ERR_FACTOR = 1.5
 # hybrid before its redesign, on an H100 at 700 W (this phase on that
-# kernel's tree): its 1,047,552 call at 1,815 MHz (logged beside the new
-# time, no gate), its error against v0 there, which the new kernel is held
-# to within EXPAND_ERR_FACTOR, and its NaN share, which it may not exceed
-HYBRID_MS_BEFORE = 726.547
+# kernel's tree): its error against v0 at 1,047,552, which the new kernel
+# is held to within EXPAND_ERR_FACTOR, and its NaN share, which it may not
+# exceed
 HYBRID_ERR_BEFORE = 1.148e-4
 HYBRID_NAN_BEFORE = 0.0
 # hybrid at other tiles (untimed), against its twin: tj = 128 (stages of
@@ -2321,7 +2344,7 @@ def expand_odd_checks(scene):
     from multi_adapter_particles_torch.ops import allpairs_variants as V
 
     for label, name, kw, form in VAR_CASES:
-        if label not in EXPAND_MS_BEFORE:
+        if label not in EXPAND_ERR_BEFORE:
             continue
         pos = scene(N_EXPAND_ODD, form)
         fn, plain = getattr(V, name), getattr(V, f"{name}_plain")
@@ -2374,11 +2397,10 @@ def phase_allpairs_variants(dev):
     log("phase 10b: all-pairs variants — the harness "
         "`python -m multi_adapter_particles_torch.tools.allpairs_variants` "
         "at its defaults (131,072; hybrid 98,304)")
-    for fn in V.VARIANTS:
-        fn.launches = 0
-    H.run(None, "cuda", reps=1, log=lambda s: log("  " + s))
-    launches = {fn.__name__: fn.launches for fn in V.VARIANTS}
-    log(f"  harness launches {launches}")
+    _, launches = counted(
+        lambda: H.run(None, "cuda", reps=1, log=lambda s: log("  " + s)),
+        [fn.__name__ for fn in V.VARIANTS])
+    log(f"  harness device launches {launches}")
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} launched no kernel in the harness run")
@@ -2457,21 +2479,19 @@ def phase_allpairs_variants(dev):
                             "rel_err_vs_v0": rel, "nan_share": nan}
             vs = ("(attr: held only against its twin)" if name == "attr_accel"
                   else f"vs v0 rel {rel:.3e}, NaN share {nan:.6e}")
-            if label in EXPAND_MS_BEFORE or label == "hybrid":
-                ms_before, before, nan_before = (
-                    (HYBRID_MS_BEFORE, HYBRID_ERR_BEFORE, HYBRID_NAN_BEFORE)
-                    if label == "hybrid" else (EXPAND_MS_BEFORE[label],
-                                               EXPAND_ERR_BEFORE[label],
+            if label in EXPAND_ERR_BEFORE or label == "hybrid":
+                before, nan_before = (
+                    (HYBRID_ERR_BEFORE, HYBRID_NAN_BEFORE)
+                    if label == "hybrid" else (EXPAND_ERR_BEFORE[label],
                                                EXPAND_NAN_BEFORE[label]))
-                vs += (f"; before {ms_before:.2f} ms, rel {before:.3e}, NaN "
-                       f"share {nan_before:.4e}")
+                vs += (f"; before rel {before:.3e}, NaN share "
+                       f"{nan_before:.4e}")
                 if nan > nan_before or not rel <= EXPAND_ERR_FACTOR * before:
                     fail(f"{label} @1M: rel {rel:.3e} (before {before:.3e}), "
                          f"NaN share {nan:.6e} (before {nan_before:.6e})")
             if name == "v3_accel":
                 before = V3_ERR_BEFORE[kw["force_path"]]
-                vs += (f"; before {V3_MS_BEFORE[label]:.2f} ms, rel "
-                       f"{before:.3e}")
+                vs += f"; before rel {before:.3e}"
                 if nan or not rel <= V3_ERR_FACTOR * before:
                     fail(f"{label} @1M: rel {rel:.3e} (before {before:.3e}), "
                          f"NaN share {nan:.3e}")
@@ -2541,13 +2561,16 @@ def phase_halfpair_generations(dev, half, half_1m):
         "multi_adapter_particles_torch.tools.allpairs_halfpair` at its "
         f"default ({HH.N_DEFAULT:,}) and `... v7 {N_HALF_CHECK}`; each "
         "full form vs v0 <= 1e-5, no NaN")
-    for fn in G.GENERATIONS:
-        fn.launches = 0
-    rows = HH.run(None, "cuda", reps=1, log=lambda s: log("  " + s))
-    rows += HH.run(N_HALF_CHECK, "cuda", reps=1, v7=True,
-                   log=lambda s: log("  " + s))
-    launches = {fn.__name__: fn.launches for fn in G.GENERATIONS}
-    log(f"  harness launches {launches}")
+    # v5s and v7 launch the same kernel: the two modes profiled apart
+    rows, launches = counted(
+        lambda: HH.run(None, "cuda", reps=1, log=lambda s: log("  " + s)),
+        ("v5_accel", "v5s_accel", "v6_accel"))
+    v7_rows, v7 = counted(
+        lambda: HH.run(N_HALF_CHECK, "cuda", reps=1, v7=True,
+                       log=lambda s: log("  " + s)), ["v7_accel"])
+    rows += v7_rows
+    launches.update(v7)
+    log(f"  harness device launches {launches}")
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} launched no kernel in the harness run")
@@ -3088,45 +3111,35 @@ def phase_pm_main_path():
 def phase_tree_main_path():
     import statistics
 
-    from multi_adapter_particles_torch.ops.composite import composite_tiles
-    from multi_adapter_particles_torch.ops.treeforce import (
-        near_sweep,
-        near_sweep_n3,
-    )
-
     base = ["-force", "p3m", "-p3mnear", "tree", "-numparticles",
             str(N_TREE), "-novsync", "-nogui", "-width", str(WIDTH),
             "-height", str(HEIGHT)]
     results, launches = {}, {}
-    for label, extra, steps, counter in (
-            ("n3", [], TREE_STEPS_N3, near_sweep_n3),
+    for label, extra, steps, wrapper in (
+            ("n3", [], TREE_STEPS_N3, "tree_sweep_n3"),
             ("directed", ["-treedirected"], TREE_STEPS_DIRECTED,
-             near_sweep)):
+             "tree_sweep")):
         log(f"phase 17: tree-P3M main path ({label}) — app.main "
             f"{' '.join(base + extra)} -steps {steps}")
-        near_sweep.launches = 0
-        near_sweep_n3.launches = 0
-        composite_tiles.launches = 0
         t0 = time.perf_counter()
-        metrics, seen = _run_app(base + extra + ["-steps", str(steps)],
-                                 steps)
+        (metrics, seen), got = counted(
+            lambda: _run_app(base + extra + ["-steps", str(steps)], steps),
+            ("tree_sweep", "tree_sweep_n3", "composite_tiles"))
         wall = time.perf_counter() - t0
-        got = {"tree_sweep": near_sweep.launches,
-               "tree_sweep_n3": near_sweep_n3.launches,
-               "composite": composite_tiles.launches}
         cfg = seen["config"]
-        log(f"  rc 0, {steps} frames in {wall:.2f} s wall, launches {got}; "
+        log(f"  rc 0, {steps} frames in {wall:.2f} s wall (under "
+            f"torch.profiler), device launches {got}; "
             f"G={cfg.pm_grid_size}, pair budget {cfg.p3m_pair_budget}, "
             f"tree_half_force {cfg.tree_half_force}")
         if cfg.tree_half_force != (label == "n3"):
             fail(f"{label}: the run's config has tree_half_force="
                  f"{cfg.tree_half_force}")
-        if counter.launches < steps:
-            fail(f"{label}: the sweep kernel launched {counter.launches} "
+        if got[wrapper] < steps:
+            fail(f"{label}: the sweep kernel launched {got[wrapper]} "
                  f"times in {steps} frames")
-        if got["composite"] < steps:
+        if got["composite_tiles"] < steps:
             fail(f"{label}: composite_tiles launched "
-                 f"{got['composite']} times in {steps} frames")
+                 f"{got['composite_tiles']} times in {steps} frames")
         dev_frames = metrics["gauges"].get("device_frame_ms", [])
         if len(dev_frames) < steps - 3:
             fail(f"only {len(dev_frames)} CUDA-event frame samples")
@@ -3139,8 +3152,8 @@ def phase_tree_main_path():
             "grid": cfg.pm_grid_size,
         }
         launches[label] = got
-        log(f"  ms/frame (CUDA events, median of {len(dev_frames)}): "
-            f"{results[label]['frame_ms']:.2f}; simulate ms "
+        log(f"  ms/frame (CUDA events, median of {len(dev_frames)}, "
+            f"profiled): {results[label]['frame_ms']:.2f}; simulate ms "
             f"{stages['simulate']:.2f}, render ms {stages['render']:.3f} "
             f"(EMA); startup probe {results[label]['probe_s']:.2f} s")
         log(f"  last frame: max {float(seen['frame'].max()):.4f}, mean "
@@ -3420,30 +3433,23 @@ def phase_diag_main_paths(scene_1m):
 
     from multi_adapter_particles_torch import constants as C
     from multi_adapter_particles_torch.models import diagnostics as D
-    from multi_adapter_particles_torch.ops.central_well import central_well_step
-    from multi_adapter_particles_torch.ops.treeforce import (
-        LAUNCH_COUNTERS,
-        near_sweep,
-    )
 
-    names = dict(zip(LAUNCH_COUNTERS, ("tree_sweep", *POT)))
+    directed = ("tree_sweep", *POT)
     results, launches = {}, {}
     for label, argv, steps, every in DIAG_RUNS:
         full = argv + ["-novsync", "-nogui", "-steps", str(steps),
                        "-diagnostics", str(every)]
         log(f"phase 21: diagnostics main path ({label}) — app.main "
             f"{' '.join(full)}")
-        for c in LAUNCH_COUNTERS:
-            setattr(near_sweep, c, 0)
-        central_well_step.launches = 0
         t0 = time.perf_counter()
-        metrics, seen = _run_app(full, steps, draw="-nodraw" not in argv)
+        (metrics, seen), got = counted(
+            lambda: _run_app(full, steps, draw="-nodraw" not in argv),
+            (*directed, "central_well"))
         wall = time.perf_counter() - t0
-        got = {names[c]: getattr(near_sweep, c) for c in LAUNCH_COUNTERS}
-        got["central_well"] = central_well_step.launches
         g = metrics["gauges"]
         samples = steps // every
-        log(f"  rc 0, {steps} frames in {wall:.2f} s wall; launches {got}; "
+        log(f"  rc 0, {steps} frames in {wall:.2f} s wall (under "
+            f"torch.profiler); device launches {got}; "
             f"sample ms {g.get('diag_sample_ms')}")
         for key in ("kinetic", "potential", "energy", "energy_drift",
                     "momentum_mag", "angular_momentum_mag"):
@@ -3476,14 +3482,12 @@ def phase_diag_main_paths(scene_1m):
     label = "mesh_potential_only(half_pairs=False)"
     log(f"phase 21: potential-only directed path — {label} @ {N_TREE:,}, "
         f"G={grid}")
-    for c in LAUNCH_COUNTERS:
-        setattr(near_sweep, c, 0)
-    pot, dropped = D.mesh_potential_only(
+    (pot, dropped), got = counted(lambda: D.mesh_potential_only(
         pos, C.PARTICLE_MASS / N_TREE, C.SOFTENING_SQUARED, grid=grid,
         box=BOX, cutoff_cells=CUTOFF, pair_budget=budget, half_pairs=False,
-        total_only=False)
-    got = {names[c]: getattr(near_sweep, c) for c in LAUNCH_COUNTERS}
-    log(f"  potential {float(pot):.9e}, dropped {dropped}, launches {got}")
+        total_only=False), directed)
+    log(f"  potential {float(pot):.9e}, dropped {dropped}, device launches "
+        f"{got}")
     if dropped or got["tree_sweep_potential_only"] < 1:
         fail(f"{label}: dropped {dropped}, launches {got}")
     if not math.isfinite(float(pot)):
@@ -4149,14 +4153,12 @@ def _mesh_preset(dev):
 
     size = ["-width", str(WIDTH), "-height", str(HEIGHT)]
     with _Shards(8):
-        _zero_counters()
-        metrics, seen = _run_app(["-preset", "1m-mesh8", "-numparticles",
-                                  str(N_MESH), "-steps", str(MESH_STEPS)]
-                                 + size, MESH_STEPS)
-        launches = _read_counters()
+        (metrics, seen), launches = counted(lambda: _run_app(
+            ["-preset", "1m-mesh8", "-numparticles", str(N_MESH), "-steps",
+             str(MESH_STEPS)] + size, MESH_STEPS))
     log(f"  -preset 1m-mesh8 ({N_MESH:,} all_pairs, 8 shards, bit-stable), "
         f"depth cut to {MESH_STEPS} steps from 20: "
-        f"{metrics['gauges']['mode_banner']!r}, launches {launches}")
+        f"{metrics['gauges']['mode_banner']!r}, device launches {launches}")
     if launches["all_pairs_rect"] != 8 * MESH_STEPS:
         fail(f"the mesh launched the rectangle kernel "
              f"{launches['all_pairs_rect']} times, not 8 a step")
@@ -4235,9 +4237,8 @@ def _mesh_render(dev):
     for label, extra in (("sharded", ["-meshdevices", "4", "-shardrender"]),
                          ("gather", ["-meshdevices", "4"]), ("one", [])):
         with _Shards(4):
-            _zero_counters()
-            runs[label] = _run_app(argv + extra, MESH_FRAMES)
-            counts[label] = _read_counters()
+            runs[label], counts[label] = counted(
+                lambda: _run_app(argv + extra, MESH_FRAMES))
     ms = {k: statistics.median(m["gauges"]["device_frame_ms"])
           for k, (m, _) in runs.items()}
     for label in ("sharded", "gather"):
@@ -4258,7 +4259,8 @@ def _mesh_render(dev):
         f"path each bitwise the one-device split run (frame and state) "
         f"after {MESH_FRAMES} frames; frame ms (CUDA events, median): "
         f"sharded {ms['sharded']:.3f}, gather {ms['gather']:.3f}, one "
-        f"device {ms['one']:.3f}; launches {counts['sharded']}")
+        f"device {ms['one']:.3f} (under torch.profiler); device launches "
+        f"{counts['sharded']}")
     return {"frame_ms": ms, "launches": counts["sharded"]}
 
 
@@ -4268,7 +4270,6 @@ def _mesh_forces(dev):
     from multi_adapter_particles_torch.config import SimConfig
     from multi_adapter_particles_torch.models import integrator
     from multi_adapter_particles_torch.ops import p3m
-    from multi_adapter_particles_torch.ops.treeforce import near_sweep
     from multi_adapter_particles_torch.parallel import (
         make_mesh,
         make_sharded_step,
@@ -4301,9 +4302,9 @@ def _mesh_forces(dev):
         cutoff_cells=tcfg.p3m_cutoff_cells, near_mode="tree")
     want = integrator.make_step(tcfg)(st)
     step = make_sharded_step(tcfg, mesh)
-    near_sweep.launches = 0
-    got, tree_ms = timed(lambda: step(shard_state(st, mesh)))
-    sweeps = near_sweep.launches
+    (got, tree_ms), sweeps = counted(
+        lambda: timed(lambda: step(shard_state(st, mesh))), ["tree_sweep"])
+    sweeps = sweeps["tree_sweep"]
     got = got.gather(dev)
     if sweeps != 4:
         fail(f"p3m tree on 4 shards: {sweeps} directed sweeps, not one a "
@@ -4469,17 +4470,21 @@ def phase_pod(position_1m):
     log(f"  central well {N_MAIN:,} rendered at {WIDTH}x{HEIGHT} across the "
         f"2 processes: bitwise the one-process render_mesh (8 shards), "
         f"{rd['vs_one_device_max_err']:.3e} from one device; frame "
-        f"{rd['frame_ms']:.1f} ms (host clock, time-sliced); the primary's "
-        f"launches on its 4 shards: all-pairs {ap['launches']}, render "
-        f"{rd['launches']}")
-    if ap["launches"]["all_pairs_rect"] != 4 * MESH_STEPS:
+        f"{rd['frame_ms']:.1f} ms (host clock, time-sliced, profiled); the "
+        f"primary's device launches on its 4 shards: all-pairs "
+        f"{ap['launches']}, render {rd['launches']}")
+    ap_n, rd_n = (kernel_counts(x["launches"], ("all_pairs_rect",
+                                                "central_well",
+                                                "sort_kv_stable",
+                                                "composite_tiles"))
+                  for x in (ap, rd))
+    if ap_n["all_pairs_rect"] != 4 * MESH_STEPS:
         fail(f"all-pairs: the primary's 4 shards launched the rectangle "
-             f"kernel {ap['launches']['all_pairs_rect']} times in "
-             f"{MESH_STEPS} steps, not 4 a step")
-    if rd["launches"]["central_well"] != 4 or not (
-            rd["launches"]["sort_kv_stable"]
-            == rd["launches"]["composite_tiles"] >= 4):
-        fail(f"render: the primary's 4 shards launched {rd['launches']}")
+             f"kernel {ap_n['all_pairs_rect']} times in {MESH_STEPS} steps, "
+             "not 4 a step")
+    if rd_n["central_well"] != 4 or not (
+            rd_n["sort_kv_stable"] == rd_n["composite_tiles"] >= 4):
+        fail(f"render: the primary's 4 shards launched {rd_n}")
     four = _pod(4, 1, ["--only", "pm", "--pm-n", str(N_MAIN), "--pm-grid",
                        str(PM_GRID)])
     log(f"  pm_grid {N_MAIN:,} G={PM_GRID} dist_fft on 4 processes x 1 shard:"
@@ -4542,20 +4547,24 @@ def phase_host_init(dev):
     phys = dict(dt=C.TIMESTEP, damping=C.DAMPING, mass=C.PARTICLE_MASS,
                 softening_squared=C.SOFTENING_SQUARED)
     p, v = st.position, st.velocity
-    central_well_step.launches = 0
     err = 0.0
-    for _ in range(HOST_STEPS):
-        kp, kv = central_well_step(p, v, **phys)
-        pp, pv = central_well_step_plain(p, v, **phys)
-        for got, want in ((kp, pp), (kv, pv)):
-            e = (got - want).abs()
-            if bool((e > 2e-5 + 2e-5 * want.abs()).any()):
-                fail(f"central well on the host-init scene: out of rtol / "
-                     f"atol 2e-5 (max abs err {float(e.max()):.3e})")
-            err = max(err, float(e.max()))
-        p, v = kp, kv
-    if central_well_step.launches != HOST_STEPS:
-        fail(f"{central_well_step.launches} central-well launches, not "
+
+    def steps():
+        nonlocal p, v, err
+        for _ in range(HOST_STEPS):
+            kp, kv = central_well_step(p, v, **phys)
+            pp, pv = central_well_step_plain(p, v, **phys)
+            for got, want in ((kp, pp), (kv, pv)):
+                e = (got - want).abs()
+                if bool((e > 2e-5 + 2e-5 * want.abs()).any()):
+                    fail(f"central well on the host-init scene: out of rtol "
+                         f"/ atol 2e-5 (max abs err {float(e.max()):.3e})")
+                err = max(err, float(e.max()))
+            p, v = kp, kv
+
+    _, launches = counted(steps, ["central_well"])
+    if launches["central_well"] != HOST_STEPS:
+        fail(f"{launches['central_well']} central-well launches, not "
              f"{HOST_STEPS}")
     frame = Renderer(RenderConfig(width=WIDTH, height=HEIGHT)).render(
         p, Camera(), C.INITIAL_PARTICLE_SIZE, C.INITIAL_PARTICLE_INTENSITY)
@@ -4713,8 +4722,9 @@ def main() -> int:
         f"{comp['ms_262k']:.4f} ms, plain {comp['plain_ms_262k']:.4f} ms")
     log(f"all-pairs @{N_AP:,}: rect kernel {rect['ms_1m']:.3f} ms, half "
         f"kernel {half['ms_1m']:.3f} ms; main path {json.dumps(ap_path)}; "
-        f"composite launches on it {ap_launches['half']['composite']} + "
-        f"{ap_launches['rect']['composite']}")
+        f"composite_tiles launches on it (profiled frames) "
+        f"{ap_launches['half']['composite_tiles']} + "
+        f"{ap_launches['rect']['composite_tiles']}")
     log(f"tree-P3M @{N_TREE:,}: far field {json.dumps(tree['far_ms'])}; "
         f"RMS vs exact {rms:.4e} of max|a|; solve B/cell {json.dumps(solve)};"
         f" pm_grid @{N_MAIN:,} G={PM_GRID} {json.dumps(pm_path)}; main path "

@@ -219,8 +219,7 @@ def all_pairs_accel(
 ) -> Tensor:
     """Directed all-pairs acceleration: position [4, Ni] (sources [4, Nj],
     default position) -> [4, Ni] (ax, ay, az, |a|). A CPU tensor runs the
-    plain twin; a CUDA tensor launches the rectangle kernel (counted in
-    `all_pairs_accel.launches`)."""
+    plain twin; a CUDA tensor launches the rectangle kernel."""
     kw = dict(mass=mass, softening_squared=softening_squared,
               interaction_scale=interaction_scale)
     if position.device.type == "cpu":
@@ -240,11 +239,7 @@ def all_pairs_accel(
             stream,
         )
     _build.check(rc, "allpairs_rect")
-    all_pairs_accel.launches += 1
     return out
-
-
-all_pairs_accel.launches = 0
 
 
 def all_pairs_accel_halfpair(
@@ -258,8 +253,7 @@ def all_pairs_accel_halfpair(
     Falls back to `all_pairs_accel` when N does not tile into 512-wide
     tiles (at least two). A CPU tensor runs the plain twin; a CUDA tensor
     launches the half-pair kernels (2 ceil(K / half_chunk) of them for the
-    K items of `half_items`; one count in `all_pairs_accel_halfpair.launches`
-    per call)."""
+    K items of `half_items`)."""
     kw = dict(mass=mass, softening_squared=softening_squared,
               interaction_scale=interaction_scale)
     n = position.shape[-1]
@@ -287,11 +281,7 @@ def all_pairs_accel_halfpair(
             stream,
         )
     _build.check(rc, "allpairs_half")
-    all_pairs_accel_halfpair.launches += 1
     return out
-
-
-all_pairs_accel_halfpair.launches = 0
 
 
 def make_accel_fn(

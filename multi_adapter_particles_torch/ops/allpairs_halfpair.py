@@ -34,9 +34,9 @@ Shape rules (the JAX launchers check none and return NaN or zero tails):
 N a positive multiple of t, t a positive multiple of 128 (on CUDA at most
 `MAX_KERNEL_T`), kb >= 1, mode one of `V5_MODES`; otherwise `ValueError`.
 
-- CUDA tensors go to the kernels in `csrc/allpairs_halfpair.cu` (one count
-  in `<function>.launches` per call), which says how the j-side stays
-  deterministic without float atomics, or the wrappers raise.
+- CUDA tensors go to the kernels in `csrc/allpairs_halfpair.cu`, which says
+  how the j-side stays deterministic without float atomics, or the wrappers
+  raise.
 - CPU tensors go to the `*_plain` twins, in the JAX op order, blocked over
   j-tiles to bound memory.
 """
@@ -115,7 +115,6 @@ def tri_smem_bytes(t: int, teams: int | None = None) -> int:
     `teams_for(t)`) asks for; its end-of-CTA i-side sums [teams, 3, t]
     reuse it."""
     return (teams_for(t) if teams is None else teams) * team_smem_bytes(t)
-
 
 
 def v7_bands(n: int, t: int, kb: int) -> list[tuple[int, int, int]]:
@@ -308,9 +307,7 @@ def v5_accel(position: Tensor, t: int = 512, mode: str = "full") -> Tensor:
     _check_mode(mode)
     if position.device.type == "cpu":
         return v5_accel_plain(position, t, mode)
-    out = _v5_launch(position, t, mode, False, "v5_accel")
-    v5_accel.launches += 1
-    return out
+    return _v5_launch(position, t, mode, False, "v5_accel")
 
 
 def v5s_accel(position: Tensor, t: int = 512) -> Tensor:
@@ -319,9 +316,7 @@ def v5s_accel(position: Tensor, t: int = 512) -> Tensor:
     _check(position, t, "v5s_accel")
     if position.device.type == "cpu":
         return v5s_accel_plain(position, t)
-    out = _v5_launch(position, t, "full", True, "v5s_accel")
-    v5s_accel.launches += 1
-    return out
+    return _v5_launch(position, t, "full", True, "v5s_accel")
 
 
 @functools.lru_cache(maxsize=8)
@@ -345,12 +340,10 @@ def v6_accel(position: Tensor, t: int = 512) -> Tensor:
     e = min(V6_ENTRIES, k)
     slot = torch.empty((2, e, 3, t), dtype=torch.float32,
                        device=position.device)
-    out = _launch(position, "v6_accel", lambda lib, o, pl, st: lib.aph_v6(
+    return _launch(position, "v6_accel", lambda lib, o, pl, st: lib.aph_v6(
         position.data_ptr(), n, t, table[0].data_ptr(), table[1].data_ptr(),
         k, e, pl.data_ptr(), slot[0].data_ptr(), slot[1].data_ptr(),
         o.data_ptr(), MASS, EPS2, st))
-    v6_accel.launches += 1
-    return out
 
 
 def v7_accel(position: Tensor, t: int = 512, kb: int = 128) -> Tensor:
@@ -365,13 +358,9 @@ def v7_accel(position: Tensor, t: int = 512, kb: int = 128) -> Tensor:
     kbb = min(kb, nt)
     slot = torch.empty((nt, 3, kbb * t), dtype=torch.float32,
                        device=position.device)
-    out = _launch(position, "v7_accel", lambda lib, o, pl, st: lib.aph_v7(
+    return _launch(position, "v7_accel", lambda lib, o, pl, st: lib.aph_v7(
         position.data_ptr(), n, t, kbb, pl.data_ptr(), slot.data_ptr(),
         o.data_ptr(), MASS, EPS2, st))
-    v7_accel.launches += 1
-    return out
 
 
 GENERATIONS = (v5_accel, v5s_accel, v6_accel, v7_accel)
-for _fn in GENERATIONS:
-    _fn.launches = 0

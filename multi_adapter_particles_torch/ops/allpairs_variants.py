@@ -45,8 +45,8 @@ cancel in d² (|p|² ~ 1e5 against d² ~ eps2), so the twins keep the JAX
 op order; the bf16 forms are wrong by design on a ±400 scene (JAX's own
 finding, `allpairs_v3.py:3-6`).
 
-- CUDA tensors go to the kernels in `csrc/allpairs_variants.cu` (each
-  launch counted in `<function>.launches`), or the wrappers raise.
+- CUDA tensors go to the kernels in `csrc/allpairs_variants.cu`, or the
+  wrappers raise.
 - CPU tensors go to the `*_plain` twins.
 """
 
@@ -760,11 +760,9 @@ def attr_accel(position: Tensor, mode: str = "full", ti: int = 512,
     _check_choice(mode, ATTR_MODES, "mode")
     if position.device.type == "cpu":
         return attr_accel_plain(position, mode, ti, tj)
-    out = _launch(position, "attr_accel", (n, 4), lambda lib, o, st:
-                  lib.apv_elem(position.data_ptr(), n, o.data_ptr(),
-                               _ELEM_MODE[mode], 1.0, EPS2, st))
-    attr_accel.launches += 1
-    return out
+    return _launch(position, "attr_accel", (n, 4), lambda lib, o, st:
+                   lib.apv_elem(position.data_ptr(), n, o.data_ptr(),
+                                _ELEM_MODE[mode], 1.0, EPS2, st))
 
 
 def unroll_accel(position: Tensor, ti: int = 256, tj: int = 2048) -> Tensor:
@@ -774,11 +772,9 @@ def unroll_accel(position: Tensor, ti: int = 256, tj: int = 2048) -> Tensor:
     _unroll_rule(n, tj)
     if position.device.type == "cpu":
         return unroll_accel_plain(position, ti, tj)
-    out = _launch(position, "unroll_accel", (4, n), lambda lib, o, st:
-                  lib.apv_elem(position.data_ptr(), n, o.data_ptr(),
-                               _ELEM_MODE["unroll"], MASS, EPS2, st))
-    unroll_accel.launches += 1
-    return out
+    return _launch(position, "unroll_accel", (4, n), lambda lib, o, st:
+                   lib.apv_elem(position.data_ptr(), n, o.data_ptr(),
+                                _ELEM_MODE["unroll"], MASS, EPS2, st))
 
 
 def v4_accel(position: Tensor, ti: int = 256, tj: int = 1024) -> Tensor:
@@ -787,11 +783,9 @@ def v4_accel(position: Tensor, ti: int = 256, tj: int = 1024) -> Tensor:
     n = _check(position, "v4_accel")
     if position.device.type == "cpu":
         return v4_accel_plain(position, ti, tj)
-    out = _launch(position, "v4_accel", (n, 4), lambda lib, o, st:
-                  lib.apv_plane(position.data_ptr(), n, o.data_ptr(), MASS,
-                                EPS2, st))
-    v4_accel.launches += 1
-    return out
+    return _launch(position, "v4_accel", (n, 4), lambda lib, o, st:
+                   lib.apv_plane(position.data_ptr(), n, o.data_ptr(), MASS,
+                                 EPS2, st))
 
 
 def _expand(position: Tensor, what: str, v1b: bool, precision: str) -> Tensor:
@@ -810,9 +804,7 @@ def v1b_accel(position: Tensor, ti: int = 512, tj: int = 512,
     _check_choice(precision, PRECISIONS, "precision")
     if position.device.type == "cpu":
         return v1b_accel_plain(position, ti, tj, precision)
-    out = _expand(position, "v1b_accel", True, precision)
-    v1b_accel.launches += 1
-    return out
+    return _expand(position, "v1b_accel", True, precision)
 
 
 def v1_accel(position: Tensor, ti: int = 256, tj: int = 512,
@@ -823,9 +815,7 @@ def v1_accel(position: Tensor, ti: int = 256, tj: int = 512,
     _check_choice(precision, PRECISIONS, "precision")
     if position.device.type == "cpu":
         return v1_accel_plain(position, ti, tj, precision)
-    out = _expand(position, "v1_accel", False, precision)
-    v1_accel.launches += 1
-    return out
+    return _expand(position, "v1_accel", False, precision)
 
 
 def v3_accel(position: Tensor, ti: int = 512, tj: int = 512,
@@ -839,12 +829,10 @@ def v3_accel(position: Tensor, ti: int = 512, tj: int = 512,
     if position.device.type == "cpu":
         return v3_accel_plain(position, ti, tj, force_path)
     ci, cj = (c.contiguous() for c in v3_centroids(position, ti, tj))
-    out = _launch(position, "v3_accel", (4, n), lambda lib, o, st:
-                  lib.apv_v3(position.data_ptr(), n, ci.data_ptr(), ti,
-                             cj.data_ptr(), tj, o.data_ptr(),
-                             _FORCE_PATH[force_path], MASS, EPS2, st))
-    v3_accel.launches += 1
-    return out
+    return _launch(position, "v3_accel", (4, n), lambda lib, o, st:
+                   lib.apv_v3(position.data_ptr(), n, ci.data_ptr(), ti,
+                              cj.data_ptr(), tj, o.data_ptr(),
+                              _FORCE_PATH[force_path], MASS, EPS2, st))
 
 
 def hybrid_accel(position: Tensor, ti: int = 256, tj: int = 512) -> Tensor:
@@ -857,14 +845,10 @@ def hybrid_accel(position: Tensor, ti: int = 256, tj: int = 512) -> Tensor:
         return hybrid_accel_plain(position, ti, tj)
     if position.data_ptr() % 16:   # the kernel stages by 16-byte copies
         position = position.clone()
-    out = _launch(position, "hybrid_accel", (4, n), lambda lib, o, st:
-                  lib.apv_hybrid(position.data_ptr(), n, tj, o.data_ptr(),
-                                 MASS, EPS2, st))
-    hybrid_accel.launches += 1
-    return out
+    return _launch(position, "hybrid_accel", (4, n), lambda lib, o, st:
+                   lib.apv_hybrid(position.data_ptr(), n, tj, o.data_ptr(),
+                                  MASS, EPS2, st))
 
 
 VARIANTS = (attr_accel, v1b_accel, unroll_accel, v1_accel, v3_accel,
             hybrid_accel, v4_accel)
-for _fn in VARIANTS:
-    _fn.launches = 0

@@ -173,8 +173,7 @@ def bin_sprites(position, wvp, p00, p11, radius, num_draw, id_offset=0, *,
     past the entries hold key num_tiles; their payloads are zero below the
     next multiple of `row` (the composite's data-row width), and the
     kernels leave later ones unwritten. A CPU tensor runs the plain twin;
-    a CUDA tensor launches the two kernels (one call counted in
-    `bin_sprites.launches`)."""
+    a CUDA tensor launches the two kernels."""
     kw = dict(width=width, height=height, near=near, capacity=capacity,
               row=row, tile=tile)
     dev = position.device
@@ -227,8 +226,5 @@ def bin_sprites(position, wvp, p00, p11, radius, num_draw, id_offset=0, *,
             cgb.data_ptr(), stats.data_ptr(), tile_sum.data_ptr(),
             tile_span.data_ptr(), stream)
     _build.check(rc, "bin_sprites")
-    bin_sprites.launches += 1
     return key, cx, cy, w, cgb, stats
 
-
-bin_sprites.launches = 0

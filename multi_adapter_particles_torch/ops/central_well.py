@@ -91,7 +91,7 @@ def central_well_step(
     """One fused integration step. position [4, Np], velocity [3, Np] ->
     (position', velocity'), written into `out` when given (it must not
     alias the inputs). A CPU tensor runs the plain twin; a CUDA tensor
-    launches the kernel (counted in `central_well_step.launches`)."""
+    launches the kernel."""
     kw = dict(dt=dt, damping=damping, mass=mass,
               softening_squared=softening_squared, num_live=num_live,
               out=out)
@@ -124,8 +124,5 @@ def central_well_step(
             stream,
         )
     _build.check(rc, "central_well_step")
-    central_well_step.launches += 1
     return out
 
-
-central_well_step.launches = 0

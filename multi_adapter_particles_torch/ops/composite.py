@@ -121,9 +121,8 @@ def composite_rows(
 ) -> Tensor:
     """-> [4, px, V] premultiplied rgb + transmittance per virtual row.
 
-    A CPU tensor runs the plain twin; a CUDA tensor launches the kernel
-    (counted in `composite_rows.launches`). `row_hi` None = every row
-    loops the full Q."""
+    A CPU tensor runs the plain twin; a CUDA tensor launches the kernel.
+    `row_hi` None = every row loops the full Q."""
     if sp.device.type == "cpu":
         return composite_rows_plain(sp, bases, tile_h, tile_w, blend, row_hi)
     if sp.device.type != "cuda":
@@ -150,11 +149,7 @@ def composite_rows(
             out.data_ptr(), q_len, v, tile_h, tile_w, _BLENDS[blend], stream,
         )
     _build.check(rc, "composite_rows")
-    composite_rows.launches += 1
     return out
-
-
-composite_rows.launches = 0
 
 
 # ---- the render composite: sorted streams -> frame planes -------------------
@@ -339,9 +334,8 @@ def composite_tiles(s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k, hi_k,
     range (hi_k 0 for dead rows); row_start, row_end int32 [T], each tile's
     rows; inv_sx, inv_sy, intensity 0-dim float32 (1/(2hx) = w * inv_sx).
     V = T + ceil(E / q). Arguments are checked on either device; then CPU
-    tensors run the plain twin, CUDA tensors launch the two kernels (one
-    call counted in `composite_tiles.launches`). No host read: a CUDA
-    graph can capture the call."""
+    tensors run the plain twin, CUDA tensors launch the two kernels. No
+    host read: a CUDA graph can capture the call."""
     dev = s_cx.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"composite_tiles runs on cuda or cpu, got {dev}")
@@ -392,8 +386,5 @@ def composite_tiles(s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k, hi_k,
             _BLENDS[blend], rows.data_ptr(), color.data_ptr(),
             trans.data_ptr(), stream)
     _build.check(rc, "composite_tiles")
-    composite_tiles.launches += 1
     return color, trans
 
-
-composite_tiles.launches = 0

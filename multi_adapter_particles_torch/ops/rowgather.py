@@ -47,7 +47,7 @@ def _library() -> ctypes.CDLL:
 def gather_rows(table: Tensor, idx: Tensor) -> Tensor:
     """table [R, W] (32-bit), idx [N] int32 -> [N, W], rows clamped into
     range. A CPU tensor runs the plain twin; a CUDA tensor launches the
-    kernel (counted in `gather_rows.launches`; N = 0 launches nothing)."""
+    kernel (N = 0 launches nothing)."""
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
     if table.device.type != "cuda":
@@ -74,8 +74,5 @@ def gather_rows(table: Tensor, idx: Tensor) -> Tensor:
                                     idx.data_ptr(), n, out.data_ptr(), vec,
                                     stream)
     _build.check(rc, "gather_rows")
-    gather_rows.launches += 1
     return out
 
-
-gather_rows.launches = 0

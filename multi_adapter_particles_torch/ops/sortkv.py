@@ -186,8 +186,8 @@ def sort_kv_stable(key: Tensor, *payloads: Tensor, live=None):
     int32 tensor on key's device) only the first `live` entries are
     sorted, in place, under the promise in the module's docstring: the
     result is the caller's arrays, and what they held before is gone. A
-    CPU tensor runs the plain twin; a CUDA tensor launches the kernel
-    (counted in `sort_kv_stable.launches`; E = 0 launches nothing)."""
+    CPU tensor runs the plain twin; a CUDA tensor launches the kernels
+    (E = 0 launches nothing)."""
     if key.device.type == "cpu":
         return sort_kv_stable_plain(key, *payloads, live=live)
     if key.device.type != "cuda":
@@ -231,8 +231,5 @@ def sort_kv_stable(key: Tensor, *payloads: Tensor, live=None):
                                None if live is None else live.data_ptr(),
                                stream)
     _build.check(rc, "sortkv_stable")
-    sort_kv_stable.launches += 1
     return (key_out, *outs)
 
-
-sort_kv_stable.launches = 0

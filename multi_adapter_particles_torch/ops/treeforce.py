@@ -230,12 +230,9 @@ def _chunks(n: int, block: int):
 
 
 # The directed sweep's variants: (with_potential, potential_only,
-# half_pairs) -> the kernel's variant index, and the wrapper's count of
-# each variant's launches.
+# half_pairs) -> the kernel's variant index.
 _VARIANTS = {(False, False, False): 0, (True, False, False): 1,
              (True, True, False): 2, (True, True, True): 3}
-LAUNCH_COUNTERS = ("launches", "launches_with_potential",
-                   "launches_potential_only", "launches_half_pairs")
 
 
 def _variant(with_potential: bool, potential_only: bool,
@@ -496,9 +493,7 @@ def near_sweep(spos: Tensor, bounds: Tensor, j_idx: Tensor, *, block: int,
     """Directed sweep: spos [4, nb*B] (sorted, parked), bounds [nb+1] over
     the i-major source-block list j_idx -> [4, nb*B] (ax, ay, az, u),
     unscaled; the variants as `near_sweep_plain` has them. A CPU tensor
-    runs the plain twin; a CUDA tensor launches the kernel, counted per
-    variant in `near_sweep.launches` (force), `.launches_with_potential`,
-    `.launches_potential_only` and `.launches_half_pairs`."""
+    runs the plain twin; a CUDA tensor launches the kernels."""
     variant = _variant(with_potential, potential_only, half_pairs)
     if spos.device.type == "cpu":
         return near_sweep_plain(spos, bounds, j_idx, block=block, eps2=eps2,
@@ -511,10 +506,6 @@ def near_sweep(spos: Tensor, bounds: Tensor, j_idx: Tensor, *, block: int,
     _check_list("near_sweep", spos, nb, j_idx, bounds=bounds)
     return _launch_sweep(spos, nb, block, bounds, j_idx, eps2, sigma,
                          variant)
-
-
-for _name in LAUNCH_COUNTERS:
-    setattr(near_sweep, _name, 0)
 
 
 # slot rows of each directed variant's items: force, force + potential,
@@ -545,8 +536,6 @@ def _launch_sweep(spos: Tensor, nb: int, block: int, bounds: Tensor,
             items.chunk, slot.data_ptr(), out.data_ptr(), _POLY_C,
             _E_POLY_C, *_sweep_consts(eps2, sigma), variant, stream)
     _build.check(rc, "tree_sweep")
-    name = LAUNCH_COUNTERS[variant]
-    setattr(near_sweep, name, getattr(near_sweep, name) + 1)
     return out
 
 
@@ -584,16 +573,12 @@ def near_sweep_n3(spos: Tensor, sweep_i: Tensor, sweep_j: Tensor, *,
                   nb: int, block: int, eps2: float, sigma: float) -> Tensor:
     """Newton-3rd halved sweep over the halved i-major list (sweep_i,
     sweep_j), j >= i, live entries only -> [4, nb*B], unscaled. A CPU
-    tensor runs the plain twin; a CUDA tensor launches the kernels (one
-    count in `near_sweep_n3.launches` per call)."""
+    tensor runs the plain twin; a CUDA tensor launches the kernels."""
     if spos.device.type == "cpu":
         return near_sweep_n3_plain(spos, sweep_i, sweep_j, nb=nb,
                                    block=block, eps2=eps2, sigma=sigma)
     return _launch_sweep_n3(spos, *_n3_prepare(spos, sweep_i, sweep_j, nb,
                                                 block), eps2, sigma)
-
-
-near_sweep_n3.launches = 0
 
 
 def _n3_prepare(spos: Tensor, sweep_i: Tensor, sweep_j: Tensor, nb: int,
@@ -637,7 +622,6 @@ def _launch_sweep_n3(spos: Tensor, nb: int, block: int, bounds: Tensor,
             jorder.data_ptr(), jbounds.data_ptr(), out.data_ptr(), _POLY_C,
             *_factor_consts(eps2, sigma), stream)
     _build.check(rc, "tree_sweep_n3")
-    near_sweep_n3.launches += 1
     return out
 
 

@@ -36,10 +36,6 @@ CUDA graph:
 - **Stage marks**: with a stage timer, the "render" mark falls between the
   render and step replays (events at the stage boundary replace the JAX
   package's optimization-barrier marker).
-- **Launch counts**: a capture runs nothing, so the kernel wrappers'
-  `.launches` counters are put back after it and advanced by the captured
-  frame's launches at every replay: the counters count launches on the
-  device in both modes. `launches_per_frame` and `replays` report them.
 - **Extension**: fused frames run on the current stream whatever the
   queue-throttle extension says (`utils/extension.py`): one program on one
   device leaves no second stream for a priority to beat.
@@ -62,7 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -71,14 +67,6 @@ from multi_adapter_particles_torch.models import init as pinit
 from multi_adapter_particles_torch.models import integrator
 from multi_adapter_particles_torch.models.state import ParticleState
 from multi_adapter_particles_torch.ops import _build
-from multi_adapter_particles_torch.ops.allpairs import (
-    all_pairs_accel,
-    all_pairs_accel_halfpair,
-)
-from multi_adapter_particles_torch.ops.binning import bin_sprites
-from multi_adapter_particles_torch.ops.central_well import central_well_step
-from multi_adapter_particles_torch.ops.composite import composite_tiles
-from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
 from multi_adapter_particles_torch.render.camera import Camera
 from multi_adapter_particles_torch.render.renderer import FrameOutput, Renderer
 from multi_adapter_particles_torch.runtime import trace
@@ -155,11 +143,6 @@ class DeviceGraph:
             _graph_library().device_graph_destroy(self._exec)
 
 
-# The kernel wrappers a fused frame can launch (their `.launches` counters).
-COUNTED = (central_well_step, bin_sprites, composite_tiles, sort_kv_stable,
-           all_pairs_accel, all_pairs_accel_halfpair)
-
-
 class FusedEngine:
     """Both engine roles on one device: compute (`positions`,
     `get_fence_value`, `wait_for_gpu`, `snapshot`, `restore`, `state`) and
@@ -214,7 +197,6 @@ class FusedEngine:
         self._graph_key = None
         self._frame: Optional[FrameOutput] = None
         self.replays = 0
-        self._per_frame = {}      # counted wrapper -> launches a frame
 
     # -- the frame -----------------------------------------------------------
     @property
@@ -257,14 +239,12 @@ class FusedEngine:
 
     def _capture(self, num_sim: Optional[int]) -> None:
         """Capture the render and step graphs of both parities into one
-        memory pool. A capture launches nothing: the counters are put back
-        and the captured frame's launches kept for the replays."""
+        memory pool."""
         with trace.span("fused.capture"):
             self._capture_graphs(num_sim)
 
     def _capture_graphs(self, num_sim: Optional[int]) -> None:
         self._graphs = None
-        before = {f: f.launches for f in COUNTED}
         pool = torch.cuda.graph_pool_handle()
         graphs = []
         stream = torch.cuda.current_stream(self.device)
@@ -277,16 +257,7 @@ class FusedEngine:
             for g in (g_render, g_step):
                 g.instantiate(stream)
             graphs.append((g_render, out, g_step))
-        self._per_frame = {f: (f.launches - n) // 2 for f, n in before.items()
-                           if f.launches != n}
-        for f, n in before.items():
-            f.launches = n
         self._graphs = graphs
-
-    @property
-    def launches_per_frame(self) -> Dict[str, int]:
-        """Kernel launches of one captured frame, by wrapper name."""
-        return {f.__name__: c for f, c in self._per_frame.items()}
 
     def frame(self, app: AppConfig, num_sim: Optional[int] = None,
               num_draw: Optional[int] = None, stage_timer=None) -> FrameOutput:
@@ -312,8 +283,6 @@ class FusedEngine:
             if replay:
                 g_step.replay()
                 self.replays += 1
-                for f, c in self._per_frame.items():
-                    f.launches += c
             else:
                 self._simulate(self._cur, num_sim)
         self._frame = out

@@ -78,23 +78,41 @@ def _line(label: str, n: int, ms: float) -> str:
     return f"{label:28s}: {ms:9.3f} ms  {n * n / ms / 1e9:8.4f} Tpairs/s"
 
 
+# Spin kernels that open a profiled window, left out of what it returns:
+# the trace can drop a window's first records (2, 20 and over 64 short
+# kernels seen on an H100), and the lead, 128 kernels and ~4 ms, takes the
+# loss in place of the call's own.
+PROFILE_LEAD = 128
+PROFILE_LEAD_CYCLES = 60_000
+
+
 def profile_call(fn):
     """(fn(), [(kernel or memset name, device ms)] in launch order) of one
-    call of `fn` on the GPU under torch.profiler."""
+    call of `fn` on the GPU under torch.profiler. Raises if the trace
+    dropped the whole lead, and with it perhaps some of the call's."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+        torch.cuda.synchronize()
         result = fn()
         torch.cuda.synchronize()
-    out = []
+    out, lead = [], 0
     for ev in prof.events():
         if ev.device_type.name != "CUDA":
+            continue
+        if "spin_kernel" in ev.name:
+            lead += 1
             continue
         us = getattr(ev, "device_time", None)
         us = ev.cuda_time if us is None else us
         name = ev.name.replace("(anonymous namespace)::", "").split("(")[0]
         out.append((name.removeprefix("void ").strip(), us / 1e3))
+    if not lead:
+        raise RuntimeError("the profiler dropped every lead kernel of the "
+                           "window: its count may miss launches")
     return result, out
 
 

@@ -26,9 +26,10 @@ the JAX worker checks:
   reshard onto one rank a process that continues bitwise.
 
 The primary (rank 0) computes the one-process references, prints one line
-`POD_RESULT {json}` (backend, reason, host-clock times, the kernel
-wrappers' launches on its own shards in each phase) and with `--out
-PATH` saves the gathered all-pairs positions (.npy). Every process prints `BOOTSTRAP_OK`
+`POD_RESULT {json}` (backend, reason, host-clock times, the device
+launches of each CUDA kernel on its own shards in the allpairs and render
+phases, by torch.profiler) and with `--out PATH` saves the gathered
+all-pairs positions (.npy). Every process prints `BOOTSTRAP_OK`
 last; any failed check exits non-zero. Processes that share one card
 time-slice it, so their times gate nothing.
 """
@@ -36,6 +37,7 @@ time-slice it, so their times gate nothing.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import sys
 import time
@@ -90,25 +92,18 @@ def _equal(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
                              f"({int((got != want).sum())} values differ)")
 
 
-def _counters() -> dict:
-    """The kernel wrappers' launches on this process so far (the plain
-    twins of a CPU run launch nothing)."""
-    from multi_adapter_particles_torch.ops.allpairs import all_pairs_accel
-    from multi_adapter_particles_torch.ops.central_well import (
-        central_well_step,
+def _launches(fn, device, primary: bool):
+    """(fn(), {CUDA kernel name: launches}) of one call of `fn` on this
+    process, from the device trace (torch.profiler), on the primary only
+    (it alone reports them); the plain twins of a CPU run launch none."""
+    if device.type != "cuda" or not primary:
+        return fn(), {}
+    from multi_adapter_particles_torch.tools.allpairs_halfpair import (
+        profile_call,
     )
-    from multi_adapter_particles_torch.ops.composite import composite_tiles
-    from multi_adapter_particles_torch.ops.sortkv import sort_kv_stable
 
-    return {"all_pairs_rect": all_pairs_accel.launches,
-            "central_well": central_well_step.launches,
-            "sort_kv_stable": sort_kv_stable.launches,
-            "composite_tiles": composite_tiles.launches}
-
-
-def _since(before: dict) -> dict:
-    """The launches since `before` (a `_counters()`)."""
-    return {k: v - before[k] for k, v in _counters().items()}
+    out, kernels = profile_call(fn)
+    return out, dict(collections.Counter(name for name, _ in kernels))
 
 
 def run_allpairs(mesh, dev, n: int, steps: int, primary: bool, res: dict,
@@ -116,14 +111,13 @@ def run_allpairs(mesh, dev, n: int, steps: int, primary: bool, res: dict,
     cfg = SimConfig(num_particles=n, force_model="all_pairs",
                     all_pairs_half=False)
     eng = MeshComputeEngine(cfg, mesh, seed=0)
-    before = _counters()
 
     def run():
         for _ in range(steps):
             eng.simulate()
         eng.wait_for_gpu()
 
-    _, ms = _timed(run, dev)
+    (_, ms), launches = _launches(lambda: _timed(run, dev), dev, primary)
     if eng.get_fence_value() != steps:
         raise AssertionError(f"fence {eng.get_fence_value()} != {steps}")
     full, gather_ms = _timed(lambda: gather_positions(eng.sharded, dev), dev)
@@ -133,7 +127,7 @@ def run_allpairs(mesh, dev, n: int, steps: int, primary: bool, res: dict,
         raise AssertionError(f"gathered positions {tuple(full.shape)} not "
                              "finite")
     res["allpairs"] = {"n": n, "steps": steps, "step_ms": ms / steps,
-                       "gather_ms": gather_ms, "launches": _since(before)}
+                       "gather_ms": gather_ms, "launches": launches}
     snap = eng.snapshot()
     eng.restore(snap)
     _equal("snapshot / restore", gather_positions(eng.sharded, dev), full)
@@ -153,18 +147,22 @@ def run_render(mesh, dev, n: int, width: int, height: int, primary: bool,
                res: dict) -> None:
     st = _init(n, 5, dev)
     cfg = SimConfig(num_particles=n)
-    before = _counters()
-    stepped, step_ms = _timed(
-        lambda: make_sharded_step(cfg, mesh)(shard_state(st, mesh)), dev)
     rcfg = RenderConfig(width=width, height=height)
     args = (Camera(), C.INITIAL_PARTICLE_SIZE, C.INITIAL_PARTICLE_INTENSITY)
-    out, ms = _timed(lambda: Renderer(rcfg).render_mesh(
-        stepped.position, *args, mesh), dev)
+
+    def run():
+        stepped, step_ms = _timed(
+            lambda: make_sharded_step(cfg, mesh)(shard_state(st, mesh)), dev)
+        out, ms = _timed(lambda: Renderer(rcfg).render_mesh(
+            stepped.position, *args, mesh), dev)
+        return stepped, step_ms, out, ms
+
+    (stepped, step_ms, out, ms), launches = _launches(run, dev, primary)
     frame = out.frame
     if not bool(torch.isfinite(frame).all()) or float(frame.max()) <= 0.0:
         raise AssertionError("the process-mesh frame is empty or not finite")
     res["render"] = {"n": n, "size": [width, height], "step_ms": step_ms,
-                     "frame_ms": ms, "launches": _since(before)}
+                     "frame_ms": ms, "launches": launches}
     full = gather_positions(stepped, dev)  # every process takes part
     if not primary:
         return

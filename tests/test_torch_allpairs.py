@@ -131,9 +131,7 @@ class TestRectangleTwin:
 
     def test_wrapper_on_cpu_is_the_twin(self):
         pos = torch.from_numpy(_pos(256, seed=4))
-        before = all_pairs_accel.launches
         a = all_pairs_accel(pos, **PHYS)
-        assert all_pairs_accel.launches == before  # no kernel launch
         assert torch.equal(a, all_pairs_accel_plain(pos, **PHYS))
 
     def test_integrator_masked_sum_matches_jax(self):
@@ -187,10 +185,7 @@ class TestHalfPairTwin:
 
     def test_wrapper_on_cpu_is_the_twin(self):
         pos = torch.from_numpy(_pos(1024, seed=8))
-        before = (all_pairs_accel.launches, all_pairs_accel_halfpair.launches)
         a = all_pairs_accel_halfpair(pos, **PHYS)
-        assert (all_pairs_accel.launches,
-                all_pairs_accel_halfpair.launches) == before
         assert torch.equal(a, all_pairs_accel_halfpair_plain(pos, **PHYS))
 
     @pytest.mark.parametrize("half", [True, False])

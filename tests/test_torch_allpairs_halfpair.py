@@ -143,13 +143,11 @@ _WRAPPER_CASES = [(H.v5_accel, dict(t=256, mode="reduce_only")),
 @pytest.mark.parametrize("fn,kw", _WRAPPER_CASES,
                          ids=[c[0].__name__ for c in _WRAPPER_CASES])
 def test_cpu_wrapper_is_its_twin(fn, kw):
-    """A CPU tensor runs the twin (bit for bit) and counts no launch; any
-    device but cuda or cpu raises."""
+    """A CPU tensor runs the twin (bit for bit); any device but cuda or
+    cpu raises."""
     p = torch.from_numpy(_pos(768))
     plain = getattr(H, f"{fn.__name__}_plain")
-    before = fn.launches
     assert torch.equal(fn(p, **kw), plain(p, **kw))
-    assert fn.launches == before
     with pytest.raises(ValueError, match="cuda or cpu"):
         fn(torch.empty((4, 768), device="meta"), **kw)
 

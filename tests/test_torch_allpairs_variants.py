@@ -258,12 +258,10 @@ _WRAPPER_CASES = [
 @pytest.mark.parametrize("fn,plain,kw", _WRAPPER_CASES,
                          ids=[c[0].__name__ for c in _WRAPPER_CASES])
 def test_cpu_wrapper_is_its_twin(fn, plain, kw):
-    """A CPU tensor runs the twin (bit for bit) and counts no launch; any
-    device but cuda or cpu raises."""
+    """A CPU tensor runs the twin (bit for bit); any device but cuda or
+    cpu raises."""
     p = torch.from_numpy(_pos(768, COMPACT))
-    before = fn.launches
     assert torch.equal(fn(p, **kw), plain(p, **kw))
-    assert fn.launches == before
     with pytest.raises(ValueError, match="cuda or cpu"):
         fn(torch.empty((4, 768), device="meta"), **kw)
 

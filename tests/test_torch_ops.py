@@ -79,12 +79,10 @@ class TestCentralWellTwin:
 
     def test_wrapper_on_cpu_is_the_twin(self):
         pos, vel = _oracle_planes(300, 2)
-        before = central_well_step.launches
         a = central_well_step(torch.from_numpy(pos), torch.from_numpy(vel),
                               **PHYS)
         b = central_well_step_plain(torch.from_numpy(pos),
                                     torch.from_numpy(vel), **PHYS)
-        assert central_well_step.launches == before  # no kernel launch
         for x, y in zip(a, b):
             assert torch.equal(x, y)
 
@@ -186,10 +184,8 @@ class TestCompositeTwin:
     def test_wrapper_on_cpu_is_the_twin(self):
         sp, bases, hi = _composite_inputs(seed=2, q=8, v=300)
         args = (torch.from_numpy(sp), torch.from_numpy(bases), 8, 16)
-        before = composite_rows.launches
         a = composite_rows(*args, row_hi=torch.from_numpy(hi))
         b = composite_rows_plain(*args, row_hi=torch.from_numpy(hi))
-        assert composite_rows.launches == before
         assert torch.equal(a, b)
 
     def test_unknown_blend_raises(self):

@@ -73,10 +73,8 @@ def test_wrapper_on_cpu_is_the_twin():
     table = torch.from_numpy(_table(64, 1024, 6))
     idx = torch.from_numpy(
         np.random.default_rng(6).integers(-3, 70, 500).astype(np.int32))
-    before = rowgather.gather_rows.launches
     assert torch.equal(rowgather.gather_rows(table, idx),
                        rowgather.gather_rows_plain(table, idx))
-    assert rowgather.gather_rows.launches == before  # no kernel on the CPU
 
 
 def test_wrapper_refuses_other_devices():
