@@ -72,17 +72,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the kernel's device launches counted in one profiled call) and the
    bytes bound
 4c. composite_tiles (the render's composite: row and fold kernels) vs
-   composite_tiles_plain, bitwise on C and T in both blends: the 1M chunk
-   of phase 4 (Q=256), 262,144 at 1280x720 (Q=64), 262,144 at Q=8 (hot
-   tiles of 9 or more rows), 16,384 at 1024x1024 (empty tiles); the 1M
-   chunk twice, bitwise; a render chunk captured in a CUDA graph with the
-   sort and replayed on new positions, bitwise the eager call; times of
-   the call (CUDA events) and of each launch (torch.profiler) beside the
-   plain version and the composite_rows kernel, the bound; then the golden
-   corpus' adversarial scenes (coincident stacks, one depth plane, culled
-   and giant sprites) through `Renderer.render_mesh` at 2 and 4 shards of
-   the card, placed across a shard boundary: the sort and composite_tiles
-   kernels bitwise the plain path (frame, truncated, spans)
+   composite_tiles_plain, bitwise on C, T and the blend count in both
+   blends: the 1M chunk of phase 4 (Q=256), 262,144 at 1280x720 (Q=64),
+   262,144 at Q=8 (hot tiles of 9 or more rows), 16,384 at 1024x1024
+   (empty tiles), and `TILE_SCENES` (disc edges exactly 0.5 from a block
+   border's pixel centre, zeroed 1/(2h), whole-tile sprites, zero alpha
+   scale, two stages of slots, a scale past 2, 2 x 16 and 32 x 1 tiles)
+   twice each; the 1M chunk twice, bitwise; a render chunk captured in a
+   CUDA graph with the sort and replayed on new positions, bitwise the
+   eager call; times of the call (CUDA events) and of each launch
+   (torch.profiler) beside the plain version and the composite_rows
+   kernel, the bound on every live slot's pixels and the bound on the
+   (slot, block) pairs blended, with their share; the same at sprite size
+   `LARGE_SPRITE`, where every block is reached; then the golden corpus'
+   adversarial scenes (coincident stacks, one depth plane, culled and
+   giant sprites) through `Renderer.render_mesh` at 2 and 4 shards of the
+   card, placed across a shard boundary: the sort and composite_tiles
+   kernels bitwise the plain path (frame, truncated, spans, blends)
 4d. the exact binning's kernels (ops/binning.py) vs bin_sprites_plain,
    bitwise on the stats, every key and the live payloads: the 4M state's
    first and second 1M chunks (a strided view, an id offset, a device
@@ -288,6 +294,9 @@ import tempfile
 import time
 
 N_MAIN = 4_194_304
+# phase 4c: 512 sprites of this size, each over the whole 1024 x 1024 frame
+# (every block of every tile reached: the skip saves nothing there)
+LARGE_SPRITE = 8_000.0
 STEPS = 40
 GATHER_ROUNDS = 5   # phase 4b: kernel and index_select timed in turns
 WIDTH = HEIGHT = 1024
@@ -798,10 +807,13 @@ def phase_central_well(dev):
             "bound_ms": bound, "bound_by": "bytes"}
 
 
-def _tiles_inputs(pos, width, height, seg_q=None, blend="over"):
+def _tiles_inputs(pos, width, height, seg_q=None, blend="over", size=2.5,
+                  entry_factor=None):
     """(args, kw) of the `composite_tiles` call the renderer makes for the
     particles `pos` [4, n] at width x height (seg_q None: the renderer's
-    adaptive Q), recorded from `_render` with the plain composite."""
+    adaptive Q) and sprite size `size`, recorded from `_render` with the
+    plain composite: binned into a 2 x 2 window, or exactly into
+    `entry_factor` entries a particle where that is given."""
     from multi_adapter_particles_torch.config import RenderConfig
     from multi_adapter_particles_torch.ops.composite import (
         composite_tiles_plain,
@@ -817,10 +829,142 @@ def _tiles_inputs(pos, width, height, seg_q=None, blend="over"):
         seen["call"] = (args, kw)
         return composite_tiles_plain(*args, **kw)
 
-    args = rend._device_args(Camera(), 2.5, 0.15, pos.device)
+    args = rend._device_args(Camera(), size, 0.15, pos.device)
+    bins = (dict(entry_factor=entry_factor) if entry_factor
+            else dict(dup_y=2, dup_x=2))
     R._render(pos, *args, n, width=width, height=height,
-              seg_q=seg_q or rend.resolve_seg_q(n), dup_y=2, dup_x=2,
-              near=1.0, blend=blend, return_trans=True, composite=record)
+              seg_q=seg_q or rend.resolve_seg_q(n), near=1.0, blend=blend,
+              return_trans=True, composite=record, **bins)
+    return seen["call"]
+
+
+# composite_tiles' adversarial scenes (phase 4c on the card, and
+# tests/test_torch_composite_tiles.py on the CPU): name -> (tile, Q,
+# intensity, p00, p11). A 128 x 64 frame; radius 1, so 1/(2hx) = w / (p00 *
+# 128) and 1/(2hy) = w / (p11 * 64): 0.25 w at p00 = 1/32, p11 = 1/16
+# (w = 1 is a disc of radius 2 px), 2 w along x at p00 = 1/256.
+TILE_SCENES = {
+    "edges": ((8, 16), 8, 0.15, 1 / 32, 1 / 16),
+    "near edges": ((8, 16), 8, 0.7, 1 / 32, 1 / 16),
+    "zeroed 1/(2h)": ((8, 16), 8, 0.15, 1 / 256, 1 / 16),
+    "whole tile": ((8, 16), 8, 0.15, 1 / 32, 1 / 16),
+    "zero alpha scale": ((8, 16), 8, 0.0, 1 / 32, 1 / 16),
+    "two stages": ((8, 16), 512, 0.15, 1 / 32, 1 / 16),
+    "scale past 2": ((8, 16), 8, 2.5, 1 / 32, 1 / 16),
+    "tile 2x16": ((2, 16), 8, 0.15, 1 / 32, 1 / 16),
+    "tile 32x1": ((32, 1), 8, 0.15, 1 / 32, 1 / 16),
+}
+SCENE_W, SCENE_H = 128, 64
+
+
+def _scene_entries(name, tile, rng):
+    """(tile ids, cx, cy, w) of a scene's entries in draw order. Pixel
+    centres and block borders of the 4 x 8, 8 x 4 and 2 x 16 blocks: discs
+    whose edge falls exactly 0.5 from a border pixel's centre (w = 1: 2 px),
+    and 1 ulp either side."""
+    import numpy as np
+
+    th, tw = tile
+    gw = SCENE_W // tw
+    tiles = (SCENE_H // th) * gw
+    ids, xs, ys, ws = [], [], [], []
+
+    def add(t, x, y, w):
+        ids.append(t)
+        xs.append((t % gw) * tw + x)
+        ys.append((t // gw) * th + y)
+        ws.append(w)
+
+    f32 = np.float32
+    if name == "edges":
+        for t in rng.choice(tiles, 12, replace=False):
+            row = float(rng.integers(0, th)) + 0.5
+            col = float(rng.integers(0, tw)) + 0.5
+            for b in (2, 4, 6, 8, 12):
+                for x in (b - 1.5, b + 1.5):        # 2 px from column b, b - 1
+                    for nudge in (None, np.inf, -np.inf):
+                        xv = f32(x) if nudge is None else np.nextafter(
+                            f32(x), f32(nudge))
+                        add(t, float(xv), row, 1.0)
+                if b < th:
+                    for y in (b - 1.5, b + 1.5):
+                        add(t, col, y, 1.0)
+    elif name == "zeroed 1/(2h)":
+        for t in rng.choice(tiles, 10, replace=False):
+            for w in (np.inf, np.nan, 3e38, 1.0):
+                add(t, float(rng.uniform(0, tw)),
+                    float(rng.integers(0, th)) + 0.5, w)
+    elif name == "whole tile":
+        for t in rng.choice(tiles, 10, replace=False):
+            add(t, float(rng.uniform(0, tw)), float(rng.uniform(0, th)), 0.02)
+            add(t, float(rng.uniform(0, tw)), float(rng.uniform(0, th)), 1.0)
+    elif name == "two stages":
+        hot = int(rng.integers(tiles))
+        for t in [hot] * 700 + list(rng.integers(0, tiles, 200)):
+            add(int(t), float(rng.uniform(-2, tw + 2)),
+                float(rng.uniform(-2, th + 2)), float(rng.uniform(0.5, 4)))
+    else:                  # discs near block borders, corners and beyond
+        for t in rng.integers(0, tiles, 400):
+            x = float(rng.choice([0, 2, 4, 8, 12, tw])) + rng.normal(0, 1.5)
+            y = float(rng.choice([0, 2, 4, th])) + rng.normal(0, 1.5)
+            add(int(t), x, y, float(rng.uniform(0.3, 4)))
+    return ids, xs, ys, ws
+
+
+def tile_scene(name, dev="cpu", blend="over", seed=0):
+    """(args, kw) of a `composite_tiles` call on the adversarial scene
+    `name` (`TILE_SCENES`): its entries placed by hand, then through the
+    renderer's own sort and virtual-row map (`_render` with the binning
+    replaced), recorded with the plain composite."""
+    import numpy as np
+    import torch
+
+    from multi_adapter_particles_torch.ops.composite import (
+        composite_tiles_plain,
+        pack_cgb,
+    )
+    from multi_adapter_particles_torch.render import renderer as R
+
+    tile, q, intensity, p00, p11 = TILE_SCENES[name]
+    rng = np.random.default_rng(seed)
+    ids, xs, ys, ws = _scene_entries(name, tile, rng)
+    e = len(ids)
+    n = e // 4 + 1
+    num_tiles = (SCENE_H // tile[0]) * (SCENE_W // tile[1])
+
+    def pad(values, dtype, fill):
+        out = torch.full((4 * n,), fill, dtype=dtype)
+        out[:e] = torch.tensor(values, dtype=dtype)
+        return out.to(dev)
+
+    def binned(*_, capacity, **__):
+        assert capacity == 4 * n
+        cg = torch.from_numpy(rng.uniform(0, 1, e).astype(np.float32))
+        cb = torch.from_numpy(rng.uniform(0, 1, e).astype(np.float32))
+        stats = torch.tensor([e, 0, 1, 1], dtype=torch.int32, device=dev)
+        return (pad(ids, torch.int32, num_tiles), pad(xs, torch.float32, 0.0),
+                pad(ys, torch.float32, 0.0), pad(ws, torch.float32, 0.0),
+                pad(pack_cgb(cg, cb).tolist(), torch.int32, 0), stats)
+
+    seen = {}
+
+    def record(*args, **kw):
+        seen["call"] = (args, kw)
+        return composite_tiles_plain(*args, **kw)
+
+    def scalar(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    saved = R.TILE_H, R.TILE_W
+    R.TILE_H, R.TILE_W = tile
+    try:
+        R._render(torch.zeros((4, n), device=dev), torch.eye(4, device=dev),
+                  scalar(p00), scalar(p11), scalar(1.0), scalar(intensity),
+                  n, width=SCENE_W, height=SCENE_H, seg_q=q, near=1.0,
+                  blend=blend, return_trans=True, composite=record,
+                  bin=binned)
+    finally:
+        R.TILE_H, R.TILE_W = saved
     return seen["call"]
 
 
@@ -963,10 +1107,10 @@ def phase_composite(dev):
 
 
 def _equal_outputs(label, got, want):
-    """Fail unless the (C, T) pairs are bitwise equal."""
+    """Fail unless the (C, T, blends) triples are bitwise equal."""
     import torch
 
-    for name, a, b in zip(("C", "T"), got, want):
+    for name, a, b in zip(("C", "T", "blends"), got, want):
         if a.shape != b.shape or not torch.equal(a, b):
             bad = int((a != b).sum()) if a.shape == b.shape else "shape"
             fail(f"composite_tiles {label}: {name} differs from the plain "
@@ -993,7 +1137,9 @@ def _tiles_work(args, kw):
 def _time_tiles(label, args, kw):
     """CUDA-event times of the call, its plain version and the old
     composite_rows kernel on the same rows; torch.profiler's time of each
-    launch; the bound and its share."""
+    launch; the bound and its share, and beside it the bound on the
+    (slot, 32-pixel block) pairs the call blends (the blended share of
+    every live slot's blocks)."""
     from multi_adapter_particles_torch.ops.composite import (
         composite_rows,
         composite_tiles,
@@ -1018,21 +1164,28 @@ def _time_tiles(label, args, kw):
                          + comb_px * INSTR["tile_combine"], mhz)
     byt = bytes_bound_ms(nbytes)
     bound, by = (ops, "operations") if ops >= byt else (byt, "bytes")
+    blends = int(kernel()[2])
+    share = blends * 32 / slot_px
+    reached = max(issue_bound_ms(blends * 32 * INSTR["composite"]
+                                 + comb_px * INSTR["tile_combine"], mhz), byt)
     log(f"  {label}: composite_tiles {ms:.4f} ms (device ms a launch: "
         + ", ".join(f"{n} {t:.4f}" for n, t in launches)
         + f"), plain version {plain_ms:.4f} ms, composite_rows kernel on its "
         f"rows {rows_ms:.4f} ms; {slot_px:.4e} slot-pixels, {comb_px:.4e} "
         f"combine-pixels, {nbytes / 1e6:.1f} MB; bound {bound:.4f} ms ({by}, "
-        f"{mhz:.0f} MHz; bytes {byt:.4f}) -> {bound / ms:.1%} of it")
+        f"{mhz:.0f} MHz; bytes {byt:.4f}) -> {bound / ms:.1%} of it; "
+        f"{blends:,} (slot, block) blends, {share:.4f} of every live slot's "
+        f"blocks: bound {reached:.4f} ms on those -> {reached / ms:.1%}")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "composite_rows_ms": rows_ms,
-            "profile": launches}
+            "profile": launches, "blend_share": share,
+            "reached_bound_ms": reached}
 
 
 def phase_tiles(dev, main_call):
     """composite_tiles' kernels vs composite_tiles_plain, bitwise, on the
-    1M render chunk of phase 4 and three more scenes; run to run; from a
-    CUDA graph; timed."""
+    1M render chunk of phase 4, three more scenes and `TILE_SCENES`; run to
+    run; from a CUDA graph; timed, and at large sprites."""
     import torch
 
     from multi_adapter_particles_torch.config import RenderConfig
@@ -1044,7 +1197,7 @@ def phase_tiles(dev, main_call):
     from multi_adapter_particles_torch.render.camera import Camera
 
     log("phase 4c: composite_tiles kernels vs composite_tiles_plain "
-        "(bitwise on C and T)")
+        "(bitwise on C, T and the blend count)")
     small = _ap_state(dev, 262_144)
     cases = (
         ("1M chunk of 4M", main_call, None),
@@ -1086,7 +1239,26 @@ def phase_tiles(dev, main_call):
         if label.startswith(("1M", "262,144 at")):
             stats[label] = _time_tiles(label, args, kw)
         del args, kw
-    del small
+
+    # sprites that reach every block: the skip's cost where it saves nothing
+    big = _tiles_inputs(small[:, :512].contiguous(), WIDTH, HEIGHT,
+                        size=LARGE_SPRITE, entry_factor=WIDTH * HEIGHT // 128)
+    stats["large sprites"] = _time_tiles(
+        f"512 sprites of size {LARGE_SPRITE:g}, exact binning", *big)
+    del small, big
+
+    for name in TILE_SCENES:
+        for blend in ("over", "additive"):
+            args, kw = tile_scene(name, dev, blend)
+            got = composite_tiles(*args, **kw)
+            again = composite_tiles(*args, **kw)
+            want = composite_tiles_plain(*args, **kw)
+            torch.cuda.synchronize()
+            _equal_outputs(f"{name} {blend}", got, want)
+            _equal_outputs(f"{name} {blend}, run to run", got, again)
+        log(f"  {name}: tile {kw['tile']}, Q = {kw['q']}, "
+            f"{int(args[4][-1]):,} entries, {int(got[2]):,} blends: over and "
+            "additive bitwise the plain version, twice")
 
     # the render chunk (sort + composite_tiles) captured in a CUDA graph,
     # replayed on the next chunk's positions
@@ -1106,12 +1278,14 @@ def phase_tiles(dev, main_call):
     graph.replay()
     eager = R._render(static, *dargs, chunk, **kw)
     torch.cuda.synchronize()
-    _equal_outputs("graph replay", (captured.frame, captured.trans),
-                   (eager.frame, eager.trans))
+    _equal_outputs("graph replay", (captured.frame, captured.trans,
+                                    captured.blends),
+                   (eager.frame, eager.trans, eager.blends))
     log("  a render chunk (sort + composite_tiles) captured in a CUDA graph "
         "and replayed on the next chunk's positions: bitwise the eager call")
     out = stats["1M chunk of 4M"]
     out["720p"] = stats["262,144 at 1280x720"]
+    out["large_sprites"] = stats["large sprites"]
     return out
 
 
@@ -4063,10 +4237,10 @@ def phase_tiles_mesh(dev):
                      f"from the plain path's ({int((k.frame != p.frame).sum())}"
                      " values)")
             ki, pi = [tuple(int(getattr(o, f)) for f in (
-                "truncated", "span_y", "span_x")) for o in outs]
+                "truncated", "span_y", "span_x", "blends")) for o in outs]
             if ki != pi or ki[0] != 0:
-                fail(f"render_mesh {name} D={d}: (truncated, span_y, span_x)"
-                     f" {ki} vs plain {pi}")
+                fail(f"render_mesh {name} D={d}: (truncated, span_y, span_x,"
+                     f" blends) {ki} vs plain {pi}")
             if float(k.frame.max()) <= 0.0:
                 fail(f"render_mesh {name} D={d}: black frame")
             log(f"  {name}, D={d}: bitwise the plain path, spans "

@@ -17,6 +17,11 @@ it once per render (chunk).
   (one packed row gather, the [8, Q, V] parameter planes,
   `composite_rows_plain`, the tree-combine passes, the assembly).
 
+Both also count the (slot, block) blends of the call: the row kernel's
+warps each blend a 32-pixel block of the tile (`blend_block`), and a warp
+blends only the slots whose disc reaches its block (`reach_blocks`, the
+kernel's exact test: every pixel it skips would blend alpha 0).
+
 `composite_rows` is the depth-Q pass alone with the TPU kernel's
 interface (`csrc/composite.cu`), off the render path; it stays as that
 kernel's counterpart.
@@ -154,6 +159,52 @@ def composite_rows(
 
 # ---- the render composite: sorted streams -> frame planes -------------------
 
+WARP = 32   # pixels a block of the row kernel, one warp each
+
+
+def blend_block(tile) -> tuple:
+    """(block_h, block_w): the 32-pixel block a warp of the row kernel
+    blends, the most nearly square power-of-two rectangle that tiles the
+    tile, the taller of two as square: 8 x 4 for 8 x 16 (the row kernel
+    ran the 4M scene's chunks 3% faster with it than with 4 x 8 on an
+    H100, `PERF.md`). One always exists for a tile of a multiple of 32
+    pixels."""
+    tile_h, tile_w = tile
+    fits = [(WARP // bw, bw) for bw in (32, 16, 8, 4, 2, 1)
+            if tile_w % bw == 0 and tile_h % (WARP // bw) == 0]
+    return min(fits, key=lambda b: (b[0] + b[1], -b[0]))
+
+
+def _near_d(c, base, lo: int, n: int, ih):
+    """|du| at the pixel centre nearest c among the n columns [lo, lo +
+    n) of tiles at `base`: the kernel's `near_d`, op for op."""
+    c1 = torch.clamp(torch.floor(c - base), float(lo), float(lo + n - 1))
+    c0 = torch.clamp(c1 - 1.0, min=float(lo))
+    d1 = (base + c1 + 0.5 - c) * ih
+    d0 = (base + c0 + 0.5 - c) * ih
+    return torch.fmin(d0.abs(), d1.abs())
+
+
+def reach_blocks(cx, cy, ihx, ihy, x0, y0, tile, intensity):
+    """[..., blocks] bool: which 32-pixel blocks (`blend_block`,
+    row-major over the tile) each slot's disc can give a nonzero alpha,
+    the row kernel's `reach_mask`: a block is skipped only when s = du^2 +
+    dv^2 >= 0.25 at its pixel centre nearest the slot, where every pixel of
+    it blends alpha 0 (csrc/composite_tiles.cu's header has the proof).
+    x0, y0: the float base pixel of each slot's tile; an alpha scale
+    outside [0, 2] reaches every block."""
+    tile_h, tile_w = tile
+    bh, bw = blend_block(tile)
+    skip = bool(0.0 <= float(intensity) <= 2.0)
+    cols = []
+    for by in range(tile_h // bh):
+        dv = _near_d(cy, y0, by * bh, bh, ihy)
+        for bx in range(tile_w // bw):
+            du = _near_d(cx, x0, bx * bw, bw, ihx)
+            cols.append(~(du * du + dv * dv >= 0.25) | (not skip))
+    return torch.stack(cols, dim=-1)
+
+
 def pack_cgb(cg: Tensor, cb: Tensor) -> Tensor:
     """(cg, cb) f32 -> int32 (f16 bits of cg clamped to [0, 6e4]) << 16 |
     f16 bits of cb: the JAX package's `pack_cgb` lane (`render/renderer.py`
@@ -265,10 +316,12 @@ def composite_tiles_plain(s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k,
                           hi_k, row_start, row_end, inv_sx, inv_sy,
                           intensity, *, q: int, grid, tile=(8, 16),
                           blend: str = "over"):
-    """Plain torch twin of `composite_tiles` -> (C [H, W, 3], T [H, W]):
-    the depth-Q pass over every virtual row (`composite_rows_plain`), then
-    consecutive rows of a tile tree-combine in O(log rows) static passes;
-    each tile's segment-0 row holds its composite."""
+    """Plain torch twin of `composite_tiles` -> (C [H, W, 3], T [H, W],
+    blends): the depth-Q pass over every virtual row
+    (`composite_rows_plain`), then consecutive rows of a tile tree-combine
+    in O(log rows) static passes; each tile's segment-0 row holds its
+    composite. `blends` counts the live (slot, block) pairs that
+    `reach_blocks` keeps, as the kernels do."""
     if blend not in _BLENDS:
         raise ValueError(f"unknown blend {blend!r}")
     gh, gw = grid
@@ -281,6 +334,12 @@ def composite_tiles_plain(s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k,
         intensity, q=q, grid=grid, tile=tile)
     out4 = composite_rows_plain(sp, bases, tile_h, tile_w, blend=blend,
                                 row_hi=hi_k.contiguous())
+    kk = torch.arange(q, dtype=torch.int64, device=s_cx.device)[:, None]
+    live = ((kk >= lo_k[None, :]) & (kk < hi_k[None, :])
+            & (j_v[None, :].long() * q + kk < s_cx.shape[0]))
+    reach = reach_blocks(sp[0], sp[1], sp[2], sp[3], bases[0], bases[1],
+                         tile, intensity)
+    blends = (reach & live[..., None]).sum()
     chans = [out4[0].T, out4[1].T, out4[2].T]       # [V, px]
     tv = out4[3].T
 
@@ -305,7 +364,7 @@ def composite_tiles_plain(s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k,
         t = t.permute(0, 3, 1, 4, 2).reshape(gh * tile_h, gw * tile_w, ch)
         return t[..., 0] if ch == 1 else t
 
-    return assemble(frame_t, 3), assemble(tv[rs][:, None, :], 1)
+    return assemble(frame_t, 3), assemble(tv[rs][:, None, :], 1), blends
 
 
 @functools.cache
@@ -315,8 +374,8 @@ def _tiles_library() -> ctypes.CDLL:
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p] * 4)
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p] * 6)
     fn.restype = ctypes.c_int
     return lib
 
@@ -324,9 +383,10 @@ def _tiles_library() -> ctypes.CDLL:
 def composite_tiles(s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k, hi_k,
                     row_start, row_end, inv_sx, inv_sy, intensity, *, q: int,
                     grid, tile=(8, 16), blend: str = "over"):
-    """Sorted sprite streams + virtual-row map -> (C [H, W, 3], T [H, W]):
-    each tile's unclipped premultiplied colour and transmittance, H =
-    grid[0] * tile[0], W = grid[1] * tile[1].
+    """Sorted sprite streams + virtual-row map -> (C [H, W, 3], T [H, W],
+    blends): each tile's unclipped premultiplied colour and transmittance,
+    H = grid[0] * tile[0], W = grid[1] * tile[1], and the int64 count of
+    (slot, 32-pixel block) pairs the call blended (`reach_blocks`).
 
     s_cx, s_cy, s_w float32 and s_cgb int32 (`pack_cgb`) [E], the sort's
     outputs; starts int32 [T + 1], each tile's first entry; tile_v, j_v,
@@ -371,6 +431,8 @@ def composite_tiles(s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k, hi_k,
             row_start, row_end, inv_sx, inv_sy, intensity, q=q, grid=grid,
             tile=tile, blend=blend)
     rows = torch.empty((num_rows, 4, px), dtype=torch.float32, device=dev)
+    row_blend = torch.empty(num_rows, dtype=torch.int32, device=dev)
+    blends = torch.empty((), dtype=torch.int64, device=dev)
     color = torch.empty((gh * tile_h, gw * tile_w, 3), dtype=torch.float32,
                         device=dev)
     trans = torch.empty((gh * tile_h, gw * tile_w), dtype=torch.float32,
@@ -383,8 +445,9 @@ def composite_tiles(s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k, hi_k,
             lo_k.data_ptr(), hi_k.data_ptr(), row_start.data_ptr(),
             row_end.data_ptr(), num_rows, gh, gw, inv_sx.data_ptr(),
             inv_sy.data_ptr(), intensity.data_ptr(), q, tile_h, tile_w,
-            _BLENDS[blend], rows.data_ptr(), color.data_ptr(),
+            blend_block(tile)[1], _BLENDS[blend], rows.data_ptr(),
+            row_blend.data_ptr(), blends.data_ptr(), color.data_ptr(),
             trans.data_ptr(), stream)
     _build.check(rc, "composite_tiles")
-    return color, trans
+    return color, trans, blends
 

@@ -109,6 +109,8 @@ class FrameOutput(NamedTuple):
     #                       color — the chunked-fold state)
     entries: Optional[Tensor] = None  # int32 — tile entries the exact
     #                       binning wrote (None on the window path)
+    blends: Optional[Tensor] = None  # int64 — (entry, 32-pixel block)
+    #                       pairs the composite blended (`composite_tiles`)
 
 
 def _chunk_draw(num_draw, start: int, width: int):
@@ -308,7 +310,7 @@ def _render(
         # 1/(2hx) is linear in w_clip: the composite derives it per slot
         inv_sx = 1.0 / (radius * p00 * float(width))
         inv_sy = 1.0 / (radius * p11 * float(height))
-        color, trans = composite(
+        color, trans, blends = composite(
             s_cx, s_cy, s_w, s_cgb, starts, tile_v, j_v, lo_k, hi_k,
             row_start, row_end, inv_sx, inv_sy, intensity, q=q,
             grid=(gh, gw), tile=(TILE_H, TILE_W), blend=blend)
@@ -317,14 +319,15 @@ def _render(
             # chunked-composite mode: UNclipped premultiplied color + the
             # transmittance plane; the caller folds chunks associatively
             return FrameOutput(color, truncated, span_y, span_x, trans,
-                               entries)
+                               entries, blends)
 
         frame = torch.clamp(color, 0.0, 1.0)
         if frame_uint8:
             # the reference swap chain's R8G8B8A8_UNORM analog
             # (`Render.cpp:292`)
             frame = (frame * 255.0 + 0.5).to(torch.uint8)
-    return FrameOutput(frame, truncated, span_y, span_x, entries=entries)
+    return FrameOutput(frame, truncated, span_y, span_x, entries=entries,
+                       blends=blends)
 
 
 def _chunk_width(n: int, chunk_size: int):
@@ -381,14 +384,15 @@ def _chunked_fold(
 
 def _fold(earlier: FrameOutput, later: FrameOutput) -> FrameOutput:
     """Two premultiplied (C, T) renders in id order as one: later over
-    earlier; truncated and entries add, spans take the max."""
+    earlier; truncated, entries and blends add, spans take the max."""
     return FrameOutput(
         later.frame + earlier.frame * later.trans[..., None],
         earlier.truncated + later.truncated,
         torch.maximum(earlier.span_y, later.span_y),
         torch.maximum(earlier.span_x, later.span_x),
         earlier.trans * later.trans,
-        None if later.entries is None else earlier.entries + later.entries)
+        None if later.entries is None else earlier.entries + later.entries,
+        None if later.blends is None else earlier.blends + later.blends)
 
 
 def _finish(acc: FrameOutput, frame_uint8: bool) -> FrameOutput:
@@ -601,8 +605,8 @@ class Renderer:
         its slice of the num_draw prefix), and the pairs fold in id order
         on `device` (default: this process's first rank's) —
         `_chunked_fold`'s association at chunk = N / D, so the frame is
-        bitwise the chunked one at that partition. Truncated and entry
-        counts sum and spans take the max. Only image pairs cross
+        bitwise the chunked one at that partition. Truncated, entry and
+        blend counts sum and spans take the max. Only image pairs cross
         devices, O(pixels x ranks) whatever N (the reference copies every
         position to its render adapter, `Render.cpp:814`). Over a process
         group each process renders its own ranks, the pairs are

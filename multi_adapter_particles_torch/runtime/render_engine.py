@@ -15,8 +15,8 @@ queue fills from the cross-adapter shared heap each frame
   columns into an engine-owned buffer and leaves the rest *stale*
   (`Render.cpp:814`; the lane rounding is the JAX package's, `PARITY.md`);
 - the swap chain is the host-side frame handle: `draw()` returns the frame
-  (async); `present()` blocks on it with ONE host read of a 5-element
-  tensor (fence anchor + truncated + span_y + span_x + entries,
+  (async); `present()` blocks on it with ONE host read of a 6-element
+  tensor (fence anchor + truncated + span_y + span_x + entries + blends,
   `present_frame`, which the fused engine shares).
 
 - positions sharded over a mesh (`parallel.mesh.Sharded`, from a
@@ -41,26 +41,35 @@ import torch
 from multi_adapter_particles_torch.config import AppConfig, RenderConfig
 from multi_adapter_particles_torch.models.state import parked_position
 from multi_adapter_particles_torch.render.camera import Camera
-from multi_adapter_particles_torch.render.renderer import FrameOutput, Renderer
+from multi_adapter_particles_torch.ops.composite import WARP
+from multi_adapter_particles_torch.render.renderer import (
+    TILE_H,
+    TILE_W,
+    FrameOutput,
+    Renderer,
+)
 from multi_adapter_particles_torch.runtime import trace
 from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 from multi_adapter_particles_torch.utils.timers import sync
 
 
 def _present_probe(f: FrameOutput) -> torch.Tensor:
-    """[5] f64 carrying (frame anchor, truncated, span_y, span_x, entries;
-    -1 where the window path counts no entries).
+    """[6] f64 carrying (frame anchor, truncated, span_y, span_x, entries,
+    blends; -1 where the window path counts no entries, or a composite no
+    blends).
 
     present() needs both a completion fence on the frame and the growth
     scalars; packing them into one small dependent tensor makes it a
     single device -> host read (the JAX package's `_present_probe`, with
-    the entry count beside)."""
-    anchor = f.frame.reshape(-1)[0].to(torch.float64) * 0.0
-    truncated = f.truncated.to(torch.float64)
-    entries = (truncated * 0.0 - 1.0 if f.entries is None
-               else f.entries.to(torch.float64))
-    return torch.stack([anchor, truncated, f.span_y.to(torch.float64),
-                        f.span_x.to(torch.float64), entries])
+    the counts beside)."""
+    def count(x):
+        return torch.full_like(f.truncated, -1) if x is None else x
+
+    anchor = f.frame.reshape(-1)[:1].to(torch.float64) * 0.0
+    counts = torch.stack([f.truncated, f.span_y, f.span_x, count(f.entries)])
+    blends = count(f.blends).reshape(1)
+    return torch.cat([anchor, counts.to(torch.float64),
+                      blends.to(torch.float64)])
 
 
 def present_frame(renderer: Renderer, f: FrameOutput,
@@ -70,15 +79,18 @@ def present_frame(renderer: Renderer, f: FrameOutput,
     `last_truncated` and the `render_truncated` / `render_entries` gauges
     take them, `render_sort_skipped` (the exact path's sort slots past its
     entries, which its sorts leave where they are: capacity x sorts -
-    entries) is host arithmetic on them, and a truncating frame grows the
-    exact binning's capacity, or the dup window, for FUTURE frames (it is
-    not re-rendered)."""
+    entries) and `render_blend_share` (the (entry, 32-pixel block) pairs
+    the composite blended over entries x the tile's blocks: the share of
+    the blends the row kernel would run without `reach_blocks`) are host
+    arithmetic on them, and a truncating frame grows the exact binning's
+    capacity, or the dup window, for FUTURE frames (it is not
+    re-rendered)."""
     with trace.span("wait"):
         if not renderer.auto_raise_dup:
             sync(f.frame)
             return
         # the anchor (first value) is a fence only, and may be NaN
-        truncated, span_y, span_x, entries = (
+        truncated, span_y, span_x, entries, blends = (
             int(v) for v in _present_probe(f).cpu().tolist()[1:])
         renderer.last_truncated = truncated
         metrics.gauge("render_truncated", truncated)
@@ -86,6 +98,9 @@ def present_frame(renderer: Renderer, f: FrameOutput,
             metrics.gauge("render_entries", entries)
             metrics.gauge("render_sort_skipped",
                           renderer.last_sort_slots - entries)
+            if entries > 0 and blends >= 0:
+                metrics.gauge("render_blend_share", blends / (
+                    entries * (TILE_H * TILE_W // WARP)))
         renderer.raise_dup_values(truncated, span_y, span_x)
 
 

@@ -29,9 +29,11 @@ named spans: `frame` (`ParticlesApp.draw`, with the frame count), `wait`
 replay the stages launch nothing (the replay is one launch inside
 `render.draw`). Counters: `present()`'s one packed read fills the gauges
 `render_entries` and `render_truncated` (the tile entries the last
-presented frame binned and dropped, `runtime/render_engine.py`), and
+presented frame binned and dropped, `runtime/render_engine.py`),
 `render_sort_skipped` (the sort slots past those entries, which the
-exact path's sorts do not sort). While a `torch.profiler` profile runs, a span is a
+exact path's sorts do not sort) and `render_blend_share` (the (entry,
+32-pixel block) pairs the composite's row kernel blended, over entries x
+the tile's blocks). While a `torch.profiler` profile runs, a span is a
 `record_function` range named `particles.<name>` on the profiler's own
 clock, beside the device activity it launched (tied to it by correlation
 id), nested on the host thread under the span that opened it. With no
