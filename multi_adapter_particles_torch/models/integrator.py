@@ -146,6 +146,7 @@ def make_accel_fn_for(config: SimConfig) -> Callable[[Tensor], Tensor]:
             softening_squared=config.softening_squared,
             grid=config.pm_grid_size,
             box=config.pm_box,
+            num_particles=config.num_particles,
         )
     if config.force_model == "p3m":
         return p3m.make_accel_fn(
@@ -176,7 +177,8 @@ def make_step(
     config's force model (`accel_fn` overrides it: position [4, Np] ->
     accel [3, Np]). With `out` the result is written into that state's
     tensors (which must not be `state`'s). `step.accel_fn` is the force
-    function (the slot near field keeps its overflow count there)."""
+    function (the slot near field keeps its overflow count there, pm_grid
+    its count of particles outside the mesh)."""
     if accel_fn is None:
         accel_fn = make_accel_fn_for(config)
 

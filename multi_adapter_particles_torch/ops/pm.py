@@ -19,6 +19,14 @@ and interpolate the three acceleration grids back to the particles.
   indexing and summed in (dz, dy, dx) order. The JAX package's lane-packed
   corner rows (`_pack_corner_rows`, `_pack_scalar_corner_rows`, TPU tiling
   workarounds) have no counterpart.
+- **Spans and count** (`pm_accel_counted`, `make_accel_fn`): the
+  three phases run inside the spans `pm.deposit`, `pm.solve` and
+  `pm.interp` (`runtime/trace.py`; under a CUDA graph's replay they
+  launch nothing, the replay is one launch inside `step`), and the
+  integrator's force function keeps, on the device, the count of
+  particles outside the mesh's 1-cell margin, whose mesh force is 0
+  (`accel_fn.outside`, the `pm_outside` gauge), from the deposit's own
+  count of those inside (its last segment bound).
 
 Cell geometry follows what the JAX package's compiled code computes: XLA
 turns `x / h + c` into one fused multiply-add with the float32 reciprocal
@@ -29,10 +37,12 @@ rounding to float32) and lands every particle in the same base cell.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from multi_adapter_particles_torch.runtime import trace
 
 Tensor = torch.Tensor
 
@@ -104,8 +114,9 @@ def _sort_by_cell(position: Tensor, grid: int, box: float):
     return sbase, frac[:, order]
 
 
-def _deposit_sorted(sbase: Tensor, sfrac: Tensor, grid: int) -> Tensor:
-    """Sorted cell ids + fractions -> CIC count grid [G, G, G]."""
+def _deposit_sorted(sbase: Tensor, sfrac: Tensor, grid: int):
+    """Sorted cell ids + fractions -> (CIC count grid [G, G, G], the
+    number of ids inside the mesh: the last segment bound, a 0-d int64)."""
     g = grid
     ncell = g * g * g
     live = sbase < ncell
@@ -124,14 +135,14 @@ def _deposit_sorted(sbase: Tensor, sfrac: Tensor, grid: int) -> Tensor:
         hist = hist8[c].reshape(g, g, g)
         # corner cell = base + (dx, dy, dz): the histogram shifted
         rho[dz:, dy:, dx:] += hist[:g - dz, :g - dy, :g - dx]
-    return rho
+    # a copy: a view would keep all G³+1 bounds alive through the solve
+    return rho, bounds[ncell].clone()
 
 
 def deposit_cic(position: Tensor, grid: int, box: float) -> Tensor:
     """[4, N] positions -> CIC count grid [G, G, G] ([z, y, x], unit mass).
     Out-of-box particles (and the 1e9 padding) deposit nothing."""
-    sbase, sfrac = _sort_by_cell(position, grid, box)
-    return _deposit_sorted(sbase, sfrac, grid)
+    return _deposit_sorted(*_sort_by_cell(position, grid, box), grid)[0]
 
 
 def doubled_offsets(grid: int, box: float, device) -> Tensor:
@@ -234,22 +245,54 @@ def solve_and_gather(rho: Tensor, position: Tensor, grid: int, box: float,
     return _interp(grids, position, grid, box)
 
 
+def pm_accel_counted(position: Tensor, grid: int = 64,
+                     box: float = 2048.0, g_const: float = 1.0,
+                     softening_squared: float = 25.0):
+    """-> (accel [3, N], the number of the N columns inside the mesh's
+    1-cell margin, which the deposit counts: a 0-d int64 device tensor);
+    the others get no mesh force. The three phases run inside the spans
+    `pm.deposit`, `pm.solve` and `pm.interp` (`runtime/trace.py`)."""
+    with trace.span("pm.deposit"):
+        rho, inside = _deposit_sorted(*_sort_by_cell(position, grid, box),
+                                      grid)
+    with trace.span("pm.solve"):
+        grids = _accel_grids(rho, grid, box, g_const, softening_squared)
+    with trace.span("pm.interp"):
+        return _interp(grids, position, grid, box), inside
+
+
 def pm_accel(position: Tensor, grid: int = 64, box: float = 2048.0,
              g_const: float = 1.0, softening_squared: float = 25.0) -> Tensor:
     """-> accel [3, N]: isolated-boundary FFT-PM with the all-pairs pair law
     (g_const = mass * interaction_scale, the same softening)."""
-    rho = deposit_cic(position, grid, box)
-    return solve_and_gather(rho, position, grid, box, g_const,
-                            softening_squared)
+    return pm_accel_counted(position, grid, box, g_const,
+                            softening_squared)[0]
 
 
 def make_accel_fn(mass: float, softening_squared: float = 25.0,
-                  grid: int = 64, box: float = 2048.0
+                  grid: int = 64, box: float = 2048.0,
+                  num_particles: Optional[int] = None
                   ) -> Callable[[Tensor], Tensor]:
-    """Adapter matching the integrator's accel_fn signature."""
+    """Adapter matching the integrator's accel_fn signature. Each call
+    copies into `accel_fn.outside` the number of the first
+    `num_particles` columns (None: every column) that lie outside the
+    mesh's 1-cell margin and so got no mesh force: those columns less the
+    ones the deposit counted inside, exact because the state's padding
+    past them, parked at 1e9 (`models/state.py`), lies outside any mesh
+    of a box under 2e9. A 0-d int64 tensor on the state's device made at
+    the first call (a copy, so a captured step updates it at every
+    replay, with no host read)."""
 
     def accel_fn(position: Tensor) -> Tensor:
-        return pm_accel(position, grid=grid, box=box, g_const=mass,
-                        softening_squared=softening_squared)
+        acc, inside = pm_accel_counted(
+            position, grid=grid, box=box, g_const=mass,
+            softening_squared=softening_squared)
+        if accel_fn.outside is None:
+            accel_fn.outside = torch.zeros((), dtype=torch.int64,
+                                           device=position.device)
+        n = position.shape[1] if num_particles is None else num_particles
+        accel_fn.outside.copy_(n - inside)
+        return acc
 
+    accel_fn.outside = None
     return accel_fn

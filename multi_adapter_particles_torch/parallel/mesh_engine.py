@@ -2,8 +2,8 @@
 
 The port of the JAX package's `parallel/mesh_engine.py`. It presents the
 interface of `runtime/compute_engine.ComputeEngine` (simulate / positions
-/ wait_for_gpu / fence / snapshot-restore / overflow), so the orchestrator
-treats a whole mesh as one adapter:
+/ wait_for_gpu / fence / snapshot-restore / overflow / outside), so the
+orchestrator treats a whole mesh as one adapter:
 
 - `sharded` is the live `ShardedState`; each step writes the other half
   of a ping-pong pair of sharded states, never in place, so the render
@@ -117,6 +117,12 @@ class MeshComputeEngine:
         """The near field's count of the last p3m step (slots: a 0-d
         tensor; tree: dropped block pairs), None for the other models."""
         return self._step.overflow
+
+    @property
+    def outside(self):
+        """None: the sharded mesh step keeps no count of particles outside
+        the mesh."""
+        return None
 
     def get_fence_value(self) -> int:
         return self.step_count

@@ -192,6 +192,12 @@ class ComputeEngine:
         device tensor), None for the other force models."""
         return getattr(self._step.accel_fn, "overflow", None)
 
+    @property
+    def outside(self) -> Optional[torch.Tensor]:
+        """pm_grid's count of particles the last step left outside the
+        mesh (a 0-d device tensor), None for the other force models."""
+        return getattr(self._step.accel_fn, "outside", None)
+
     def wait_for_gpu(self) -> None:
         """Drain: hard device sync (`Compute::WaitForGpu`)."""
         with trace.span("wait"):

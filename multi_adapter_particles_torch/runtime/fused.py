@@ -313,6 +313,13 @@ class FusedEngine:
         models."""
         return getattr(self._step.accel_fn, "overflow", None)
 
+    @property
+    def outside(self) -> Optional[torch.Tensor]:
+        """pm_grid's count of particles the last step left outside the
+        mesh (a 0-d device tensor, refreshed by every replay), None for the
+        other force models."""
+        return getattr(self._step.accel_fn, "outside", None)
+
     def wait_for_gpu(self) -> None:
         with trace.span("wait"):
             sync(self.state.position)
@@ -349,7 +356,12 @@ class FusedEngine:
         (`present_frame`): ONE packed host read carries fence, counts and
         spans; a truncating frame grows the capacity (or the window) for
         FUTURE frames, which then run eagerly once and recapture (the
-        graphs baked the old capacity in)."""
+        graphs baked the old capacity in). pm_grid's `outside` count of the
+        step launched with the frame rides in the same read (the
+        `pm_outside` gauge)."""
         if self._frame is not None:
-            present_frame(self.renderer, self._frame, self.metrics)
+            outside = self.outside
+            present_frame(self.renderer, self._frame, self.metrics,
+                          None if outside is None
+                          else {"pm_outside": outside})
         return self._frame

@@ -24,8 +24,11 @@ and keeps its drain + rebuild + migrate host milliseconds (synced at both
 ends) in the `reconfig_ms` gauge. `debug=True` runs the validation layer
 (`utils/debug.py`) after every frame. The queue-throttle extension
 (`utils/extension.py`) follows `AppConfig.use_queue_extension`, picked up
-at the next split step (fused frames run on the current stream). At `shutdown` the slot near field's overflow count of
-the last step is published as the `p3m_overflow` gauge.
+at the next split step (fused frames run on the current stream). At
+`shutdown` the slot near field's overflow count of the last step is
+published as the `p3m_overflow` gauge, and pm_grid's count of particles
+the last step left outside the mesh as `pm_outside` (fused frames also
+publish it at every `present()`, in its one read).
 
 `mesh_devices` > 1 runs the compute role on a mesh of that many devices of
 the compute adapter's platform (`parallel.MeshComputeEngine`); the render
@@ -495,3 +498,6 @@ class ParticlesApp:
         overflow = self.compute.overflow
         if overflow is not None:
             self.metrics.gauge("p3m_overflow", int(overflow))
+        outside = self.compute.outside
+        if outside is not None:
+            self.metrics.gauge("pm_outside", int(outside))

@@ -17,7 +17,8 @@ queue fills from the cross-adapter shared heap each frame
 - the swap chain is the host-side frame handle: `draw()` returns the frame
   (async); `present()` blocks on it with ONE host read of a 6-element
   tensor (fence anchor + truncated + span_y + span_x + entries + blends,
-  `present_frame`, which the fused engine shares).
+  `present_frame`, which the fused engine shares and lengthens by
+  pm_grid's `pm_outside` count).
 
 - positions sharded over a mesh (`parallel.mesh.Sharded`, from a
   `MeshComputeEngine`) are gathered onto the render device: the copy
@@ -53,10 +54,10 @@ from multi_adapter_particles_torch.utils.metrics import MetricsRegistry
 from multi_adapter_particles_torch.utils.timers import sync
 
 
-def _present_probe(f: FrameOutput) -> torch.Tensor:
-    """[6] f64 carrying (frame anchor, truncated, span_y, span_x, entries,
-    blends; -1 where the window path counts no entries, or a composite no
-    blends).
+def _present_probe(f: FrameOutput, counters=()) -> torch.Tensor:
+    """[6 + len(counters)] f64 carrying (frame anchor, truncated, span_y,
+    span_x, entries, blends; -1 where the window path counts no entries,
+    or a composite no blends), then the `counters` (0-d device tensors).
 
     present() needs both a completion fence on the frame and the growth
     scalars; packing them into one small dependent tensor makes it a
@@ -67,13 +68,13 @@ def _present_probe(f: FrameOutput) -> torch.Tensor:
 
     anchor = f.frame.reshape(-1)[:1].to(torch.float64) * 0.0
     counts = torch.stack([f.truncated, f.span_y, f.span_x, count(f.entries)])
-    blends = count(f.blends).reshape(1)
+    tail = [count(f.blends).reshape(1), *(c.reshape(1) for c in counters)]
     return torch.cat([anchor, counts.to(torch.float64),
-                      blends.to(torch.float64)])
+                      *(t.to(torch.float64) for t in tail)])
 
 
 def present_frame(renderer: Renderer, f: FrameOutput,
-                  metrics: MetricsRegistry) -> None:
+                  metrics: MetricsRegistry, counters=None) -> None:
     """Block until frame `f` is really finished, both engines' present().
     With auto-raise on, one host read carries the fence and the counts:
     `last_truncated` and the `render_truncated` / `render_entries` gauges
@@ -84,14 +85,17 @@ def present_frame(renderer: Renderer, f: FrameOutput,
     the blends the row kernel would run without `reach_blocks`) are host
     arithmetic on them, and a truncating frame grows the exact binning's
     capacity, or the dup window, for FUTURE frames (it is not
-    re-rendered)."""
+    re-rendered). `counters` ({gauge: 0-d int tensor on the frame's
+    device}) ride in the same read, each into its gauge."""
+    counters = counters or {}
     with trace.span("wait"):
         if not renderer.auto_raise_dup:
             sync(f.frame)
             return
         # the anchor (first value) is a fence only, and may be NaN
-        truncated, span_y, span_x, entries, blends = (
-            int(v) for v in _present_probe(f).cpu().tolist()[1:])
+        truncated, span_y, span_x, entries, blends, *extra = (
+            int(v) for v in _present_probe(
+                f, counters.values()).cpu().tolist()[1:])
         renderer.last_truncated = truncated
         metrics.gauge("render_truncated", truncated)
         if entries >= 0:
@@ -101,6 +105,8 @@ def present_frame(renderer: Renderer, f: FrameOutput,
             if entries > 0 and blends >= 0:
                 metrics.gauge("render_blend_share", blends / (
                     entries * (TILE_H * TILE_W // WARP)))
+        for name, value in zip(counters, extra):
+            metrics.gauge(name, value)
         renderer.raise_dup_values(truncated, span_y, span_x)
 
 

@@ -24,10 +24,16 @@ named spans: `frame` (`ParticlesApp.draw`, with the frame count), `wait`
 (every host block on the device in the frame path), `step`,
 `render.draw` and its five stages `render.copy`, `render.project`,
 `render.bin` (the exact binning), `render.sort`, `render.composite`
-(every operation `render.draw` launches lies in exactly one),
+(every operation `render.draw` launches lies in exactly one), pm_grid's
+three phases inside `step`: `pm.deposit`, `pm.solve` (the FFT
+convolution and the gradient) and `pm.interp` (`ops/pm.py`),
 `fused.capture`, `reconfigure` and `diagnostics`. Under a CUDA graph's
-replay the stages launch nothing (the replay is one launch inside
-`render.draw`). Counters: `present()`'s one packed read fills the gauges
+replay the render's stages and the step's phases launch nothing (the
+replay is one launch inside `render.draw`, or `step`). Counters: the
+gauge `pm_outside` (the particles pm_grid's last step left outside the
+mesh's margin, so with no mesh force: a device count the step keeps,
+published at `shutdown()` and, in fused frames, by `present()`'s read);
+`present()`'s one packed read fills the gauges
 `render_entries` and `render_truncated` (the tile entries the last
 presented frame binned and dropped, `runtime/render_engine.py`),
 `render_sort_skipped` (the sort slots past those entries, which the

@@ -163,3 +163,138 @@ def test_pm_step_matches_jax():
                                atol=2e-5)
     np.testing.assert_allclose(tvel, np.asarray(js.velocity), rtol=2e-5,
                                atol=2e-5)
+
+
+# -- the mesh's spans and its count of particles outside it -------------------
+
+def _pm_sim(n, g=32):
+    return SimConfig(num_particles=n, force_model="pm_grid", pm_grid_size=g,
+                     pm_box=BOX)
+
+
+def _planted(n, seed=5):
+    """(state of n particles, the state's padding past n parked at 1e9, the
+    number planted outside the margin of a G = 32 mesh over BOX (interior
+    [-928, 928) on every axis): one past each face, one far away; one
+    exactly on the lower face is inside)."""
+    from multi_adapter_particles_torch.models.init import (
+        initialize_particles_device,
+    )
+
+    state = initialize_particles_device(
+        n, generator=torch.Generator().manual_seed(seed))
+    p = state.position
+    p[0, 0] = 950.0       # base cell 30 > G - 3
+    p[1, 1] = -930.0      # base cell 0 < 1
+    p[2, 2] = 1.0e5
+    p[0, 3] = -928.0      # base cell 1: inside
+    return state, 3
+
+
+@pytest.mark.parametrize("n", [1000, 1024])
+def test_pm_outside_counts_the_particles_off_the_mesh(n):
+    from multi_adapter_particles_torch.models.state import ParticleState
+
+    state, planted = _planted(n)
+    assert state.padded_count == 1024     # 24 columns of padding at n=1000
+    step = integrator.make_step(_pm_sim(n))
+    step(state)
+    inside = pm._cic_cells(state.position, 32, BOX)[2]
+    assert int(step.accel_fn.outside) == planted == int((~inside[:n]).sum())
+    # a step of a state all inside counts 0 again
+    p = state.position.clone()
+    p[:3, :4] = 0.0
+    step(ParticleState(p, state.velocity))
+    assert int(step.accel_fn.outside) == 0
+
+
+def test_pm_outside_stays_a_device_tensor(monkeypatch):
+    """One 0-d int64 tensor on the state's device, refilled in place by
+    every step (a captured step keeps it), and no host read in the step."""
+    state, planted = _planted(1000)
+    step = integrator.make_step(_pm_sim(1000))
+    step(state)
+    kept = step.accel_fn.outside
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a host read in the step")
+
+    for name in ("item", "tolist", "__int__", "__float__", "__bool__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    step(state)
+    step(state)
+    monkeypatch.undo()
+    assert step.accel_fn.outside is kept
+    assert kept.dim() == 0 and kept.dtype == torch.int64
+    assert kept.device == state.position.device and int(kept) == planted
+
+
+def _pm_app(fused, n=1000):
+    from multi_adapter_particles_torch.config import AppConfig, RenderConfig
+    from multi_adapter_particles_torch.runtime import devices
+    from multi_adapter_particles_torch.runtime.orchestrator import ParticlesApp
+
+    return ParticlesApp(
+        AppConfig(num_particles=n, vsync=True, gui=False),
+        _pm_sim(n), RenderConfig(width=64, height=64),
+        compute_adapter=devices.cpu_adapter_index(), fused=fused)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+def test_pm_spans_nest_in_the_step(fused):
+    """An eager pm_grid step opens `pm.deposit`, `pm.solve` and
+    `pm.interp`, once each and in that order, directly inside `step`."""
+    from multi_adapter_particles_torch.runtime import trace
+
+    app = _pm_app(fused)
+    app.draw()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        app.draw()
+    app.shutdown()
+    ranges = [(ev.name()[len(trace.PREFIX):], ev.start_ns(),
+               ev.start_ns() + ev.duration_ns())
+              for ev in prof.profiler.kineto_results.events()
+              if ev.is_user_annotation()
+              and ev.name().startswith(trace.PREFIX)]
+    phases = [r for r in ranges if r[0].startswith("pm.")]
+    assert [r[0] for r in sorted(phases, key=lambda r: r[1])] == [
+        "pm.deposit", "pm.solve", "pm.interp"]
+    for r in phases:
+        around = [o for o in ranges if o is not r
+                  and o[1] <= r[1] and r[2] <= o[2]]
+        assert min(around, key=lambda o: o[2] - o[1])[0] == "step"
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+def test_pm_outside_gauge(fused):
+    """`shutdown()` publishes the last step's count; fused frames also
+    carry it in `present()`'s one read."""
+    app = _pm_app(fused)
+    app.compute.restore(_planted(1000)[0])
+    app.draw()
+    if fused:
+        assert app.metrics.gauges["pm_outside"] == 3
+    app.draw()
+    app.shutdown()
+    # a second step moves each by v dt (|v| = 15, dt = 0.1): still outside
+    assert app.metrics.gauges["pm_outside"] == 3
+
+
+def test_pm_scan_ms_reads_the_deposit_scan():
+    """The benchmark's reader: nothing where the breakdown holds no float
+    scan, else that scan's device ms a frame (an integer scan, as the
+    render's, is not read)."""
+    from benchmark import harness
+
+    read = harness.metric("pm_scan_ms").read
+    ops = [["tile_rows_kernel", 0.004],
+           ["void at::native::tensor_kernel_scan_innermost_dim<long, "
+            "std::plus<long> >(long*, long const*)", 0.002]]
+    assert read({"trace": {"frames": 4, "device_ops": ops}}) is None
+    ops.append(["void at::native::tensor_kernel_scan_innermost_dim<float, "
+                "std::plus<float> >(float*, float const*, unsigned int)",
+                0.028])
+    assert read({"trace": {"frames": 0, "device_ops": ops}}) is None
+    assert read({"trace": {"frames": 4, "device_ops": ops}}) == (
+        pytest.approx(7.0))

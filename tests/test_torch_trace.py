@@ -34,7 +34,8 @@ STAGES = ("render.copy", "render.project", "render.bin", "render.sort",
 FRAME_SPANS = {"frame", "wait", "step", "render.draw",
                *STAGES} - {"render.project"}
 # every span the program opens (`runtime/trace.py`)
-ALL_SPANS = FRAME_SPANS | {"fused.capture", "reconfigure", "diagnostics"}
+ALL_SPANS = FRAME_SPANS | {"fused.capture", "reconfigure", "diagnostics",
+                           "pm.deposit", "pm.solve", "pm.interp"}
 
 
 def _app(mode="split", n=N, **kw):
