@@ -169,8 +169,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     the exact all-pairs sum (rectangle kernel), RMS < 1% of max|a|
 15. long-range solve memory at G=192 and G=256 (max_memory_allocated per
     grid cell, cold and warm) against the count `feasible_grid` uses
+15b. the PM deposit kernels (csrc/cic_deposit.cu) at 4,194,304 and G=128
+    on `DEPOSIT_SCENES` (the demo's two shells, all particles in one cell,
+    a uniform cube of ~2 a cell, the shells with parked 1e9 padding): the
+    grid within 1e-5 of max|rho| of the float64 twin and no farther from it
+    than the float32 twin, the inside count the twin's, bitwise over 3
+    runs; kernel and twin times, each launch's device time
+    (torch.profiler) and the byte bound of what the deposit reads and
+    writes (the kernels' histogram round trip reported apart)
 16. pm_grid main path: `app.main -force pm_grid` at 4,194,304, G=128, 5
-    steps, no draw: finite state, ms/step
+    steps, no draw, under torch.profiler: finite state, ms/step, the
+    deposit kernels' device launches (at least one a step)
 17. tree-P3M main path: `app.main -force p3m -p3mnear tree` at 1,048,576
     and 1024x1024, 8 frames of the Newton-3rd sweep then 6 with
     -treedirected under torch.profiler; the sweep's and composite_tiles'
@@ -319,6 +328,11 @@ TREE_STEPS_N3 = 8
 TREE_STEPS_DIRECTED = 6
 PM_STEPS = 5
 PM_GRID = 128
+# phase 15b's scenes, also tests/test_torch_pm_deposit.py's at small n and G
+# (`deposit_scene`), and the kernel's limit against the float64 twin:
+# max|rho - rho64| over max|rho64|
+DEPOSIT_SCENES = ("two shells", "one cell", "uniform cube", "parked padding")
+DEPOSIT_LIMIT = 1e-5
 DIAG_RUNS = (   # (label, argv, steps, every) of phase 21
     ("pm_grid", ["-force", "pm_grid", "-pmgrid", str(PM_GRID),
                  "-numparticles", str(N_MAIN), "-nodraw"], 5, 2),
@@ -460,6 +474,7 @@ def phase_build():
         binning,
         central_well,
         composite,
+        pm,
         rowgather,
         sortkv,
         treeforce,
@@ -480,6 +495,7 @@ def phase_build():
                ("allpairs_variants", allpairs_variants._library, ()),
                ("allpairs_halfpair", allpairs_halfpair._library, ()),
                ("binning", binning._library, binning._NVCC_FLAGS),
+               ("cic_deposit", pm._library, pm._NVCC_FLAGS),
                ("device_graph", fused._graph_library, ()))
 
     def ptxas_report(name, extra, tmp):
@@ -1479,6 +1495,7 @@ def launch_profile(fn):
 # profiles the harness's two modes apart.
 KERNELS = {
     "central_well": r"central_well_kernel",
+    "cic_deposit": r"cic_tile_kernel",
     "bin_sprites": r"bin_count_kernel",
     "sort_kv_stable": r"histogram_kernel",
     "composite_tiles": r"tile_rows_kernel<(true|false)>",
@@ -3258,6 +3275,141 @@ def phase_solve_memory(dev):
     return per_cell
 
 
+def deposit_scene(name, n, grid, box=BOX, seed=0, device="cpu"):
+    """[4, n] float32 positions of a `DEPOSIT_SCENES` scene for a mesh of
+    G = `grid` nodes an axis over `box`, drawn from `seed` on `device`:
+    "two shells" the demo's init (at 4M and G = 128 ~23K occupied cells,
+    the longest run ~800); "one cell" every particle in the centre cell (base
+    cell G/2 on each axis, fractions in [0.05, 0.95)); "uniform cube"
+    uniform over the mesh's interior (~2 a cell at 4M, G = 128); "parked
+    padding" the shells in the first 3/4 of the columns, the last 8 of
+    them moved just past the interior, the rest parked at 1e9 as a state's
+    padding is (a sorted tail of whole tiles off the mesh)."""
+    import torch
+
+    from multi_adapter_particles_torch.models.init import (
+        initialize_particles_device,
+    )
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = box / grid
+    pos = torch.zeros((4, n), dtype=torch.float32, device=dev)
+
+    def shells(count):
+        return initialize_particles_device(count, gen, device=dev).position[
+            :, :count]
+
+    if name == "two shells":
+        pos[:] = shells(n)
+    elif name == "one cell":
+        # u = x / h + G/2 - 0.5 = G/2 + f
+        f = 0.05 + 0.9 * torch.rand((3, n), generator=gen, device=dev)
+        pos[:3] = (f + 0.5) * h
+    elif name == "uniform cube":
+        half = (grid / 2 - 1.5) * h       # the interior is [-half, half)
+        pos[:3] = (torch.rand((3, n), generator=gen, device=dev) * 2.0
+                   - 1.0) * half
+    elif name == "parked padding":
+        live = n - n // 4
+        pos[:, :live] = shells(live)
+        pos[0, live - 8:live] = box / 2   # past the interior: off the mesh
+        pos[:3, live:] = 1e9
+    else:
+        raise ValueError(f"no deposit scene {name!r}")
+    return pos
+
+
+def deposit_errors(sbase, sfrac, grid):
+    """(kernel or twin grid, the float32 twin's grid, the float64 twin's
+    grid, inside count) of one sorted scene: the deposit's CUDA or CPU
+    path, and the twin on sfrac and on sfrac in float64."""
+    from multi_adapter_particles_torch.ops import pm
+
+    bounds = pm._segment_bounds(sbase, grid ** 3)
+    rho, inside = pm._deposit_sorted(sbase, sfrac, grid)
+    rho32 = pm.deposit_sorted_plain(sbase, sfrac, bounds, grid)
+    rho64 = pm.deposit_sorted_plain(sbase, sfrac.double(), bounds, grid)
+    return rho, rho32, rho64, inside
+
+
+def rel_err(got, want64) -> float:
+    """max|got - want64| over max|want64|, in float64."""
+    return float((got.double() - want64).abs().max()
+                 / want64.abs().max())
+
+
+def phase_pm_deposit(dev):
+    """The PM deposit kernels vs the twin in float64 and float32 on
+    DEPOSIT_SCENES at 4M and G = 128; -> the kernel table's stats (the
+    two-shell scene, the benchmark's) and every scene's numbers."""
+    import torch
+
+    from multi_adapter_particles_torch.ops import pm
+
+    g = PM_GRID
+    ncell = g ** 3
+    log(f"phase 15b: PM deposit kernels (csrc/cic_deposit.cu) vs the "
+        f"float64 twin @ {N_MAIN:,}, G={g}")
+    scenes = {}
+    for i, name in enumerate(DEPOSIT_SCENES):
+        pos = deposit_scene(name, N_MAIN, g, BOX, seed=1500 + i, device=dev)
+        sbase, sfrac = pm._sort_by_cell(pos, g, BOX)
+        del pos
+        bounds = pm._segment_bounds(sbase, ncell)
+        rho, rho32, rho64, inside = deposit_errors(sbase, sfrac, g)
+        for _ in range(2):
+            again, again_inside = pm._deposit_sorted(sbase, sfrac, g)
+            if not (torch.equal(again, rho)
+                    and torch.equal(again_inside, inside)):
+                fail(f"deposit {name}: two runs differ")
+        if not bool(torch.isfinite(rho).all()):
+            fail(f"deposit {name}: non-finite grid")
+        err, twin_err = rel_err(rho, rho64), rel_err(rho32, rho64)
+        abs_err = float((rho.double() - rho64).abs().max())
+        live = int((sbase < ncell).sum())
+        if int(inside) != live:
+            fail(f"deposit {name}: inside {int(inside)}, the twin's {live}")
+        if err > DEPOSIT_LIMIT or err > twin_err:
+            fail(f"deposit {name}: max|rho - rho64| / max|rho64| {err:.3e}, "
+                 f"over {DEPOSIT_LIMIT:.0e} or the float32 twin's "
+                 f"{twin_err:.3e}")
+        runs = bounds[1:] - bounds[:-1]
+        occupied, longest = int((runs > 0).sum()), int(runs.max())
+        del rho, rho32, rho64, runs
+        ms = time_ms(lambda: pm.deposit_sorted_cuda(sbase, sfrac, bounds, g),
+                     20)
+        plain_ms = time_ms(
+            lambda: pm.deposit_sorted_plain(sbase, sfrac, bounds, g), 5)
+        _, launches = launch_profile(
+            lambda: pm.deposit_sorted_cuda(sbase, sfrac, bounds, g))
+        per_kernel = {k: round(v, 5) for k, v in launches}
+        # what the function needs: sbase (8 B) and sfrac (12 B) of each
+        # particle on the mesh, bounds and the grid once; the kernels' own
+        # histogram round trip (8 corners of each occupied cell) apart
+        nbytes = 20 * live + 8 * (ncell + 1) + 4 * ncell
+        hist_bytes = 64 * occupied
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {name}: {live:,} inside, {occupied:,} occupied cells, "
+            f"longest run {longest:,}; err {err:.3e} of max|rho64|, "
+            f"{abs_err:.3e} absolute (float32 twin {twin_err:.3e}); 3 runs "
+            f"bitwise; kernels {ms:.4f} ms ({per_kernel}), twin "
+            f"{plain_ms:.3f} ms; bound {bound:.4f} ms ({nbytes / 1e6:.1f} "
+            f"MB) -> {bound / ms:.1%} of it; histogram round trip "
+            f"{hist_bytes / 1e6:.1f} MB more")
+        scenes[name] = {"max_rel_err": err, "max_abs_err": abs_err,
+                        "twin_rel_err": twin_err, "hist_bytes": hist_bytes,
+                        "inside": live, "occupied": occupied,
+                        "longest": longest, "ms": ms, "plain_ms": plain_ms,
+                        "kernels_ms": per_kernel, "bound_ms": bound}
+        del sbase, sfrac, bounds
+        torch.cuda.empty_cache()
+    main = scenes["two shells"]
+    return {"max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "scenes": scenes}
+
+
 def phase_pm_main_path():
     import statistics
 
@@ -3265,21 +3417,26 @@ def phase_pm_main_path():
     log(f"phase 16: pm_grid main path — app.main -force pm_grid "
         f"-numparticles {n} -pmgrid {PM_GRID} -nodraw -steps {PM_STEPS}")
     t0 = time.perf_counter()
-    metrics, seen = _run_app(
+    (metrics, seen), got = counted(lambda: _run_app(
         ["-force", "pm_grid", "-numparticles", str(n), "-pmgrid",
          str(PM_GRID), "-nodraw", "-novsync", "-nogui",
-         "-steps", str(PM_STEPS)], PM_STEPS, draw=False)
+         "-steps", str(PM_STEPS)], PM_STEPS, draw=False), ("cic_deposit",))
     wall = time.perf_counter() - t0
     if seen["config"].force_model != "pm_grid":
         fail(f"ran {seen['config'].force_model}")
+    if got["cic_deposit"] < PM_STEPS:
+        fail(f"the deposit kernels launched {got['cic_deposit']} times in "
+             f"{PM_STEPS} steps")
     frames = metrics["gauges"].get("device_frame_ms", [])
     step_ms = (statistics.median(frames) if frames
                else metrics["stages_ms"]["simulate"])
-    log(f"  rc 0, {PM_STEPS} steps in {wall:.2f} s wall; ms/step {step_ms:.3f}"
+    log(f"  rc 0, {PM_STEPS} steps in {wall:.2f} s wall (under "
+        f"torch.profiler), device launches {got}; ms/step {step_ms:.3f}"
         f" (CUDA events, median of {len(frames)}); simulate ms "
         f"{metrics['stages_ms']['simulate']:.3f} (EMA)")
     return {"step_ms": step_ms, "simulate_ms":
-            metrics["stages_ms"]["simulate"]}
+            metrics["stages_ms"]["simulate"],
+            "launches": got["cic_deposit"]}
 
 
 def phase_tree_main_path():
@@ -4814,6 +4971,9 @@ def main() -> int:
     rms = phase_tree_physics(tree.pop("scene"))
     torch.cuda.empty_cache()
     solve = phase_solve_memory(dev)
+    torch.cuda.empty_cache()
+    deposit = phase_pm_deposit(dev)
+    torch.cuda.empty_cache()
     pm_path = phase_pm_main_path()
     torch.cuda.empty_cache()
     tree_launches, tree_path = phase_tree_main_path()
@@ -4858,6 +5018,9 @@ def main() -> int:
     kernels = [
         entry("central_well", "central_well.cu", "central_well.py:32",
               launches["central_well"], cw),
+        entry("cic_deposit", "cic_deposit.cu",
+              "none: multi_adapter_particles_tpu/ops/pm.py deposit_cic is "
+              "XLA ops", pm_path["launches"], deposit),
         entry("composite_tiles", "composite_tiles.cu", "composite.py:34",
               launches["composite_tiles"], {**tiles, "max_abs_err": max(
                   tiles["max_abs_err"], frame_err)}),
@@ -4903,6 +5066,8 @@ def main() -> int:
         f"RMS vs exact {rms:.4e} of max|a|; solve B/cell {json.dumps(solve)};"
         f" pm_grid @{N_MAIN:,} G={PM_GRID} {json.dumps(pm_path)}; main path "
         f"{json.dumps(tree_path)}; launches {json.dumps(tree_launches)}")
+    log(f"PM deposit @{N_MAIN:,} G={PM_GRID}: "
+        f"{json.dumps(deposit['scenes'])}")
     log(f"diagnostics: 4M gauge sweep {json.dumps(gauge)}; exact vs mesh "
         f"@{N_TREE_CHECK:,} {json.dumps(exact)}; main paths "
         f"{json.dumps(diag_path)}; launches {json.dumps(diag_launches)}")

@@ -7,11 +7,16 @@ zero-padded FFTs (free space, not periodic), take central differences,
 and interpolate the three acceleration grids back to the particles.
 
 - **Deposit** (`deposit_cic`): one stable sort of the base cell ids
-  carrying the three CIC fractions, then one cumsum over the 8 corner
-  weights and a gather at the per-cell segment bounds gives 8 histograms,
-  added to the grid as 8 shifted slices. No `index_add_`/`scatter_add_`:
-  their float atomics on CUDA would break the port's promise that a step
-  is the same from run to run.
+  carrying the three CIC fractions, and the per-cell segment bounds of the
+  sorted ids (`searchsorted`). On CUDA two kernels (`csrc/cic_deposit.cu`)
+  sum each cell's run of sorted particles in a fixed order, tiles of
+  2,048 particles whatever the crowding, and add the 8 corner histograms
+  into the grid in the twin's corner order. On the CPU the plain twin
+  (`deposit_sorted_plain`, the JAX package's arithmetic) takes one cumsum
+  over the 8 corner weights, differences it at the bounds into 8
+  histograms and adds them to the grid as 8 shifted slices. Neither uses
+  `index_add_`/`scatter_add_`: their float atomics on CUDA would break
+  the port's promise that a step is the same from run to run.
 - **Solve**: axis-pruned rfft/fft on the doubled grid (both ends of every
   axis pruned) times a cached kernel spectrum, in complex64.
 - **Interpolate**: the 8 corner values of each acceleration grid (or of
@@ -36,12 +41,14 @@ rounding to float32) and lands every particle in the same base cell.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from multi_adapter_particles_torch.ops import _build
 from multi_adapter_particles_torch.runtime import trace
 
 Tensor = torch.Tensor
@@ -114,9 +121,11 @@ def _sort_by_cell(position: Tensor, grid: int, box: float):
     return sbase, frac[:, order]
 
 
-def _deposit_sorted(sbase: Tensor, sfrac: Tensor, grid: int):
-    """Sorted cell ids + fractions -> (CIC count grid [G, G, G], the
-    number of ids inside the mesh: the last segment bound, a 0-d int64)."""
+def deposit_sorted_plain(sbase: Tensor, sfrac: Tensor, bounds: Tensor,
+                         grid: int) -> Tensor:
+    """Sorted cell ids [N], fractions [3, N] and segment bounds [G³+1] ->
+    CIC count grid [G, G, G] in sfrac's dtype: a cumsum of the 8 corner
+    weights differenced at the bounds, added as 8 shifted slices."""
     g = grid
     ncell = g * g * g
     live = sbase < ncell
@@ -125,16 +134,76 @@ def _deposit_sorted(sbase: Tensor, sfrac: Tensor, grid: int):
     # thread per column (8 threads over N, ~270 ms at 1M on an H100)
     sw8 = torch.stack([torch.where(live, w, 0.0)
                        for w in _corner_weights(sfrac)])          # [8, N]
-    bounds = _segment_bounds(sbase, ncell)
     csum = torch.cat([sw8.new_zeros((8, 1)), torch.cumsum(sw8, dim=1)],
                      dim=1)
     at_bounds = csum[:, bounds]                                  # [8, G³+1]
     hist8 = at_bounds[:, 1:] - at_bounds[:, :-1]
-    rho = torch.zeros((g, g, g), dtype=torch.float32, device=sbase.device)
+    rho = torch.zeros((g, g, g), dtype=sfrac.dtype, device=sbase.device)
     for c, (dz, dy, dx) in enumerate(_CORNERS):
         hist = hist8[c].reshape(g, g, g)
         # corner cell = base + (dx, dy, dz): the histogram shifted
         rho[dz:, dy:, dx:] += hist[:g - dz, :g - dy, :g - dx]
+    return rho
+
+
+# Rounding after every multiply, like the twin's separate ops: each corner
+# weight is bitwise the twin's.
+_NVCC_FLAGS = ("-fmad=false",)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.load("cic_deposit", _NVCC_FLAGS)
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.cic_deposit.argtypes = [p, p, ll, ctypes.c_int] + [p] * 6
+    lib.cic_deposit.restype = ctypes.c_int
+    lib.cic_tile.restype = ctypes.c_int
+    return lib
+
+
+def deposit_sorted_cuda(sbase: Tensor, sfrac: Tensor, bounds: Tensor,
+                        grid: int) -> Tensor:
+    """`deposit_sorted_plain` by the two kernels of `csrc/cic_deposit.cu`:
+    float32 only, each cell's run summed in a fixed order (not the twin's
+    cumsum, so not bitwise the twin), the same from run to run."""
+    g = grid
+    ncell = g * g * g
+    if not 0 < ncell < 2**31:
+        raise ValueError(f"deposit_sorted_cuda takes 0 < G³ < 2^31, got G={g}")
+    dev = sbase.device
+    if dev.type != "cuda":
+        raise ValueError(f"deposit_sorted_cuda runs on cuda, got {dev}")
+    n = sbase.shape[0]
+    _build.check_arg(sbase, torch.int64, (n,), dev, "sbase")
+    _build.check_arg(sfrac, torch.float32, (3, n), dev, "sfrac")
+    _build.check_arg(bounds, torch.int64, (ncell + 1,), dev, "bounds")
+    lib = _library()
+    tiles = -(-n // lib.cic_tile())
+    f32 = torch.float32
+    hist = torch.empty((8, ncell), dtype=f32, device=dev)
+    head = torch.empty((8, tiles), dtype=f32, device=dev)
+    tail = torch.empty((8, tiles), dtype=f32, device=dev)
+    rho = torch.empty((g, g, g), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.cic_deposit(sbase.data_ptr(), sfrac.data_ptr(), n, g,
+                             bounds.data_ptr(), hist.data_ptr(),
+                             head.data_ptr(), tail.data_ptr(),
+                             rho.data_ptr(), stream)
+    _build.check(rc, "cic_deposit")
+    return rho
+
+
+def _deposit_sorted(sbase: Tensor, sfrac: Tensor, grid: int):
+    """Sorted cell ids + fractions -> (CIC count grid [G, G, G], the
+    number of ids inside the mesh: the last segment bound, a 0-d int64).
+    CUDA tensors go to the kernels, CPU tensors to the plain twin."""
+    ncell = grid * grid * grid
+    bounds = _segment_bounds(sbase, ncell)
+    if sbase.device.type == "cpu":
+        rho = deposit_sorted_plain(sbase, sfrac, bounds, grid)
+    else:
+        rho = deposit_sorted_cuda(sbase, sfrac, bounds, grid)
     # a copy: a view would keep all G³+1 bounds alive through the solve
     return rho, bounds[ncell].clone()
 

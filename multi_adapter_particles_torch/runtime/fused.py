@@ -80,8 +80,9 @@ from multi_adapter_particles_torch.utils.timers import sync
 CAPTURED = {
     "central_well": "one kernel launch into the spare state",
     "all_pairs": "the accel kernel, then the Euler tail as torch ops",
-    "pm_grid": "torch sort, cumsum and index ops, and cuFFT (its plans and "
-               "the cached kernel spectrum made by the eager first frame)",
+    "pm_grid": "torch sort, searchsorted and index ops, the deposit's two "
+               "kernels, and cuFFT (its plans and the cached kernel "
+               "spectrum made by the eager first frame)",
     "p3m:slots": "pm_grid's mesh path, then the slot binning (a stable "
                  "sort, searchsorted, gathers), the 27 shifted-slice sweeps "
                  "over fixed slabs and a scatter; the overflow count stays "
